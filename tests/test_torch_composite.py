@@ -28,7 +28,10 @@ from vgtpu_torch.ops.composite import (  # noqa: E402
 )
 from vgtpu_torch.raster.binning import plan_from_numpy  # noqa: E402
 from vgtpu_torch.raster.frame import plan_host_arrays  # noqa: E402
-from vgtpu_torch.scenes.small import draw_feature_scene  # noqa: E402
+from vgtpu_torch.scenes.small import (  # noqa: E402
+    draw_feature_scene,
+    draw_resolve_scene,
+)
 
 W, H = 512, 256
 BG = (0.1, 0.2, 0.3, 1.0)
@@ -142,3 +145,170 @@ def test_k2_wrapper_refuses_cpu_tensors():
         composite_bucket_cuda(fb, fb, fb, fb, fb, None, fb, BG, tile_w=128,
                               flags=(False,) * 7)
     assert K2.launches == before
+
+
+_SS_FIELDS = {}
+
+
+def _ss_plan(ss):
+    """(vgtpu plan, port plan) of draw_resolve_scene at ss, both unsplit and
+    each a fresh copy: vgtpu records and bins once per ss, both packages get
+    the numpy fields."""
+    import copy
+
+    from vgtpu.raster.binning import FramePlan as FramePlanJ
+
+    if ss not in _SS_FIELDS:
+        from tests.fontdata import FONT_DATA
+        from vgtpu.raster.binning import bin_frame
+
+        if FONT_DATA is None:
+            pytest.skip("no test font: the texture lane needs text")
+        ctx = vgj.createContext(vgj.ContextConfig(device_sampling=False))
+        vgj.begin(ctx, 0, W, H, 1.0)
+        draw_resolve_scene(ctx, FONT_DATA, vg=vgj)
+        ctx._finalize_ops()
+        plan_j = bin_frame(ctx.ops, W, H, supersample=ss)
+        ctx._fill_textures(plan_j)
+        _SS_FIELDS[ss] = dataclasses.asdict(plan_j)
+    fields = _SS_FIELDS[ss]
+    return FramePlanJ(**copy.deepcopy(fields)), plan_from_numpy(fields)
+
+
+def _pallas_bucket(ew_t, pp, ct_t, npx_out, plan, flags, ss, **kw):
+    bg_vec = np.repeat(np.asarray(BG, np.float32), npx_out)[:, None]
+    return np.asarray(composite_bucket_pallas(
+        jnp.asarray(ew_t), jnp.asarray(pp),
+        None if ct_t is None else jnp.asarray(ct_t), jnp.asarray(bg_vec),
+        npx=plan.tile_h * plan.tile_w, tile_w=plan.tile_w, flags=flags,
+        interpret=True, ss=ss, **kw))
+
+
+def _twin_bucket(ew_t, pp, ct_t, npx_out, plan, flags, ss, **kw):
+    bg_vec = np.repeat(np.asarray(BG, np.float32), npx_out)[:, None]
+    return composite_bucket_torch(
+        torch.from_numpy(ew_t), torch.from_numpy(pp),
+        None if ct_t is None else torch.from_numpy(ct_t),
+        torch.from_numpy(bg_vec), tile_w=plan.tile_w, flags=flags, ss=ss,
+        **kw).numpy()
+
+
+@pytest.mark.parametrize("ss", [2, 4])
+def test_composite_bucket_torch_sub_rows_matches_pallas(ss):
+    """Form (d): raw sub-row coverage with the backdrop added, rule, AA,
+    scissor and clip per sub-row, ss-averaged; every bucket of the unsplit
+    plan, clip buckets included."""
+    from vgtpu_torch.ops.coverage import build_cov_gather_map
+    from vgtpu_torch.ops.composite import build_bucket_pteb
+    from vgtpu_torch.raster.binning import compute_tile_buckets
+    from vgtpu_torch.raster.frame import _compact_culled_chunks
+
+    _plan_j, plan = _ss_plan(ss)
+    plan.tile_buckets = compute_tile_buckets(
+        plan.tile_entries, plan.tile_entries.shape[0], plan.entry_kind, plan)
+    _compact_culled_chunks(plan)
+    m = build_cov_gather_map(plan.chunk_pools, plan.entry_backdrop.shape[0])
+    dead = int(sum(len(c) for _e, c in plan.chunk_pools))
+    from vgtpu_torch.ops.coverage import cov_all_resolved
+
+    cov = cov_all_resolved(
+        [torch.from_numpy(np.ascontiguousarray(ce)) for ce, _c in plan.chunk_pools],
+        {"extra_chunk": torch.from_numpy(m["extra_chunk"]),
+         "extra_primary": torch.from_numpy(m["extra_primary"])},
+        plan.tile_h, plan.tile_w).numpy()
+    npx_out = plan.tile_h // ss * plan.tile_w
+    seen = np.zeros(7, bool)
+    for te_b, _ids, flags in plan.tile_buckets:
+        flags = tuple(bool(f) for f in flags)
+        seen |= flags
+        pp, ct_t = build_bucket_aux(plan, te_b, need_ct=flags[2])
+        pteb = build_bucket_pteb(te_b, m["primary"], dead)
+        ew_t = np.ascontiguousarray(cov[pteb].transpose(1, 2, 0))
+        ref = _pallas_bucket(ew_t, pp, ct_t, npx_out, plan, flags, ss,
+                             add_backdrop=True)
+        got = _twin_bucket(ew_t, pp, ct_t, npx_out, plan, flags, ss)
+        assert got.shape == ref.shape == (4 * npx_out, pteb.shape[0])
+        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+    assert seen.all(), f"scene misses a lane: {seen}"
+
+
+def _split_cov(plan, host):
+    from vgtpu_torch.ops.coverage_resolve import cov_split_resolved
+
+    from vgtpu_torch.raster.frame import _put
+
+    return cov_split_resolved(_put(host["chunk_edges"], "cpu"),
+                              _put(host["res"], "cpu"), plan.tile_h,
+                              plan.tile_w, plan.supersample)
+
+
+def test_composite_bucket_torch_final_matches_pallas():
+    """Form (e): final coverage of the resolve split with resolved-backdrop
+    rows, every non-clip bucket, the scissor lane and non-zero rbd among
+    them."""
+    ss = 2
+    _plan_j, plan = _ss_plan(ss)
+    host = plan_host_arrays(plan)
+    assert host["res"] is not None
+    cov_final = _split_cov(plan, host)[0].numpy()
+    npx_out = plan.tile_h // ss * plan.tile_w
+    scissor_rbd = False
+    for (te_b, _ids, _fl), pteb, pp, rbd, flags in zip(
+            plan.tile_buckets, host["bucket_pteb"], host["bucket_params"],
+            host["bucket_rbd"], host["bucket_flags"]):
+        if flags[3]:
+            continue
+        scissor_rbd |= bool(flags[6] and rbd.any())
+        _pp, ct_t = build_bucket_aux(plan, te_b, need_ct=flags[2])
+        ew_t = np.ascontiguousarray(cov_final[pteb].transpose(1, 2, 0))
+        ref = _pallas_bucket(ew_t, pp, ct_t, npx_out, plan, flags, ss,
+                             cov_final=True, rbd_t=jnp.asarray(rbd))
+        got = _twin_bucket(ew_t, pp, ct_t, npx_out, plan, flags, ss,
+                           cov_final=True, rbd_t=torch.from_numpy(rbd))
+        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+    assert scissor_rbd, "no scissored bucket with resolved-backdrop rows"
+
+
+def test_frame_fb_split_matches_frame_fb_pallas():
+    """The whole supersampled fused frame: cov_split_resolved + frame_fb
+    (forms (d) and (e)) against vgtpu's frame_fb_pallas on its own split,
+    the bound of tests/test_resolve_path.py."""
+    from vgtpu.ops.coverage_resolve import cov_split_resolved as split_j
+    from vgtpu.raster import frame as frame_j
+
+    ss = 2
+    plan_j, plan = _ss_plan(ss)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(frame_j, "_fused_platform", lambda: True)
+    try:
+        d = frame_j.plan_to_device(plan_j)
+        frame_j.promote_resident(plan_j, d)
+    finally:
+        mp.undo()
+    nt = plan.ntx * plan.nty
+    fin_j, sub_j = split_j(d["chunk_pools"], d["res"], plan_j.tile_h,
+                           plan_j.tile_w, ss)
+    ref = np.asarray(frame_fb_pallas(
+        sub_j, d["tile_buckets"], d["res"]["pteb"], d["bucket_params"],
+        d["bucket_cts"], jnp.asarray(np.asarray(BG, np.float32)),
+        tile_h=plan_j.tile_h, tile_w=plan_j.tile_w, num_tiles=nt,
+        bucket_flags=d["bucket_flags"], interpret=True, ss=ss,
+        cov_final_arr=fin_j, bucket_rbd=d["res"]["rbd"]))
+
+    host = plan_host_arrays(plan)
+    cov_final, cov_sub = _split_cov(plan, host)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    got = frame_fb(
+        cov_sub, [t(x) for x in host["bucket_ids"]],
+        [t(x) for x in host["bucket_pteb"]],
+        [t(x) for x in host["bucket_params"]],
+        [t(x) for x in host["bucket_ctile"]], t(host["ct_flat"]), BG,
+        tile_h=plan.tile_h, tile_w=plan.tile_w, num_tiles=nt,
+        bucket_flags=host["bucket_flags"], ss=ss, cov_final_arr=cov_final,
+        bucket_rbd=[t(x) for x in host["bucket_rbd"]])
+    assert got.shape == ref.shape == (nt, plan.tile_h // ss, plan.tile_w, 4)
+    np.testing.assert_allclose(got.numpy(), ref, atol=3e-6, rtol=0)
+

@@ -96,6 +96,12 @@ def test_port_imports_and_renders_with_jax_blocked():
         "img = vg.end(ctx)\n"
         "assert img.shape == (256, 512, 4) and bool(torch.isfinite(img).all())\n"
         "assert float(img[..., 3].min()) > 0.99\n"
+        "ctx = vg.createContext(vg.ContextConfig(coverage_supersample=2), device='cpu')\n"
+        "vg.begin(ctx, 0, 512, 256, 1.0)\n"
+        "draw_small_scene(ctx)\n"
+        "img = vg.end(ctx)\n"
+        "assert img.shape == (256, 512, 4) and bool(torch.isfinite(img).all())\n"
+        "assert ctx.last_device_arrays['res'] is not None\n"
         "bad = [m for m in sys.modules if m == 'vgtpu' or m.startswith('vgtpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -131,11 +137,111 @@ def test_unported_entry_points_raise(call):
         call(ctx)
 
 
-def test_supersampled_frames_raise():
-    ctx = vgt.createContext(vgt.ContextConfig(coverage_supersample=2), device="cpu")
-    vgt.begin(ctx, 0, 128, 64, 1.0)
-    vgt.beginPath(ctx)
-    vgt.circle(ctx, 30, 30, 20)
-    vgt.fillPath(ctx, vgt.Colors.Red, vgt.FillFlags.ConvexAA)
-    with pytest.raises(NotImplementedError, match="ss>1"):
-        vgt.end(ctx)
+def _ss_scene(ctx, vg, font_data):
+    """A 256x128 scene for the supersampled path: clip, scissor, both fill
+    rules, non-AA, a gradient, an image pattern, text, a large translucent
+    fill (chunkless interiors) and a dense zig-zag (a multi-chunk entry)."""
+    g = vg.createLinearGradient(ctx, 5, 5, 120, 70, vg.Colors.Red, vg.Colors.Blue)
+    vg.beginPath(ctx)
+    vg.roundedRect(ctx, 5, 5, 115, 65, 12)
+    vg.fillPath(ctx, g, vg.FillFlags.ConvexAA)
+    ang = -np.pi / 2 + np.arange(5) * (4 * np.pi / 5)
+    vg.beginPath(ctx)
+    vg.moveTo(ctx, 200 + 40 * np.cos(ang[0]), 50 + 40 * np.sin(ang[0]))
+    for a in ang[1:]:
+        vg.lineTo(ctx, 200 + 40 * np.cos(a), 50 + 40 * np.sin(a))
+    vg.closePath(ctx)
+    vg.fillPath(ctx, vg.color4ub(40, 220, 120, 200), vg.FillFlags.ConcaveEvenOddAA)
+    vg.setScissor(ctx, 13, 33, 181, 61)
+    vg.beginPath(ctx)
+    vg.rect(ctx, -10, 20, 280, 100)
+    vg.fillPath(ctx, vg.color4ub(20, 40, 90, 120), vg.FillFlags.ConvexAA)
+    vg.resetScissor(ctx)
+    vg.beginClip(ctx, vg.ClipRule.Out)
+    vg.beginPath(ctx)
+    vg.circle(ctx, 70, 95, 25)
+    vg.fillPath(ctx, vg.Colors.Black, vg.FillFlags.Convex)
+    vg.endClip(ctx)
+    vg.beginPath(ctx)
+    vg.rect(ctx, 30, 75, 90, 45)
+    vg.fillPath(ctx, vg.color4ub(230, 90, 30, 255), vg.FillFlags.Convex)
+    vg.resetClip(ctx)
+    vg.beginPath(ctx)
+    vg.moveTo(ctx, 130.0, 90.0)
+    for i in range(50):
+        vg.lineTo(ctx, 132.0 + i * 1.5, 90.0 + (7.0 if i % 2 else -7.0))
+    vg.lineTo(ctx, 130.0, 110.0)
+    vg.closePath(ctx)
+    vg.fillPath(ctx, vg.color4ub(220, 120, 30, 255), vg.FillFlags.ConcaveNonZeroAA)
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 255, (16, 16, 4), np.uint8)
+    img[..., 3] = 255
+    h_img = vg.createImage(ctx, 16, 16, 0, img)
+    p = vg.createImagePattern(ctx, 200, 96, 32, 32, 0.0, h_img)
+    vg.beginPath(ctx)
+    vg.rect(ctx, 196, 92, 50, 30)
+    vg.fillPath(ctx, p, vg.Colors.White, vg.FillFlags.ConvexAA)
+    if font_data is not None:
+        f = vg.createFont(ctx, "sans", font_data, len(font_data), 0)
+        cfg = vg.makeTextConfig(ctx, f, 18.0, vg.TextAlign.BaselineLeft,
+                                vg.Colors.White)
+        vg.text(ctx, cfg, 130, 24, "ss frame")
+
+
+def _clip_everything(ctx, vg, font_data):
+    """Every tile holds clip commands, so no chunk is resolvable and the
+    split returns None: every bucket takes form (d)."""
+    vg.beginClip(ctx, vg.ClipRule.In)
+    vg.beginPath(ctx)
+    vg.rect(ctx, 0, 0, 256, 128)
+    vg.fillPath(ctx, vg.Colors.Black, vg.FillFlags.Convex)
+    vg.endClip(ctx)
+    _ss_scene(ctx, vg, font_data)
+    vg.resetClip(ctx)
+
+
+def _end_both(draw, ss, w=256, h=128):
+    ctx_j = vgj.createContext(vgj.ContextConfig(device_sampling=False,
+                                                coverage_supersample=ss))
+    vgj.begin(ctx_j, 0, w, h, 1.0)
+    draw(ctx_j, vgj, FONT_DATA)
+    ref = np.asarray(vgj.end(ctx_j, background=BG))
+    ctx = vgt.createContext(vgt.ContextConfig(coverage_supersample=ss),
+                            device="cpu")
+    vgt.begin(ctx, 0, w, h, 1.0)
+    draw(ctx, vgt, FONT_DATA)
+    img = vgt.end(ctx, background=BG)
+    assert img.shape == (h, w, 4) and img.device.type == "cpu"
+    np.testing.assert_allclose(img.numpy(), ref, atol=1e-5, rtol=0)
+    u8 = image_to_u8(img).astype(np.int16)
+    assert np.abs(u8 - image_to_u8_j(ref).astype(np.int16)).max() <= 1
+    return ctx
+
+
+@pytest.mark.parametrize("ss", [2, 4])
+def test_end_matches_vgtpu_supersampled(ss):
+    """vgtpu renders its XLA composite on the CPU; the port splits the
+    pools and runs K3's and K2's twins (forms (d) and (e))."""
+    ctx = _end_both(_ss_scene, ss)
+    rh = ctx.last_plan.resolve_host
+    assert rh["nres"] > 0 and rh["nraw"] > 0
+    d = ctx.last_device_arrays
+    assert d["res"] is not None
+    flags = d["bucket_flags"]
+    assert any(f[3] for f in flags) and not all(f[3] for f in flags)
+    assert any(f[2] for f in flags), "no textured bucket"
+    assert any(r is not None and bool(r.any()) for r in d["bucket_rbd"])
+    assert ctx.last_plan.color_tiles.shape[1] == ctx.cfg.tile_h
+
+
+def test_end_supersampled_without_split():
+    ctx = _end_both(_clip_everything, 2)
+    assert ctx.last_plan.resolve_host == {}
+    d = ctx.last_device_arrays
+    assert d["res"] is None and all(f[3] for f in d["bucket_flags"])
+
+
+def test_end_supersampled_ss8():
+    """ss=8: 64 sub-rows per tile, within K3's and K2's limits."""
+    ctx = _end_both(_ss_scene, 8, w=128, h=64)
+    assert ctx.last_plan.tile_h == 64

@@ -19,16 +19,18 @@ import vgtpu_torch as vgt  # noqa: E402
 from tests.fontdata import FONT_DATA  # noqa: E402
 
 
-def _plan(vg, draw, w, h, dpr):
+def _plan(vg, draw, w, h, dpr, ss=1):
     """Record through `vg`, then bin, sample textures and bucket tiles with
     that package's own host modules (vgtpu samples on the host too)."""
     import importlib
 
     binning = importlib.import_module(f"{vg.__name__}.raster.binning")
     if vg is vgj:
-        ctx = vg.createContext(vg.ContextConfig(device_sampling=False))
+        ctx = vg.createContext(vg.ContextConfig(device_sampling=False,
+                                                coverage_supersample=ss))
     else:
-        ctx = vg.createContext(device="cpu")
+        ctx = vg.createContext(vg.ContextConfig(coverage_supersample=ss),
+                               device="cpu")
     cfg = ctx.cfg
     vg.begin(ctx, 0, w, h, dpr)
     draw(ctx, vg)
@@ -79,16 +81,20 @@ def _tiger_ui(ctx, vg):
     importlib.import_module(f"{vg.__name__}.scenes.demo_ui").draw_benchmark_frame(ctx, 0.0)
 
 
-@pytest.mark.parametrize("scene,size", [
-    (_small, (512, 256, 1.0)),
+@pytest.mark.parametrize("scene,size,ss", [
+    (_small, (512, 256, 1.0), 1),
     # the north-star frame's 1920x1080 canvas rendered at dpr 0.5 (960x540)
-    (_tiger_ui, (1920, 1080, 0.5)),
-], ids=["small", "tiger_ui_half"])
-def test_plans_bit_identical(scene, size):
+    (_tiger_ui, (1920, 1080, 0.5), 1),
+    # the parity mode: sub-row geometry, (2,4,6,12,24) pools, colour tiles
+    # on the output rows
+    (_small, (512, 256, 1.0), 2),
+], ids=["small", "tiger_ui_half", "small_ss2"])
+def test_plans_bit_identical(scene, size, ss):
     if FONT_DATA is None:
         pytest.skip("no test font: text would drop from both scenes")
-    pj = _plan(vgj, scene, *size)
-    pt = _plan(vgt, scene, *size)
+    pj = _plan(vgj, scene, *size, ss=ss)
+    pt = _plan(vgt, scene, *size, ss=ss)
+    assert pt.supersample == ss and pt.tile_h == 8 * ss
     assert pt.n_real_entries > 0 and pt.color_tiles.shape[0] > 1
     assert_plans_equal(pj, pt)
 

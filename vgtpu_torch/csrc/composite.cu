@@ -1,45 +1,67 @@
 // K2: the fused painter composite of one bucket of tiles.
 //
 // Replaces the Pallas TPU kernel vgtpu/ops/composite_pallas.py::_kernel_rows
-// (driven by composite_bucket_pallas / frame_fb_pallas) for its ss=1 form:
-// add_backdrop, a broadcast background, one variant (k_rep=1), raw sub-row
-// coverage (cov_final=False).  Per tile it scans the bucket's MO painter
-// slots in order; per slot and pixel it
-//   - adds the entry's per-row backdrop (params rows _P_BD = 32..32+TH),
-//   - applies the fill rule: nonzero min(|w|,1), even-odd 1-|mod(w,2)-1|
-//     (floored mod, as jnp.mod), non-AA >= 0.5, textured quads forced to 1,
-//     and the pixel-centre scissor,
-//   - updates the clip state: ADD accumulates, COMMIT tests > 0.5 with the
-//     In/Out rule, RESET clears,
+// (driven by composite_bucket_pallas / frame_fb_pallas) in three forms, all
+// with a broadcast background and one variant (k_rep=1):
+//   (a) ss = 1 and (d) ss > 1, over raw sub-row winding (add_backdrop):
+//       per tile it scans the bucket's MO painter slots in order; per slot
+//       and sub-pixel it
+//       - adds the entry's per-sub-row backdrop (params rows _P_BD..+TH),
+//       - applies the fill rule: nonzero min(|w|,1), even-odd
+//         1-|mod(w,2)-1| (floored mod, as jnp.mod), non-AA >= 0.5, textured
+//         quads forced to 1, and the pixel-centre scissor on the sub-row
+//         centre,
+//       - updates the clip state: ADD accumulates, COMMIT tests > 0.5 with
+//         the In/Out rule, RESET clears;
+//       the masked coverage of the ss sub-rows of an output pixel is summed
+//       in order and multiplied by 1/ss, then, once per output pixel, it
+//   (e) over FINAL output-domain coverage (cov_final, csrc/
+//       coverage_resolve.cu), for buckets without the clip lane: coverage is
+//       c = valid ? ew + rbd[row] * ins_x : 0, where rbd holds the resolved
+//       backdrop rows of chunkless slots and ins_x is the x half of the
+//       scissor (only when the scissor lane is on); then it
 //   - shades solid / gradient (inverse paint matrix, sdroundrect, feather) /
-//     triangle affine colour / colour-tile texture,
+//     triangle affine colour / colour-tile texture at the output pixel
+//     (paint row oy/ss + output-row centre),
 //   - blends premultiplied src-over into the framebuffer.
 // The seven lane flags (gradient, tri, texture, clip, even-odd, non-AA,
-// scissor) are the template bit mask F, so a bucket compiles only its lanes.
-// The plain twin is vgtpu_torch/ops/composite.py::composite_bucket_torch.
+// scissor) are the template bit mask F of forms (a)/(d), so a bucket
+// compiles only its lanes; ss is a runtime loop bound.  Form (e) reads only
+// four lanes (gradient, tri, texture, scissor): its own template G, 16
+// instantiations.  The plain twin is vgtpu_torch/ops/composite.py::
+// composite_bucket_torch.
 //
 // What bounds it on an H100: memory traffic of the coverage gather.  Each
-// (tile, slot) reads one 4 KB coverage row (and 16 KB of colour tile on
-// texture slots) and does ~30-60 float ops per pixel, so the kernel sits
-// near the bandwidth side of the roofline; the framebuffer and clip state
-// never leave registers.
+// (tile, slot) reads one coverage row of 4*ss KB (forms (a)/(d)) or 4 KB
+// (form (e)), and 16 KB of colour tile on texture slots, and does ~30-60
+// float ops per pixel, so the kernel sits near the bandwidth side of the
+// roofline; the framebuffer never leaves registers.
 //
-// Design: one block per tile of the bucket, blockDim = TH*TW/4 threads,
-// each thread owns 4 pixels p = threadIdx.x + k*blockDim.x and keeps their 4
-// framebuffer channels (plus the clip mask and accumulator when the clip
-// lane is on) in registers across the sequential slot loop — the loop that
-// was the TPU kernel's sequential grid axis.  Per slot the block reads that
-// slot's params column (block-uniform loads) and gathers the coverage row
-// cov_all[pteb[t, slot]] inside the kernel, so the TPU path's (MO, NPX, Nb)
-// ew_t transpose is never materialized; colour tiles are gathered the same
-// way from the channel-major (NCT+1, 4*NPX) ct_flat by ctile id.  The
-// finished tile is stored as float4 pixels into the (T+1, TH, TW, 4)
-// framebuffer at row ids[t]; pad tiles write the scratch row T.
+// Design: one block per tile of the bucket, blockDim = TH_OUT*TW/4 threads
+// (256 for 8x128 output tiles, the launch bound); each thread owns 4 output
+// pixels p = threadIdx.x + k*blockDim.x and keeps their 4 framebuffer
+// channels in registers across the sequential slot loop — the loop that was
+// the TPU kernel's sequential grid axis.  Per slot it walks the ss sub-rows
+// with its 4 pixels innermost and unrolled, so each sub-row's 4 coverage
+// loads are in flight together (a pixel-outer order serialised them: 1.7x
+// the device time at ss=1 on an H100 80GB HBM3 at 700 W), then shades and
+// blends the 4 pixels.  The clip mask and accumulator of the thread's 4*ss
+// sub-pixels live in dynamic shared memory (2*TH*TW floats, clip lane
+// only): ss is a runtime value, so they cannot be a register array, and
+// each thread touches only its own sub-pixels, so no barrier is needed.  Per slot the
+// block reads that slot's params column (block-uniform loads) and gathers
+// the coverage row cov[pteb[t, slot]] inside the kernel, so the TPU path's
+// (MO, NPX, Nb) ew_t transpose is never materialized; colour tiles are
+// gathered the same way from the channel-major (NCT+1, 4*NPX_OUT) ct_flat
+// by ctile id.  The finished tile is stored as float4 pixels into the
+// (T+1, TH_OUT, TW, 4) framebuffer at row ids[t]; pad tiles write the
+// scratch row T.
 //
 // Rounding: IEEE division and sqrt are kept (no --use_fast_math) and the
 // library is built with -fmad=false; the gradient's paint-space
 // coordinates take one explicit __fmaf_rn each, as the plain twin does, so
-// kernel and twin round the same operations the same way.
+// kernel and twin round the same operations the same way.  1/ss is a power
+// of two, so oy*(1/ss) and the coverage average are exact products.
 
 #include <cuda_runtime.h>
 
@@ -56,10 +78,71 @@ constexpr float K_DRAW = 0.f, K_CLIP_ADD = 1.f, K_CLIP_COMMIT = 2.f;
 constexpr float K_CLIP_RESET = 3.f;
 constexpr float PK_GRADIENT = 1.f, PK_IMAGE = 2.f, PK_TEXTURE = 3.f;
 constexpr float PK_TRI = 4.f;
-constexpr int kPix = 4;  // pixels per thread
+constexpr int kPix = 4;       // output pixels per thread
+constexpr int kThreads = 256; // TH_OUT*TW/kPix for 8x128 output tiles
 
+// Shade one output pixel and blend coverage c over (fr, fg, fb, fa).  pp
+// points at this (slot, tile)'s params column (row stride nbp).
+template <bool kGrad, bool kTri, bool kTex>
+__device__ __forceinline__ void shade_blend(const float* pp, int nbp,
+                                            float pk, bool use_ct,
+                                            const float* ctp, int p,
+                                            int npx_out, float pxc, float pyc,
+                                            float c, float& fr, float& fg,
+                                            float& fbl, float& fa) {
+  auto P = [&](int row) { return __ldg(pp + static_cast<size_t>(row) * nbp); };
+  const float inner_r = P(P_PAINT + 10), inner_g = P(P_PAINT + 11);
+  const float inner_b = P(P_PAINT + 12), inner_a = P(P_PAINT + 13);
+  float col_r = inner_r, col_g = inner_g, col_b = inner_b, col_a = inner_a;
+  if (kGrad && pk == PK_GRADIENT) {
+    // the one FMA per coordinate the reference XLA contracts: u is ~1e5 for
+    // linear gradients, where an ulp moves d by ~3e-5
+    const float ux = __fmaf_rn(P(P_PAINT + 0), pxc, P(P_PAINT + 2) * pyc) + P(P_PAINT + 4);
+    const float uy = __fmaf_rn(P(P_PAINT + 1), pxc, P(P_PAINT + 3) * pyc) + P(P_PAINT + 5);
+    const float ex = P(P_PAINT + 6), ey = P(P_PAINT + 7);
+    const float rad = P(P_PAINT + 8);
+    const float feather = fmaxf(P(P_PAINT + 9), 1e-6f);
+    const float dx = fabsf(ux) - (ex - rad);
+    const float dy = fabsf(uy) - (ey - rad);
+    const float mx = fmaxf(dx, 0.f), my = fmaxf(dy, 0.f);
+    const float sd = fminf(fmaxf(dx, dy), 0.f) + sqrtf(mx * mx + my * my) - rad;
+    const float d = fminf(fmaxf((sd + feather * 0.5f) / feather, 0.f), 1.f);
+    col_r = inner_r * (1.f - d) + P(P_PAINT + 14) * d;
+    col_g = inner_g * (1.f - d) + P(P_PAINT + 15) * d;
+    col_b = inner_b * (1.f - d) + P(P_PAINT + 16) * d;
+    col_a = inner_a * (1.f - d) + P(P_PAINT + 17) * d;
+  }
+  if (kTri && pk == PK_TRI) {
+    col_r = P(P_PAINT + 0) * pxc + P(P_PAINT + 4) * pyc + P(P_PAINT + 8);
+    col_g = P(P_PAINT + 1) * pxc + P(P_PAINT + 5) * pyc + P(P_PAINT + 9);
+    col_b = P(P_PAINT + 2) * pxc + P(P_PAINT + 6) * pyc + P(P_PAINT + 10);
+    col_a = P(P_PAINT + 3) * pxc + P(P_PAINT + 7) * pyc + P(P_PAINT + 11);
+  }
+
+  float src_r, src_g, src_b, src_a;
+  if (kTex && use_ct) {
+    src_r = ctp[p];
+    src_g = ctp[npx_out + p];
+    src_b = ctp[2 * npx_out + p];
+    src_a = ctp[3 * npx_out + p];
+  } else {
+    src_r = col_r * col_a;
+    src_g = col_g * col_a;
+    src_b = col_b * col_a;
+    src_a = col_a;
+  }
+
+  const float a = src_a * c;
+  const float one_minus_a = 1.f - a;
+  fr = src_r * c + fr * one_minus_a;
+  fg = src_g * c + fg * one_minus_a;
+  fbl = src_b * c + fbl * one_minus_a;
+  fa = a + fa * one_minus_a;
+}
+
+// Forms (a) ss = 1 and (d) ss > 1: raw sub-row winding.
 template <int F>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads)
 composite_bucket_kernel(const float* __restrict__ cov,
                         const int* __restrict__ pteb,
                         const float* __restrict__ params,
@@ -67,20 +150,33 @@ composite_bucket_kernel(const float* __restrict__ cov,
                         const int* __restrict__ ctile,
                         const int* __restrict__ ids, float4 bg,
                         float* __restrict__ fb, int nbp, int mo, int npp,
-                        int tile_w, int npx) {
+                        int tile_w, int npx_out, int ss) {
   constexpr bool kGrad = F & 1, kTri = F & 2, kTex = F & 4, kClip = F & 8;
   constexpr bool kEo = F & 16, kNoAa = F & 32, kScissor = F & 64;
+  // clip lane: mask[npx], accum[npx] over the tile's sub-pixels
+  extern __shared__ float clip_state[];
   const int t = blockIdx.x;
+  const int npx = npx_out * ss;
+  const float inv_ss = 1.f / static_cast<float>(ss);
+  float* smask = clip_state;
+  float* saccum = clip_state + npx;
 
-  float fr[kPix], fg[kPix], fbl[kPix], fa[kPix], mask[kPix], accum[kPix];
+  float fr[kPix], fg[kPix], fbl[kPix], fa[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     fr[k] = bg.x;
     fg[k] = bg.y;
     fbl[k] = bg.z;
     fa[k] = bg.w;
-    mask[k] = 1.f;
-    accum[k] = 0.f;
+    if (kClip) {
+      const int p = threadIdx.x + k * blockDim.x;
+      const int ro = p / tile_w;
+      const int col = p - ro * tile_w;
+      for (int s = 0; s < ss; ++s) {
+        smask[(ro * ss + s) * tile_w + col] = 1.f;
+        saccum[(ro * ss + s) * tile_w + col] = 0.f;
+      }
+    }
   }
 
   for (int slot = 0; slot < mo; ++slot) {
@@ -89,8 +185,6 @@ composite_bucket_kernel(const float* __restrict__ cov,
     const float valid = P(P_VALID), kind = P(P_KIND), rule = P(P_RULE);
     const float aa = P(P_AA), pk = P(P_PK);
     const float ox = P(P_OX), oy = P(P_OY);
-    const float inner_r = P(P_PAINT + 10), inner_g = P(P_PAINT + 11);
-    const float inner_b = P(P_PAINT + 12), inner_a = P(P_PAINT + 13);
     const bool is_quad_tex = pk == PK_TEXTURE;
     const bool use_ct =
         kTex && (P(P_CTILE) > 0.f) && (is_quad_tex || pk == PK_IMAGE);
@@ -100,96 +194,133 @@ composite_bucket_kernel(const float* __restrict__ cov,
     const bool is_creset = valid > 0.f && kind == K_CLIP_RESET;
     const float* cw = cov + static_cast<size_t>(pteb[t * mo + slot]) * npx;
     const float* ctp = nullptr;
-    if (kTex) ctp = ct + static_cast<size_t>(ctile[t * mo + slot]) * 4 * npx;
+    if (kTex) ctp = ct + static_cast<size_t>(ctile[t * mo + slot]) * 4 * npx_out;
+
+    // sub-rows outermost, the thread's 4 pixels innermost and unrolled, so
+    // the 4 coverage loads of a sub-row are in flight together
+    float c_sum[kPix];
+    for (int s = 0; s < ss; ++s) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const int p = threadIdx.x + k * blockDim.x;   // output pixel
+        const int ro = p / tile_w;
+        const int col = p - ro * tile_w;
+        const int r = ro * ss + s;                    // sub-row
+        const int ps = r * tile_w + col;              // sub-pixel
+        const float pxl = static_cast<float>(col) + 0.5f;
+        const float pyl = static_cast<float>(r) + 0.5f;
+        const float w = cw[ps] + P(P_BD + r);
+        float cv = fminf(fabsf(w), 1.f);
+        if (kEo) {
+          const float md = w - 2.f * floorf(w * 0.5f);  // floored, as jnp.mod
+          const float cov_eo = 1.f - fabsf(md - 1.f);
+          cv = rule == 0.f ? cv : cov_eo;
+        }
+        if (kNoAa) cv = aa != 0.f ? cv : (cv >= 0.5f ? 1.f : 0.f);
+        if (kTex) cv = is_quad_tex ? 1.f : cv;
+        if (kScissor) {
+          const bool inside_y = (pyl >= P(P_SC + 1) - oy) && (pyl < P(P_SC + 3) - oy);
+          const bool inside = (pxl >= P(P_SC) - ox) && inside_y &&
+                              (pxl < P(P_SC + 2) - ox);
+          cv = cv * (inside ? 1.f : 0.f);
+        }
+
+        float c;
+        if (kClip) {
+          const float m = smask[ps];
+          c = (is_draw ? cv : 0.f) * m;
+          const float acc = is_cadd ? saccum[ps] + cv : saccum[ps];
+          const float inside_f = acc > 0.5f ? 1.f : 0.f;
+          const float committed = rule == 0.f ? inside_f : 1.f - inside_f;
+          smask[ps] = is_creset ? 1.f : (is_ccommit ? committed : m);
+          saccum[ps] = is_ccommit ? 0.f : acc;
+        } else {
+          c = valid > 0.f ? cv : 0.f;
+        }
+        c_sum[k] = s == 0 ? c : c_sum[k] + c;
+      }
+    }
 
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
       const int p = threadIdx.x + k * blockDim.x;
-      const int r = p / tile_w;
-      const float pxl = static_cast<float>(p - r * tile_w) + 0.5f;
-      const float pyl = static_cast<float>(r) + 0.5f;
-
-      const float w = cw[p] + P(P_BD + r);
-      float cv = fminf(fabsf(w), 1.f);
-      if (kEo) {
-        const float md = w - 2.f * floorf(w * 0.5f);  // floored, as jnp.mod
-        const float cov_eo = 1.f - fabsf(md - 1.f);
-        cv = rule == 0.f ? cv : cov_eo;
-      }
-      if (kNoAa) cv = aa != 0.f ? cv : (cv >= 0.5f ? 1.f : 0.f);
-      if (kTex) cv = is_quad_tex ? 1.f : cv;
-      if (kScissor) {
-        const bool inside_y = (pyl >= P(P_SC + 1) - oy) && (pyl < P(P_SC + 3) - oy);
-        const bool inside = (pxl >= P(P_SC) - ox) && inside_y &&
-                            (pxl < P(P_SC + 2) - ox);
-        cv = cv * (inside ? 1.f : 0.f);
-      }
-
-      float c;
-      if (kClip) {
-        c = (is_draw ? cv : 0.f) * mask[k];
-        const float acc = is_cadd ? accum[k] + cv : accum[k];
-        const float inside_f = acc > 0.5f ? 1.f : 0.f;
-        const float committed = rule == 0.f ? inside_f : 1.f - inside_f;
-        mask[k] = is_creset ? 1.f : (is_ccommit ? committed : mask[k]);
-        accum[k] = is_ccommit ? 0.f : acc;
-      } else {
-        c = valid > 0.f ? cv : 0.f;
-      }
-
-      float col_r = inner_r, col_g = inner_g, col_b = inner_b, col_a = inner_a;
-      if (kGrad || kTri) {
-        const float pxc = pxl + ox;
-        const float pyc = pyl + oy;
-        if (kGrad && pk == PK_GRADIENT) {
-          // the one FMA per coordinate the reference XLA contracts: u is
-          // ~1e5 for linear gradients, where an ulp moves d by ~3e-5
-          const float ux = __fmaf_rn(P(P_PAINT + 0), pxc, P(P_PAINT + 2) * pyc) + P(P_PAINT + 4);
-          const float uy = __fmaf_rn(P(P_PAINT + 1), pxc, P(P_PAINT + 3) * pyc) + P(P_PAINT + 5);
-          const float ex = P(P_PAINT + 6), ey = P(P_PAINT + 7);
-          const float rad = P(P_PAINT + 8);
-          const float feather = fmaxf(P(P_PAINT + 9), 1e-6f);
-          const float dx = fabsf(ux) - (ex - rad);
-          const float dy = fabsf(uy) - (ey - rad);
-          const float mx = fmaxf(dx, 0.f), my = fmaxf(dy, 0.f);
-          const float sd = fminf(fmaxf(dx, dy), 0.f) + sqrtf(mx * mx + my * my) - rad;
-          const float d = fminf(fmaxf((sd + feather * 0.5f) / feather, 0.f), 1.f);
-          col_r = inner_r * (1.f - d) + P(P_PAINT + 14) * d;
-          col_g = inner_g * (1.f - d) + P(P_PAINT + 15) * d;
-          col_b = inner_b * (1.f - d) + P(P_PAINT + 16) * d;
-          col_a = inner_a * (1.f - d) + P(P_PAINT + 17) * d;
-        }
-        if (kTri && pk == PK_TRI) {
-          col_r = P(P_PAINT + 0) * pxc + P(P_PAINT + 4) * pyc + P(P_PAINT + 8);
-          col_g = P(P_PAINT + 1) * pxc + P(P_PAINT + 5) * pyc + P(P_PAINT + 9);
-          col_b = P(P_PAINT + 2) * pxc + P(P_PAINT + 6) * pyc + P(P_PAINT + 10);
-          col_a = P(P_PAINT + 3) * pxc + P(P_PAINT + 7) * pyc + P(P_PAINT + 11);
-        }
-      }
-
-      float src_r, src_g, src_b, src_a;
-      if (kTex && use_ct) {
-        src_r = ctp[p];
-        src_g = ctp[npx + p];
-        src_b = ctp[2 * npx + p];
-        src_a = ctp[3 * npx + p];
-      } else {
-        src_r = col_r * col_a;
-        src_g = col_g * col_a;
-        src_b = col_b * col_a;
-        src_a = col_a;
-      }
-
-      const float a = src_a * c;
-      const float one_minus_a = 1.f - a;
-      fr[k] = src_r * c + fr[k] * one_minus_a;
-      fg[k] = src_g * c + fg[k] * one_minus_a;
-      fbl[k] = src_b * c + fbl[k] * one_minus_a;
-      fa[k] = a + fa[k] * one_minus_a;
+      const int ro = p / tile_w;
+      const float pxl = static_cast<float>(p - ro * tile_w) + 0.5f;
+      // paints are pixel-space: output rows sit at oy/ss (oy counts sub-rows)
+      const float pyc = oy * inv_ss + (static_cast<float>(ro) + 0.5f);
+      shade_blend<kGrad, kTri, kTex>(pp, nbp, pk, use_ct, ctp, p, npx_out,
+                                     pxl + ox, pyc, c_sum[k] * inv_ss, fr[k],
+                                     fg[k], fbl[k], fa[k]);
     }
   }
 
-  float4* out = reinterpret_cast<float4*>(fb) + static_cast<size_t>(ids[t]) * npx;
+  float4* out = reinterpret_cast<float4*>(fb) + static_cast<size_t>(ids[t]) * npx_out;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    out[threadIdx.x + k * blockDim.x] = make_float4(fr[k], fg[k], fbl[k], fa[k]);
+  }
+}
+
+// Form (e): final output-domain coverage + resolved backdrop rows; no rule,
+// AA or clip work.  G bits: gradient, tri, texture, scissor.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+composite_final_kernel(const float* __restrict__ cov,
+                       const int* __restrict__ pteb,
+                       const float* __restrict__ params,
+                       const float* __restrict__ ct,
+                       const int* __restrict__ ctile,
+                       const float* __restrict__ rbd,
+                       const int* __restrict__ ids, float4 bg,
+                       float* __restrict__ fb, int nbp, int mo, int npp,
+                       int rbr, int tile_w, int npx_out, int ss) {
+  constexpr bool kGrad = G & 1, kTri = G & 2, kTex = G & 4, kScissor = G & 8;
+  const int t = blockIdx.x;
+  const float inv_ss = 1.f / static_cast<float>(ss);
+
+  float fr[kPix], fg[kPix], fbl[kPix], fa[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    fr[k] = bg.x;
+    fg[k] = bg.y;
+    fbl[k] = bg.z;
+    fa[k] = bg.w;
+  }
+
+  for (int slot = 0; slot < mo; ++slot) {
+    const float* pp = params + static_cast<size_t>(slot) * npp * nbp + t;
+    auto P = [&](int row) { return __ldg(pp + static_cast<size_t>(row) * nbp); };
+    const float valid = P(P_VALID), pk = P(P_PK);
+    const float ox = P(P_OX), oy = P(P_OY);
+    const bool use_ct =
+        kTex && (P(P_CTILE) > 0.f) && (pk == PK_TEXTURE || pk == PK_IMAGE);
+    const float* cw = cov + static_cast<size_t>(pteb[t * mo + slot]) * npx_out;
+    const float* rb = rbd + static_cast<size_t>(slot) * rbr * nbp + t;
+    const float* ctp = nullptr;
+    if (kTex) ctp = ct + static_cast<size_t>(ctile[t * mo + slot]) * 4 * npx_out;
+
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      const int p = threadIdx.x + k * blockDim.x;
+      const int ro = p / tile_w;
+      const float pxl = static_cast<float>(p - ro * tile_w) + 0.5f;
+      const float rv = __ldg(rb + static_cast<size_t>(ro) * nbp);
+      float c;
+      if (kScissor) {
+        const bool ins_x = (pxl >= P(P_SC) - ox) && (pxl < P(P_SC + 2) - ox);
+        c = cw[p] + rv * (ins_x ? 1.f : 0.f);
+      } else {
+        c = cw[p] + rv;
+      }
+      c = valid > 0.f ? c : 0.f;
+      const float pyc = oy * inv_ss + (static_cast<float>(ro) + 0.5f);
+      shade_blend<kGrad, kTri, kTex>(pp, nbp, pk, use_ct, ctp, p, npx_out,
+                                     pxl + ox, pyc, c, fr[k], fg[k], fbl[k],
+                                     fa[k]);
+    }
+  }
+
+  float4* out = reinterpret_cast<float4*>(fb) + static_cast<size_t>(ids[t]) * npx_out;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     out[threadIdx.x + k * blockDim.x] = make_float4(fr[k], fg[k], fbl[k], fa[k]);
@@ -202,21 +333,29 @@ struct Args {
   const float* params;
   const float* ct;
   const int* ctile;
+  const float* rbd;
   const int* ids;
   float4 bg;
   float* fb;
-  int nbp, mo, npp, tile_w, npx;
+  int nbp, mo, npp, rbr, tile_w, npx_out, ss;
   cudaStream_t stream;
 };
 
-// flags -> the matching instantiation, F = 127 down to 0
+// flags -> the matching form (a)/(d) instantiation, F = 127 down to 0
 template <int F>
 struct Dispatch {
   static void run(int flags, const Args& a) {
     if (flags == F) {
-      composite_bucket_kernel<F><<<a.nbp, a.npx / kPix, 0, a.stream>>>(
+      const size_t smem =
+          (F & 8) ? 2 * sizeof(float) * static_cast<size_t>(a.npx_out) * a.ss : 0;
+      if (smem > 48 * 1024) {
+        cudaFuncSetAttribute(composite_bucket_kernel<F>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+      }
+      composite_bucket_kernel<F><<<a.nbp, a.npx_out / kPix, smem, a.stream>>>(
           a.cov, a.pteb, a.params, a.ct, a.ctile, a.ids, a.bg, a.fb, a.nbp,
-          a.mo, a.npp, a.tile_w, a.npx);
+          a.mo, a.npp, a.tile_w, a.npx_out, a.ss);
     } else {
       Dispatch<F - 1>::run(flags, a);
     }
@@ -228,29 +367,59 @@ struct Dispatch<-1> {
   static void run(int, const Args&) {}
 };
 
+// lanes -> the matching form (e) instantiation, G = 15 down to 0
+template <int G>
+struct DispatchFinal {
+  static void run(int lanes, const Args& a) {
+    if (lanes == G) {
+      composite_final_kernel<G><<<a.nbp, a.npx_out / kPix, 0, a.stream>>>(
+          a.cov, a.pteb, a.params, a.ct, a.ctile, a.rbd, a.ids, a.bg, a.fb,
+          a.nbp, a.mo, a.npp, a.rbr, a.tile_w, a.npx_out, a.ss);
+    } else {
+      DispatchFinal<G - 1>::run(lanes, a);
+    }
+  }
+};
+
+template <>
+struct DispatchFinal<-1> {
+  static void run(int, const Args&) {}
+};
+
 }  // namespace
 
-// One bucket: cov (NC+1, npx); pteb, ctile (nbp, mo) i32; params
-// (mo, npp, nbp); ct (NCT+1, 4*npx) or null without the texture lane; ids
-// (nbp,) framebuffer rows; fb (T+1, npx, 4).  flags bit i = lane i of
-// (gradient, tri, texture, clip, even-odd, non-AA, scissor).  npx must be a
-// multiple of 4 with npx/4 <= 1024 (checked by the Python wrapper).
-// Launches on `stream`, does not synchronise; returns cudaGetLastError().
+// One bucket.  pteb, ctile (nbp, mo) i32; params (mo, npp, nbp); ct
+// (NCT+1, 4*npx_out) or null without the texture lane; ids (nbp,)
+// framebuffer rows; fb (T+1, npx_out, 4).  flags bit i = lane i of
+// (gradient, tri, texture, clip, even-odd, non-AA, scissor).
+// Form (a)/(d), rbd == null: cov (NC+1, npx_out*ss) raw sub-row winding,
+// npp >= 32 + TH.  Form (e), rbd != null: cov (R, npx_out) final coverage,
+// rbd (mo, rbr, nbp) with rbr >= TH_OUT; the clip lane is refused.
+// npx_out must be a multiple of 4 with npx_out/4 <= 256 (checked by the
+// Python wrapper).  Launches on `stream`, does not synchronise; returns
+// cudaGetLastError().
 extern "C" int vg_composite_bucket(const float* cov, const int* pteb,
                                    const float* params, const float* ct,
-                                   const int* ctile, const int* ids,
-                                   float bg_r, float bg_g, float bg_b,
-                                   float bg_a, float* fb, int nbp, int mo,
-                                   int npp, int tile_w, int npx, int flags,
+                                   const int* ctile, const float* rbd,
+                                   const int* ids, float bg_r, float bg_g,
+                                   float bg_b, float bg_a, float* fb, int nbp,
+                                   int mo, int npp, int rbr, int tile_w,
+                                   int npx_out, int ss, int flags,
                                    cudaStream_t stream) {
-  if (flags < 0 || flags >= 128) {
+  if (flags < 0 || flags >= 128 || ss < 1 || npx_out % kPix ||
+      npx_out / kPix > kThreads || (rbd != nullptr && (flags & 8))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nbp > 0) {
-    const Args a{cov, pteb, params, ct, ctile, ids,
-                 make_float4(bg_r, bg_g, bg_b, bg_a), fb, nbp, mo, npp,
-                 tile_w, npx, stream};
-    Dispatch<127>::run(flags, a);
+    const Args a{cov, pteb, params, ct, ctile, rbd, ids,
+                 make_float4(bg_r, bg_g, bg_b, bg_a), fb, nbp, mo, npp, rbr,
+                 tile_w, npx_out, ss, stream};
+    if (rbd != nullptr) {
+      const int lanes = (flags & 7) | ((flags >> 6) & 1) << 3;
+      DispatchFinal<15>::run(lanes, a);
+    } else {
+      Dispatch<127>::run(flags, a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "edge_coverage.cuh"
 
 namespace {
 
@@ -47,7 +48,7 @@ coverage_chunks_kernel(const float* __restrict__ edges,
                        float* __restrict__ out, int nc, int ch, int tile_w,
                        int npx) {
   // per-edge scalars: x0, y0, ymin, ymax, s, m, steep, s_over_m
-  __shared__ float sp[kChunksPerBlock][kMaxCh][8];
+  __shared__ float sp[kChunksPerBlock][kMaxCh][vg::kEdgeScalars];
   const int c0 = blockIdx.x * kChunksPerBlock;
 
   for (int i = threadIdx.x; i < kChunksPerBlock * ch; i += blockDim.x) {
@@ -55,22 +56,7 @@ coverage_chunks_kernel(const float* __restrict__ edges,
     const int e = i - lc * ch;
     const int c = c0 + lc;
     if (c >= nc) continue;
-    const float* ed = edges + (static_cast<size_t>(c) * ch + e) * 4;
-    const float x0 = ed[0], y0 = ed[1], x1 = ed[2], y1 = ed[3];
-    const float dy = y1 - y0;
-    const float s = dy > 0.f ? 1.f : (dy < 0.f ? -1.f : 0.f);  // jnp.sign
-    // the |dy| guard comes before the steep test (coverage_pallas.py:276)
-    const float m = (x1 - x0) / (fabsf(dy) < 1e-6f ? 1.f : dy);
-    const bool steep = fabsf(m) < 0.01f;
-    float* q = sp[lc][e];
-    q[0] = x0;
-    q[1] = y0;
-    q[2] = fminf(y0, y1);
-    q[3] = fmaxf(y0, y1);
-    q[4] = s;
-    q[5] = m;
-    q[6] = steep ? 1.f : 0.f;
-    q[7] = s / (steep ? 1.f : m);
+    vg::stage_edge(edges + (static_cast<size_t>(c) * ch + e) * 4, sp[lc][e]);
   }
   __syncthreads();
 
@@ -83,18 +69,7 @@ coverage_chunks_kernel(const float* __restrict__ edges,
       const float px = static_cast<float>(p - row * tile_w);
       const float py = static_cast<float>(row);
       float acc = 0.f;
-      for (int e = 0; e < ch; ++e) {
-        const float* q = sp[lc][e];
-        const float ytop = fmaxf(q[2], py);
-        const float h = fmaxf(fminf(q[3], py + 1.f) - ytop, 0.f);
-        const float u0 = (px + 1.f) - __fmaf_rn(q[5], ytop - q[1], q[0]);
-        const float u1 = __fmaf_rn(-q[5], h, u0);
-        const float cl0 = fminf(fmaxf(u0, 0.f), 1.f);
-        const float cl1 = fminf(fmaxf(u1, 0.f), 1.f);
-        const float g0 = cl0 * (u0 - 0.5f * cl0);
-        const float g1 = cl1 * (u1 - 0.5f * cl1);
-        acc += q[6] != 0.f ? q[4] * h * cl0 : (g0 - g1) * q[7];
-      }
+      for (int e = 0; e < ch; ++e) acc += vg::edge_contribution(sp[lc][e], px, py);
       orow[p] = acc;
     }
   }

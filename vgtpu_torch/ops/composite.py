@@ -3,21 +3,26 @@
 chunk coverage.
 
 Twin of the fused TPU formulation in vgtpu/ops/composite_pallas.py
-(frame_fb_pallas -> composite_bucket_pallas -> _kernel_rows) for ss=1:
-the per-entry backdrop is added in the composite, the background is a
-broadcast colour, one variant.  On a CUDA tensor `composite_bucket` launches
-kernel K2 (csrc/composite.cu, via ops/composite_cuda.py); on a CPU tensor it
-runs the plain torch twin.  Any other device raises.
+(frame_fb_pallas -> composite_bucket_pallas -> _kernel_rows) with a
+broadcast background and one variant, in three forms: (a) ss=1 and (d)
+ss>1 over raw sub-row coverage, the per-entry backdrop added in the
+composite; (e) over final resolved coverage (ops/coverage_resolve.py).  On
+a CUDA tensor `composite_bucket` launches kernel K2 (csrc/composite.cu, via
+ops/composite_cuda.py); on a CPU tensor it runs the plain torch twin.  Any
+other device raises.
 
 Reference behaviour: the end() draw loop vg.cpp:1162-1287, the four shader
 programs src/shaders/*.sc, and the stencil clip semantics vg.cpp:1193-1215.
 
 Per-bucket static data (host-built by raster/frame.plan_to_device):
   params: (MO, _npp(tile_h), NbP) f32 — per (slot, tile) metadata rows (_P_*)
-  pteb:   (NbP, MO) i32 — primary chunk id per (tile, slot) (dead id if none)
+  pteb:   (NbP, MO) i32 — coverage row per (tile, slot): the entry's primary
+          chunk, or the dead row if none (rows of cov_final in form (e))
   ctile:  (NbP, MO) i32 — colour-tile id per (tile, slot) (NCT = zeros row),
           only for buckets whose texture lane is on
   ids:    (NbP,) i32 — framebuffer row per tile (pad rows: the scratch row)
+  rbd:    (MO, RBR, NbP) f32 — form (e) only: resolved backdrop rows of the
+          chunkless slots (raster/resolve.build_resolve_aux)
 """
 
 from __future__ import annotations
@@ -125,24 +130,48 @@ def _pad_tiles(nb: int) -> int:
 
 def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
                            ct_t: torch.Tensor | None, bg_vec: torch.Tensor,
-                           *, tile_w: int, flags: tuple) -> torch.Tensor:
-    """One bucket's painter scan -> fb_t (4*NPX, Nb), channel-major: the
-    plain twin of vgtpu's composite_bucket_pallas(..., add_backdrop=True)
-    with the rows kernel at ss=1, and of kernel K2.
+                           *, tile_w: int, flags: tuple, ss: int = 1,
+                           cov_final: bool = False,
+                           rbd_t: torch.Tensor | None = None) -> torch.Tensor:
+    """One bucket's painter scan -> fb_t (4*NPX_OUT, Nb), channel-major: the
+    plain twin of vgtpu's composite_bucket_pallas with the rows kernel, and
+    of kernel K2.  Expressions follow _kernel_rows per pixel, in its order.
 
-    ew_t (MO, NPX, Nb) raw chunk coverage per slot; params_t (MO, NPP, Nb);
-    ct_t (MO, 4*NPX, Nb) or None; bg_vec (4*NPX, 1).  Expressions follow
-    _kernel_rows per pixel, in its order."""
+    Form (a)/(d), cov_final=False (add_backdrop=True): ew_t (MO, NPX, Nb) is
+    raw SUB-row winding (NPX = TH*TW, TH = ss * output rows).  Backdrop,
+    fill rule, AA, texture force, scissor and clip work per sub-row; the
+    masked coverage of each group of ss sub-rows is summed in order and
+    multiplied by 1/ss; shading and blending run once per output pixel.
+    At ss=1 this is form (a).
+
+    Form (e), cov_final=True: ew_t (MO, NPX_OUT, Nb) is FINAL output-domain
+    coverage (ops/coverage_resolve.py); chunkless slots add their resolved
+    backdrop rows rbd_t (MO, RBR, Nb) times the x half of the scissor.  No
+    rule, AA or clip work (clip buckets never take this form).
+
+    params_t (MO, NPP, Nb); ct_t (MO, 4*NPX_OUT, Nb) or None; bg_vec
+    (4*NPX_OUT, 1)."""
     has_grad, has_tri, has_tex, has_clip, has_eo, has_noaa, has_scissor = flags
-    mo, npx, nb = ew_t.shape
-    th = npx // tile_w
+    if cov_final and (has_clip or rbd_t is None):
+        raise ValueError("composite_bucket_torch: cov_final needs rbd rows "
+                         "and no clip lane")
+    mo, _rows, nb = ew_t.shape
+    npx_out = bg_vec.shape[0] // 4
+    th_out = npx_out // tile_w
+    th = th_out * ss                          # sub-rows
+    npx = th * tile_w
+    inv_ss = 1.0 / ss
     dev = ew_t.device
-    flat = torch.arange(npx, device=dev)
-    pxl = (flat % tile_w).to(torch.float32)[:, None] + 0.5   # (NPX, 1)
-    pyl = (flat // tile_w).to(torch.float32)[:, None] + 0.5
+    flat = torch.arange(npx_out, device=dev)
+    pxl = (flat % tile_w).to(torch.float32)[:, None] + 0.5   # (NPX_OUT, 1)
+    pyl_o = (flat // tile_w).to(torch.float32)[:, None] + 0.5
+    if not cov_final:
+        flat_s = torch.arange(npx, device=dev)
+        pxl_s = (flat_s % tile_w).to(torch.float32)[:, None] + 0.5
+        pyl_s = (flat_s // tile_w).to(torch.float32)[:, None] + 0.5
 
-    out = bg_vec.expand(4 * npx, nb)
-    fr, fg, fb_, fa = (out[i * npx : (i + 1) * npx] for i in range(4))
+    out = bg_vec.expand(4 * npx_out, nb)
+    fr, fg, fb_, fa = (out[i * npx_out : (i + 1) * npx_out] for i in range(4))
     if has_clip:
         mask = torch.ones((npx, nb), dtype=torch.float32, device=dev)
         accum = torch.zeros((npx, nb), dtype=torch.float32, device=dev)
@@ -162,44 +191,66 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
         inner_g = row(_P_PAINT + 11)
         inner_b = row(_P_PAINT + 12)
         inner_a = row(_P_PAINT + 13)
-
-        # per-pixel backdrop row: pixel p sits on tile row p // tile_w
-        w = ew_t[j] + pp[_P_BD : _P_BD + th].repeat_interleave(tile_w, dim=0)
-        cov = torch.clamp_max(torch.abs(w), 1.0)
-        if has_eo:
-            cov_eo = 1.0 - torch.abs(torch.remainder(w, 2.0) - 1.0)
-            cov = torch.where(rule == 0, cov, cov_eo)
-        if has_noaa:
-            cov = torch.where(aa != 0, cov, (cov >= 0.5).to(torch.float32))
+        ox = row(_P_OX)
+        oy = row(_P_OY)
         if has_tex:
             is_quad_tex = pk == float(P_TEXTURE)
             use_ct = (row(_P_CTILE) > 0) & (is_quad_tex | (pk == float(P_IMAGE)))
-            cov = torch.where(is_quad_tex, 1.0, cov)
-        ox = row(_P_OX)
-        oy = row(_P_OY)
-        if has_scissor:
-            inside_y = (pyl >= row(_P_SC + 1) - oy) & (pyl < row(_P_SC + 3) - oy)
-            inside = (pxl >= row(_P_SC) - ox) & inside_y & (pxl < row(_P_SC + 2) - ox)
-            cov = cov * inside.to(torch.float32)
 
-        if has_clip:
-            is_draw = (valid > 0) & (kind == float(K_DRAW))
-            is_cadd = (valid > 0) & (kind == float(K_CLIP_ADD))
-            is_ccommit = (valid > 0) & (kind == float(K_CLIP_COMMIT))
-            is_creset = (valid > 0) & (kind == float(K_CLIP_RESET))
-            c = torch.where(is_draw, cov, 0.0) * mask
-            acc = torch.where(is_cadd, accum + cov, accum)
-            inside_f = (acc > 0.5).to(torch.float32)
-            committed = torch.where(rule == 0, inside_f, 1.0 - inside_f)
-            mask = torch.where(is_creset, 1.0, torch.where(is_ccommit, committed, mask))
-            accum = torch.where(is_ccommit, 0.0, acc)
+        if cov_final:
+            # final coverage; chunkless entries add their resolved backdrop
+            # (x-constant per output row) times the x-scissor mask
+            rbd = rbd_t[j][:th_out].repeat_interleave(tile_w, dim=0)
+            if has_scissor:
+                ins_x = ((pxl >= row(_P_SC) - ox)
+                         & (pxl < row(_P_SC + 2) - ox)).to(torch.float32)
+                c_out = ew_t[j] + rbd * ins_x
+            else:
+                c_out = ew_t[j] + rbd
+            c_out = torch.where(valid > 0, c_out, 0.0)
         else:
-            c = torch.where(valid > 0, cov, 0.0)
+            # per-sub-pixel backdrop row: sub-pixel p sits on sub-row p // tile_w
+            w = ew_t[j] + pp[_P_BD : _P_BD + th].repeat_interleave(tile_w, dim=0)
+            cov = torch.clamp_max(torch.abs(w), 1.0)
+            if has_eo:
+                cov_eo = 1.0 - torch.abs(torch.remainder(w, 2.0) - 1.0)
+                cov = torch.where(rule == 0, cov, cov_eo)
+            if has_noaa:
+                cov = torch.where(aa != 0, cov, (cov >= 0.5).to(torch.float32))
+            if has_tex:
+                cov = torch.where(is_quad_tex, 1.0, cov)
+            if has_scissor:
+                # sub-row centres against the sub-row scissor
+                inside_y = (pyl_s >= row(_P_SC + 1) - oy) & (pyl_s < row(_P_SC + 3) - oy)
+                inside = (pxl_s >= row(_P_SC) - ox) & inside_y & (pxl_s < row(_P_SC + 2) - ox)
+                cov = cov * inside.to(torch.float32)
+
+            if has_clip:
+                is_draw = (valid > 0) & (kind == float(K_DRAW))
+                is_cadd = (valid > 0) & (kind == float(K_CLIP_ADD))
+                is_ccommit = (valid > 0) & (kind == float(K_CLIP_COMMIT))
+                is_creset = (valid > 0) & (kind == float(K_CLIP_RESET))
+                c = torch.where(is_draw, cov, 0.0) * mask
+                acc = torch.where(is_cadd, accum + cov, accum)
+                inside_f = (acc > 0.5).to(torch.float32)
+                committed = torch.where(rule == 0, inside_f, 1.0 - inside_f)
+                mask = torch.where(is_creset, 1.0, torch.where(is_ccommit, committed, mask))
+                accum = torch.where(is_ccommit, 0.0, acc)
+            else:
+                c = torch.where(valid > 0, cov, 0.0)
+            # sum the ss sub-rows of each output row in order, then 1/ss
+            c = c.expand(npx, nb).reshape(th_out, ss, tile_w, nb)
+            c_sum = c[:, 0]
+            for k in range(1, ss):
+                c_sum = c_sum + c[:, k]
+            c_out = (c_sum * inv_ss).reshape(npx_out, nb)
 
         col_r, col_g, col_b, col_a = inner_r, inner_g, inner_b, inner_a
         if has_grad or has_tri:
-            pxc = pxl + ox                     # (NPX, Nb) screen-space centres
-            pyc = pyl + oy
+            pxc = pxl + ox                     # (NPX_OUT, Nb) screen-space centres
+            # paints are pixel-space: output rows sit at oy/ss (oy counts
+            # sub-rows; 1/ss is a power of two, so the product is exact)
+            pyc = oy * inv_ss + pyl_o
         if has_grad:
             is_grad = pk == float(P_GRADIENT)
             feather = torch.clamp_min(row(_P_PAINT + 9), 1e-6)
@@ -232,84 +283,107 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
             col_a = torch.where(is_tri, row(_P_PAINT + 3) * pxc + row(_P_PAINT + 7) * pyc + row(_P_PAINT + 11), col_a)
 
         if has_tex:
-            ct = ct_t[j]                       # (4*NPX, Nb) channel-major
-            src_r = torch.where(use_ct, ct[0:npx], col_r * col_a)
-            src_g = torch.where(use_ct, ct[npx : 2 * npx], col_g * col_a)
-            src_b = torch.where(use_ct, ct[2 * npx : 3 * npx], col_b * col_a)
-            src_a = torch.where(use_ct, ct[3 * npx : 4 * npx], col_a)
+            ct = ct_t[j]                       # (4*NPX_OUT, Nb) channel-major
+            src_r = torch.where(use_ct, ct[0:npx_out], col_r * col_a)
+            src_g = torch.where(use_ct, ct[npx_out : 2 * npx_out], col_g * col_a)
+            src_b = torch.where(use_ct, ct[2 * npx_out : 3 * npx_out], col_b * col_a)
+            src_a = torch.where(use_ct, ct[3 * npx_out : 4 * npx_out], col_a)
         else:
             src_r = col_r * col_a
             src_g = col_g * col_a
             src_b = col_b * col_a
             src_a = col_a
 
-        a = src_a * c
+        a = src_a * c_out
         one_minus_a = 1.0 - a
-        fr = src_r * c + fr * one_minus_a
-        fg = src_g * c + fg * one_minus_a
-        fb_ = src_b * c + fb_ * one_minus_a
+        fr = src_r * c_out + fr * one_minus_a
+        fg = src_g * c_out + fg * one_minus_a
+        fb_ = src_b * c_out + fb_ * one_minus_a
         fa = a + fa * one_minus_a
-    return torch.cat([t.expand(npx, nb) for t in (fr, fg, fb_, fa)], dim=0)
+    return torch.cat([t.expand(npx_out, nb) for t in (fr, fg, fb_, fa)], dim=0)
 
 
-def composite_bucket_into_torch(fb, cov_all, pteb, params, ct_flat, ctile,
-                                ids, background, *, tile_w: int,
-                                flags: tuple) -> None:
+def composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile, ids,
+                                background, *, tile_w: int, flags: tuple,
+                                ss: int = 1, rbd=None) -> None:
     """Plain twin of K2 on the tensors' own device: gather the bucket's
     coverage (and colour tiles), run composite_bucket_torch, scatter the
-    tiles into fb (T+1, TH, TW, 4) in place at rows ids.  background: the
-    4 premultiplied RGBA floats."""
+    tiles into fb (T+1, TH//ss, TW, 4) in place at rows ids.  background:
+    the 4 premultiplied RGBA floats.  cov is raw sub-row coverage
+    (NC+1, TH*TW) (forms (a)/(d)), or final coverage (R, TH//ss*TW) when the
+    bucket's resolved-backdrop rows rbd (MO, RBR, NbP) are given (form (e))."""
     nb, _mo = pteb.shape
-    npx = cov_all.shape[1]
-    th = npx // tile_w
-    ew_t = cov_all[pteb].permute(1, 2, 0)                   # (MO, NPX, NbP)
+    th_out = fb.shape[1]
+    npx_out = th_out * tile_w
+    ew_t = cov[pteb].permute(1, 2, 0)                       # (MO, NPX|NPX_OUT, NbP)
     ct_t = ct_flat[ctile].permute(1, 2, 0) if flags[2] else None
     bg = torch.tensor(background, dtype=torch.float32, device=fb.device)
-    bg_vec = bg.repeat_interleave(npx)[:, None]
+    bg_vec = bg.repeat_interleave(npx_out)[:, None]
     fb_t = composite_bucket_torch(ew_t, params, ct_t, bg_vec, tile_w=tile_w,
-                                  flags=tuple(flags))
-    fb[ids] = fb_t.reshape(4, th, tile_w, nb).permute(3, 1, 2, 0)
+                                  flags=tuple(flags), ss=ss,
+                                  cov_final=rbd is not None, rbd_t=rbd)
+    fb[ids] = fb_t.reshape(4, th_out, tile_w, nb).permute(3, 1, 2, 0)
 
 
-def composite_bucket(fb, cov_all, pteb, params, ct_flat, ctile, ids,
-                     background, *, tile_w: int, flags: tuple) -> None:
-    """Composite one bucket into fb (T+1, TH, TW, 4) in place (the update
-    saves a per-bucket framebuffer copy): kernel K2 on CUDA, the plain twin
-    on the CPU."""
+def composite_bucket(fb, cov, pteb, params, ct_flat, ctile, ids,
+                     background, *, tile_w: int, flags: tuple, ss: int = 1,
+                     rbd=None) -> None:
+    """Composite one bucket into fb (T+1, TH//ss, TW, 4) in place (the
+    update saves a per-bucket framebuffer copy): kernel K2 on CUDA, the plain
+    twin on the CPU.  rbd given: form (e) over final coverage."""
     dev = fb.device
     if dev.type == "cuda":
         from vgtpu_torch.ops.composite_cuda import composite_bucket_cuda
 
-        composite_bucket_cuda(fb, cov_all, pteb, params, ct_flat, ctile, ids,
-                              background, tile_w=tile_w, flags=flags)
+        composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
+                              background, tile_w=tile_w, flags=flags, ss=ss,
+                              rbd=rbd)
     elif dev.type == "cpu":
-        composite_bucket_into_torch(fb, cov_all, pteb, params, ct_flat, ctile,
-                                    ids, background, tile_w=tile_w, flags=flags)
+        composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile,
+                                    ids, background, tile_w=tile_w,
+                                    flags=flags, ss=ss, rbd=rbd)
     else:
         raise ValueError(f"composite_bucket: unsupported device {dev}")
 
 
 def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
              ct_flat, background, *, tile_h: int, tile_w: int, num_tiles: int,
-             bucket_flags: tuple, bucket_fn=composite_bucket) -> torch.Tensor:
-    """Fused frame composite -> (T, TH, TW, 4) tiles: the twin of vgtpu's
-    frame_fb_pallas at ss=1.  Buckets gather straight from resolved chunk
-    coverage via the host-built primary-chunk ids; the entry backdrop is
-    added in the composite; tiles no bucket covers keep the background.
+             bucket_flags: tuple, bucket_fn=composite_bucket, ss: int = 1,
+             cov_final_arr=None, bucket_rbd=None) -> torch.Tensor:
+    """Fused frame composite -> (T, TH//ss, TW, 4) tiles: the twin of
+    vgtpu's frame_fb_pallas.  Buckets gather straight from chunk coverage
+    via the host-built primary-chunk ids; tiles no bucket covers keep the
+    background.  tile_h counts sub-rows when ss > 1.
+
+    Without cov_final_arr every bucket takes form (a) (ss=1) or (d) over the
+    raw sub-row cov_all, adding the entry backdrop in the composite.  With
+    cov_final_arr / bucket_rbd (the resolve split, raster/resolve.py)
+    cov_all holds only the RAW sub-row coverage, which the clip buckets read
+    (form (d)); every other bucket's pteb indexes cov_final_arr (final
+    output-domain coverage) and takes form (e) with its rbd rows.
 
     background is the 4 premultiplied RGBA floats; bucket_ids are padded to
     NbP with the scratch row num_tiles; bucket_fn is composite_bucket (K2 on
     CUDA) or composite_bucket_into_torch."""
     background = tuple(float(v) for v in background)
-    fb = torch.empty((num_tiles + 1, tile_h, tile_w, 4), dtype=torch.float32,
+    th_out = tile_h // ss
+    fb = torch.empty((num_tiles + 1, th_out, tile_w, 4), dtype=torch.float32,
                      device=cov_all.device)
     fb.copy_(torch.tensor(background, dtype=torch.float32, device=fb.device)
-             .expand(num_tiles + 1, tile_h, tile_w, 4))
-    for ids, pteb, pp, ctile, flags in zip(
+             .expand(num_tiles + 1, th_out, tile_w, 4))
+    if bucket_rbd is None:
+        bucket_rbd = (None,) * len(bucket_pteb)
+    for ids, pteb, pp, ctile, flags, rbd in zip(
         bucket_ids, bucket_pteb, bucket_params, bucket_ctile, bucket_flags,
+        bucket_rbd,
     ):
-        bucket_fn(fb, cov_all, pteb, pp, ct_flat, ctile, ids, background,
-                  tile_w=tile_w, flags=tuple(flags))
+        covf = cov_final_arr is not None and not flags[3]
+        if covf and rbd is None:
+            raise ValueError("frame_fb: a non-clip bucket of a resolve-split "
+                             "plan has no rbd rows")
+        bucket_fn(fb, cov_final_arr if covf else cov_all, pteb, pp, ct_flat,
+                  ctile, ids, background, tile_w=tile_w, flags=tuple(flags),
+                  ss=ss, rbd=rbd if covf else None)
     return fb[:num_tiles]
 
 

@@ -15,10 +15,10 @@ from vgtpu_torch.utils.cuda_build import CudaKernel, stream_ptr
 
 MAX_CH = 32    # edges per chunk the kernel's shared staging holds
 
-K1 = CudaKernel("coverage", "vg_coverage_chunks", [
+K1 = CudaKernel("coverage", {"vg_coverage_chunks": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-])
+]})
 
 
 def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
@@ -49,7 +49,8 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
         for ce in chunk_edges:
             nc, ch = int(ce.shape[0]), int(ce.shape[1])
             if nc:
-                K1.launch(ctypes.c_void_p(ce.data_ptr()),
+                K1.launch("vg_coverage_chunks",
+                          ctypes.c_void_p(ce.data_ptr()),
                           ctypes.c_void_p(out.data_ptr() + row * npx * 4),
                           nc, ch, tile_w, npx, stream)
             row += nc

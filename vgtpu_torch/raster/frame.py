@@ -1,10 +1,15 @@
 """Frame executor: FramePlan -> framebuffer on a torch device (the device side
 of end(), vg.cpp:1076-1288, minus bgfx).
 
-Twin of vgtpu/raster/frame.py for the fused formulation at ss=1, which the
-port takes on every device: upload the plan once (plan_to_device), then per
-frame resolve chunk coverage (kernel K1 on CUDA), composite every bucket of
+Twin of vgtpu/raster/frame.py for the fused formulation, which the port
+takes on every device: upload the plan once (plan_to_device), then per
+frame compute chunk coverage (kernel K1 on CUDA), composite every bucket of
 tiles gathering straight from it (kernel K2 on CUDA) and assemble the image.
+Supersampled plans (ss > 1) split the chunk pools first
+(raster/resolve.py): kernel K3 resolves the RES chunks and the XE rows into
+output-domain coverage, K1 computes the RAW pools on sub-rows, and K2
+composites non-clip buckets from final coverage (form (e)) and clip buckets
+from sub-row coverage (form (d)).
 vgtpu's TPU-only pieces (the packed upload arena, the persisted-executable
 cache, the fused-platform gate) have no counterpart here.
 """
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from vgtpu_torch.ops.composite import (
+    _pad_tiles,
     build_bucket_aux,
     build_bucket_pteb,
     composite_bucket,
@@ -29,7 +35,12 @@ from vgtpu_torch.ops.coverage import (
     cov_all_resolved,
     cov_all_resolved_torch,
 )
+from vgtpu_torch.ops.coverage_resolve import (
+    cov_split_resolved,
+    cov_split_resolved_torch,
+)
 from vgtpu_torch.raster.binning import FramePlan, compute_tile_buckets
+from vgtpu_torch.raster.resolve import build_resolve_aux, build_resolve_split
 
 
 def _bucket128(n: int) -> int:
@@ -74,31 +85,42 @@ def _compact_culled_chunks(plan: FramePlan) -> None:
     plan.chunk_pools = new_pools
 
 
-def plan_host_arrays(plan: FramePlan) -> dict:
-    """The fused path's host arrays for one plan (numpy): tile buckets,
-    chunk compaction, the chunk->entry gather map, and per bucket its padded
-    framebuffer rows, primary-chunk ids, params and colour-tile ids.
-
-    Raises NotImplementedError for supersampled plans (ss > 1)."""
-    if plan.supersample != 1:
-        from vgtpu_torch.api.context import _unported
-
-        raise _unported("supersampled frames (coverage_supersample > 1)",
-                        "ss>1 with K3 and K2 (d)/(e)")
+def _prepare_plan(plan: FramePlan):
+    """Tile buckets, chunk compaction and, at ss > 1, the resolve split
+    (raster/resolve.build_resolve_split: RES pools first, then RAW pools),
+    in vgtpu's order: after compaction, before any pool is taken.  Each step
+    is idempotent; returns the split's host aux or None."""
     if plan.tile_buckets is None:
         plan.tile_buckets = compute_tile_buckets(
             plan.tile_entries, plan.tile_entries.shape[0], plan.entry_kind, plan)
     _compact_culled_chunks(plan)
+    if plan.supersample > 1 and plan.entry_backdrop_pan is None:
+        return build_resolve_split(plan)
+    return None
+
+
+def plan_host_arrays(plan: FramePlan) -> dict:
+    """The fused path's host arrays for one plan (numpy): tile buckets,
+    chunk compaction, the resolve split (ss > 1), the chunk->entry gather
+    map, and per bucket its padded framebuffer rows, coverage-row ids,
+    params, colour-tile ids and (split plans) resolved-backdrop rows.
+
+    With a split, "res" holds the K3 inputs and the extras/XE tables against
+    the RAW rows, and bucket_pteb indexes cov_sub (clip buckets) or
+    cov_final (every other bucket, with its bucket_rbd).  Without one
+    (ss = 1, or no resolvable chunk) "res" is None and every bucket indexes
+    the one folded coverage array."""
+    split = _prepare_plan(plan)
+    ss = plan.supersample
     ne = plan.entry_backdrop.shape[0]
     num_tiles = plan.ntx * plan.nty
     m = build_cov_gather_map(plan.chunk_pools, ne)
     dead_id = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
     nct = plan.color_tiles.shape[0]
-    ids_l, pteb_l, pp_l, ctile_l, flags_l = [], [], [], [], []
+    ids_l, pp_l, ctile_l, flags_l = [], [], [], []
     for te_b, ids_b, flags in plan.tile_buckets:
         pp, _unused = build_bucket_aux(plan, te_b, need_ct=False)
-        pteb = build_bucket_pteb(te_b, m["primary"], dead_id)
-        nbp = pteb.shape[0]
+        nbp = _pad_tiles(te_b.shape[0])
         ids = np.full(nbp, num_tiles, np.int32)
         ids[: len(ids_b)] = ids_b
         ctile = None
@@ -109,36 +131,56 @@ def plan_host_arrays(plan: FramePlan) -> dict:
                           plan.entry_color_tile[np.maximum(te_p, 0)], -1)
             ctile = np.where(ct >= 0, ct, nct).astype(np.int32)
         ids_l.append(ids)
-        pteb_l.append(pteb)
         pp_l.append(pp)
         ctile_l.append(ctile)
         flags_l.append(tuple(bool(f) for f in flags))
+    if split is None:
+        res = None
+        cov_map = {"extra_chunk": m["extra_chunk"],
+                   "extra_primary": m["extra_primary"]}
+        pteb_l = [build_bucket_pteb(te_b, m["primary"], dead_id)
+                  for te_b, _ids, _fl in plan.tile_buckets]
+        rbd_l = [None] * len(pteb_l)
+        ncr = [dead_id + 1] * len(pteb_l)   # coverage rows each bucket indexes
+    else:
+        aux = build_resolve_aux(plan, m, split, dead_id)
+        res = {k: aux[k] for k in ("rparams", "extra_chunk_raw",
+                                   "extra_primary_raw", "xe_primary_raw",
+                                   "xe_rparams")}
+        cov_map = None
+        pteb_l, rbd_l = list(aux["pteb"]), list(aux["rbd"])
+        n_final = split["nres"] + len(aux["xe_primary_raw"]) + 1
+        ncr = [split["nraw"] + 1 if fl[3] else n_final for fl in flags_l]
+        for k in ("extra_chunk_raw", "extra_primary_raw", "xe_primary_raw"):
+            if res[k].size and (res[k].min() < 0 or res[k].max() > split["nraw"]):
+                raise ValueError(f"plan_to_device: {k} outside the raw rows")
     # indices come from the host binner: check them here, the kernels don't
-    ncr = dead_id + 1
     for ids in ids_l:
         if ids.size and (ids.min() < 0 or ids.max() > num_tiles):
             raise ValueError("plan_to_device: bucket tile id outside the framebuffer")
-    for pteb in pteb_l:
-        if pteb.size and (pteb.min() < 0 or pteb.max() >= ncr):
+    for pteb, n in zip(pteb_l, ncr):
+        if pteb.size and (pteb.min() < 0 or pteb.max() >= n):
             raise ValueError("plan_to_device: chunk id outside coverage rows")
     for ctile in ctile_l:
         if ctile is not None and ctile.size and (ctile.min() < 0 or ctile.max() > nct):
             raise ValueError("plan_to_device: colour-tile id out of range")
-    th, tw = plan.tile_h, plan.tile_w
+    # colour tiles live on the OUTPUT domain: (NCT, TH//ss, TW, 4) ->
+    # (NCT+1, 4*NPX_OUT) channel-major + the zeros row
+    npx_out = (plan.tile_h // ss) * plan.tile_w
     ct = np.asarray(plan.color_tiles, np.float32)
-    # (NCT, TH, TW, 4) -> (NCT+1, 4*NPX) channel-major + the zeros row
     ct_flat = np.concatenate([
-        ct.transpose(0, 3, 1, 2).reshape(ct.shape[0], 4 * th * tw),
-        np.zeros((1, 4 * th * tw), np.float32)])
+        ct.transpose(0, 3, 1, 2).reshape(ct.shape[0], 4 * npx_out),
+        np.zeros((1, 4 * npx_out), np.float32)])
     return {
         "chunk_edges": [np.ascontiguousarray(ce, np.float32)
                         for ce, _cent in plan.chunk_pools],
-        "cov_map": {"extra_chunk": m["extra_chunk"],
-                    "extra_primary": m["extra_primary"]},
+        "cov_map": cov_map,
+        "res": res,
         "bucket_ids": ids_l,
         "bucket_pteb": pteb_l,
         "bucket_params": pp_l,
         "bucket_ctile": ctile_l,
+        "bucket_rbd": rbd_l,
         "ct_flat": ct_flat,
         "bucket_flags": tuple(flags_l),
     }
@@ -153,50 +195,67 @@ def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
     profiler: optional FrameProfiler for sub-stage attribution (upload.*)."""
     stage = profiler.stage if profiler is not None else (
         lambda _n: contextlib.nullcontext())
+    with stage("upload.resolve_split"):
+        _prepare_plan(plan)
     with stage("upload.aux"):
         host = plan_host_arrays(plan)
     device = torch.device(device)
-
-    def put(x):
-        return None if x is None else torch.as_tensor(x).to(device)
-
-    lists = ("chunk_edges", "bucket_ids", "bucket_pteb", "bucket_params",
-             "bucket_ctile")
+    arrays = {k: v for k, v in host.items() if k != "bucket_flags"}
     with stage("upload.put"):
-        d = {k: [put(x) for x in host[k]] for k in lists}
-        d["cov_map"] = {k: put(v) for k, v in host["cov_map"].items()}
-        d["ct_flat"] = put(host["ct_flat"])
+        d = {k: _put(v, device) for k, v in arrays.items()}
         d["bucket_flags"] = host["bucket_flags"]
     if profiler is not None:
-        arrays = [x for k in lists for x in host[k] if x is not None]
-        arrays += [*host["cov_map"].values(), host["ct_flat"]]
-        profiler.count("upload_bytes", sum(x.nbytes for x in arrays))
+        profiler.count("upload_bytes", sum(x.nbytes for x in _leaves(arrays)))
     return d
 
 
-def _render(plan, d, background, resolve, bucket_fn):
-    th, tw = plan.tile_h, plan.tile_w
-    cov = resolve(d["chunk_edges"], d["cov_map"], th, tw)
+def _put(x, device):
+    """Nested dicts, lists and tuples of numpy arrays (or None) -> the same
+    structure of tensors on `device`."""
+    if isinstance(x, dict):
+        return {k: _put(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_put(v, device) for v in x)
+    return None if x is None else torch.as_tensor(x).to(device)
+
+
+def _leaves(x) -> list:
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [a for v in x for a in _leaves(v)]
+    return [] if x is None else [x]
+
+
+def _render(plan, d, background, plain):
+    th, tw, ss = plan.tile_h, plan.tile_w, plan.supersample
+    if d["res"] is not None:
+        split = cov_split_resolved_torch if plain else cov_split_resolved
+        cov_final, cov = split(d["chunk_edges"], d["res"], th, tw, ss)
+    else:
+        resolve = cov_all_resolved_torch if plain else cov_all_resolved
+        cov, cov_final = resolve(d["chunk_edges"], d["cov_map"], th, tw), None
     fb = frame_fb(
         cov, d["bucket_ids"], d["bucket_pteb"], d["bucket_params"],
         d["bucket_ctile"], d["ct_flat"], background,
         tile_h=th, tile_w=tw, num_tiles=plan.ntx * plan.nty,
-        bucket_flags=d["bucket_flags"], bucket_fn=bucket_fn)
-    return tiles_to_image(fb, ntx=plan.ntx, nty=plan.nty, tile_h=th,
+        bucket_flags=d["bucket_flags"],
+        bucket_fn=composite_bucket_into_torch if plain else composite_bucket,
+        ss=ss, cov_final_arr=cov_final, bucket_rbd=d["bucket_rbd"])
+    return tiles_to_image(fb, ntx=plan.ntx, nty=plan.nty, tile_h=th // ss,
                           tile_w=tw, width=plan.width, height=plan.height)
 
 
 def execute_plan(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
                  device_arrays=None, device=None) -> torch.Tensor:
     """Run the device pipeline; returns (H, W, 4) premultiplied f32 RGBA on
-    the arrays' device: kernels K1 + K2 on CUDA, the plain twins on the CPU.
-    Without device_arrays the plan is uploaded to `device` first."""
+    the arrays' device: kernels K1, K3 and K2 on CUDA, the plain twins on
+    the CPU.  Without device_arrays the plan is uploaded to `device` first."""
     if device_arrays is None:
         if device is None:
             raise ValueError("execute_plan: pass device_arrays or a device")
         device_arrays = plan_to_device(plan, device)
-    return _render(plan, device_arrays, background, cov_all_resolved,
-                   composite_bucket)
+    return _render(plan, device_arrays, background, plain=False)
 
 
 def execute_plan_torch(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
@@ -207,8 +266,7 @@ def execute_plan_torch(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
         if device is None:
             raise ValueError("execute_plan_torch: pass device_arrays or a device")
         device_arrays = plan_to_device(plan, device)
-    return _render(plan, device_arrays, background, cov_all_resolved_torch,
-                   composite_bucket_into_torch)
+    return _render(plan, device_arrays, background, plain=True)
 
 
 def image_to_u8(img) -> np.ndarray:

@@ -3,6 +3,7 @@
 draw_small_scene is vgtpu's `__graft_entry__._build_small_scene`: gradient,
 solid fill + round stroke, a clip, an image-pattern fill (the texture lane)
 and, when a font is given, text.  draw_feature_scene turns on every lane.
+draw_resolve_scene adds what a supersampled frame's resolve split needs.
 
 `vg` is the module whose vg:: surface draws them (vgtpu_torch by default),
 so tests can record the identical scene through vgtpu and the port."""
@@ -90,3 +91,40 @@ def draw_feature_scene(ctx, font_data: bytes | None = None, vg=None) -> None:
         f = vg.createFont(ctx, "sans", font_data, len(font_data), 0)
         cfg = vg.makeTextConfig(ctx, f, 22.0, vg.TextAlign.BaselineLeft, vg.Colors.White)
         vg.text(ctx, cfg, 270, 235, "composite")
+
+
+def draw_resolve_scene(ctx, font_data: bytes | None = None, vg=None) -> None:
+    """draw_feature_scene plus what the supersampled resolve split
+    (raster/resolve.py) needs to reach every case: a scissored translucent
+    fill outside any clip, whose chunkless interior tiles carry resolved
+    backdrop rows that meet the x-scissor in K2's final-coverage form, an
+    image pattern and vertex-coloured triangles in tiles without clip (the
+    texture and triangle lanes of that form), and a dense zig-zag, an entry
+    of several chunks (an XE row)."""
+    if vg is None:
+        import vgtpu_torch as vg
+
+    draw_feature_scene(ctx, font_data, vg=vg)
+    vg.setScissor(ctx, 37, 12, 301, 101)
+    vg.beginPath(ctx)
+    vg.rect(ctx, 20, 6, 470, 120)
+    vg.fillPath(ctx, vg.color4ub(20, 40, 90, 120), vg.FillFlags.ConvexAA)
+    vg.resetScissor(ctx)
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 255, (16, 16, 4), np.uint8)
+    img[..., 3] = 255
+    h_img = vg.createImage(ctx, 16, 16, 0, img)
+    p = vg.createImagePattern(ctx, 330, 104, 32, 32, 0.0, h_img)
+    vg.beginPath(ctx)
+    vg.rect(ctx, 330, 104, 100, 30)
+    vg.fillPath(ctx, p, vg.Colors.White, vg.FillFlags.ConvexAA)
+    pos = np.array([[230, 104], [300, 112], [262, 138]], np.float32)
+    cols = np.array([vg.Colors.Red, vg.Colors.Green, vg.Colors.Blue], np.uint32)
+    vg.indexedTriList(ctx, pos, None, 3, cols, 3, np.array([0, 1, 2], np.uint16), 3, None)
+    vg.beginPath(ctx)
+    vg.moveTo(ctx, 210.0, 30.0)
+    for i in range(60):
+        vg.lineTo(ctx, 212.0 + i * 1.5, 30.0 + (7.0 if i % 2 else -7.0))
+    vg.lineTo(ctx, 210.0, 50.0)
+    vg.closePath(ctx)
+    vg.fillPath(ctx, vg.color4ub(220, 120, 30, 255), vg.FillFlags.ConcaveNonZeroAA)

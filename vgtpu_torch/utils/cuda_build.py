@@ -6,10 +6,11 @@ by a hash of its sources so an edited kernel rebuilds, and loaded with
 ctypes.  Nothing here runs at import time: the CPU-only test environment has
 no nvcc and never reaches a build.
 
-A CudaKernel wraps a file's one entry point.  Every entry point returns
-cudaGetLastError() after its launch; a non-zero code raises here.  The
-kernel's `launches` counter is incremented only by the wrapper that launches
-it (ops/*_cuda.py), so a run can show its main path went through the kernel.
+A CudaKernel wraps a file's entry points (most files export one).  Every
+entry point returns cudaGetLastError() after its launch; a non-zero code
+raises here.  The kernel's `launches` counter is incremented only by the
+wrappers that launch it (ops/*_cuda.py), so a run can show its main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -39,18 +40,18 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """The one exported entry point of csrc/<name>.cu: built into its own
-    shared library on first use, called through ctypes, launches counted."""
+    """The exported entry points of csrc/<name>.cu: built into one shared
+    library on first use, called through ctypes, launches counted.
+    entries maps each C symbol to its ctypes argtypes."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, entries: dict):
         self.name = name
-        self.symbol = symbol
-        self.argtypes = argtypes
+        self.entries = dict(entries)
         self.launches = 0
         self.build_seconds = None   # wall time of this process's build
         self.build_log = ""         # nvcc/ptxas output (registers, spills)
         self._lib = None
-        self._fn = None
+        self._fns = None
 
     def _sources(self) -> list[str]:
         src = os.path.join(_CSRC, f"{self.name}.cu")
@@ -70,7 +71,7 @@ class CudaKernel:
     def build(self) -> float:
         """Compile (if needed), load and bind; returns this process's build
         seconds (0 when the library was already built)."""
-        if self._fn is not None:
+        if self._fns is not None:
             return self.build_seconds
         out = self.path()
         self.build_seconds = 0.0
@@ -91,19 +92,23 @@ class CudaKernel:
         lib = ctypes.CDLL(out)
         lib.vg_error_string.restype = ctypes.c_char_p
         lib.vg_error_string.argtypes = [ctypes.c_int]
-        fn = getattr(lib, self.symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = self.argtypes
-        self._lib, self._fn = lib, fn
+        fns = {}
+        for symbol, argtypes in self.entries.items():
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            fns[symbol] = fn
+        self._lib, self._fns = lib, fns
         return self.build_seconds
 
-    def launch(self, *args) -> None:
-        """Call the entry point; raise on a non-zero cudaGetLastError()."""
+    def launch(self, symbol: str, *args) -> None:
+        """Call entry point `symbol`; raise on a non-zero
+        cudaGetLastError()."""
         self.build()
-        rc = self._fn(*args)
+        rc = self._fns[symbol](*args)
         if rc != 0:
             msg = self._lib.vg_error_string(rc).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
+            raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
 
 
