@@ -26,6 +26,11 @@ Phases (any failure raises and the process exits non-zero):
      bucket of the 1080p plan and of the small, feature and resolve scenes,
      split (clip buckets take (d), the others (e)) and unsplit (every
      bucket takes (d)); each form must cover every lane it reads.
+  4c. K2's forms (b) (per-tile init planes: a random plane per tile) and
+     (c) (k_rep=3 variant blocks over one block of coverage rows, three
+     random paint variants, the batch's own tables) against the twin on
+     every bucket of the 1080p plan at ss=1 and of the ss=2 split plan, so
+     (b) runs with forms (a), (d) and (e).
   5. The main path: createContext(device="cuda"), begin 1920x1080,
      scenes.demo_ui.draw_benchmark_frame, end().  Both kernels' launch
      counts must be > 0; the image must match the same plan through the
@@ -36,12 +41,30 @@ Phases (any failure raises and the process exits non-zero):
      launch counts > 0; the image within 1 u8 level of the plain twins on
      the same plan; the small scene at ss = 2, 4 and 8 within 1 u8 level of
      the CPU path.
+  7. The serving paths at 1080p through the entry points, each run with the
+     launch counts set to 0 just before it and read just after (counter and
+     launch checks first, then the images, each within 1 u8 level):
+     redraw (5 identical frames: 4 frame-memo hits, each image against the
+     first), anim (bench.py's overlay recolour: 5 paint patches, against a
+     full-path context), layer (tiger + demo UI with a moving UI: one bake,
+     then K2 (b) frames, against a layer_memo=False context; at ss=1 and
+     ss=2), renderFrames (the frame at ss=1 and ss=2 and the small scene,
+     ended with end(dispatch=False), against fresh end()s) and batch
+     (VariantBatch of bench.py's K=6 overlay variants through K2 (c),
+     against per-variant full-path renders).
   6. Times (CUDA events, median of 12 runs after warm-up): the steady frame
-     from resident arrays at ss=1 and ss=2, K1, K2 and K3 beside their plain
-     twins; then each kernel's device time per steady frame and the device's
-     busy share (torch.profiler over 10 frames).
+     from resident arrays at ss=1 and ss=2, K1, K2 (each form) and K3 beside
+     their plain twins; each kernel's device time per steady frame and the
+     device's busy share (torch.profiler over 10 frames), also for a layer
+     frame (K2 (b)) and a batch render (K2 (c)); end() host time (median of
+     5, ending in torch.cuda.synchronize()) for a full-path frame, a redraw,
+     an anim frame and a layer frame; renderFrames over three contexts; and
+     measure_batch_ms_per_frame at K=6.  Phase 6 runs after phase 7, whose
+     contexts it times.
 
-The last two lines are the kernels' JSON record and the contract line
+The last two lines are the kernels' JSON record (K1, K2's forms (a)-(e),
+K3: launches on the main paths, error against the twin, times, and the
+bound from this run's shapes) and the contract line
 {"ok": true, "device": {...}}.  Imports neither jax nor vgtpu.
 """
 
@@ -60,6 +83,13 @@ import numpy as np
 
 SEED = 20261016
 BG = (1.0, 1.0, 1.0, 1.0)
+BG_APP = (0.12, 0.12, 0.13, 1.0)   # bench.py's background for the serving paths
+K_REP = 3                          # phase 4c's variant blocks
+K_BATCH = 6                        # bench.py batch_diag's K
+# the card's peaks for the bound (H100 SXM at 700 W): FP32 outside the
+# tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 # K1 vs its twin: the same roundings in the same order (explicit FMAs on
 # both sides, -fmad=false), so they agree to a few ulps; the bound allows a
 # one-ulp flip in u (|u| <= ~160 here, ulp 1.5e-5) amplified by the
@@ -74,6 +104,51 @@ K2_BOUND = 1e-4
 # a full sub-pixel, but kernel and twin round identically (K1 measured 0.0).
 K3_BOUND = 2e-3
 U8_BOUND = 1          # images: at most 1 u8 level after image_to_u8
+
+
+def u8_levels(a, b) -> int:
+    """Largest per-channel difference after image_to_u8."""
+    from vgtpu_torch.raster.frame import image_to_u8
+
+    return int(np.abs(image_to_u8(a).astype(np.int16)
+                      - image_to_u8(b).astype(np.int16)).max())
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the HBM rate and the operations over the FP32 peak."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_work(buckets, npx_out: int, ss: int, scratch: int,
+            init: bool = False) -> tuple:
+    """K2's least (bytes, operations) over buckets of (cov, pteb, params,
+    ct_flat, ctile, ids, rbd), counting the real tiles only (the pad tiles,
+    ids == scratch, write the framebuffer's scratch row, which nothing
+    reads): each coverage row, colour tile and params plane read once, each
+    tile written once (and read once more from an init plane); ~20
+    operations per valid slot and sub-pixel (rule, AA, shade, blend; form
+    (e) reads final coverage, one sample per pixel)."""
+    from vgtpu_torch.ops.composite import _P_VALID
+
+    nbytes = ops = 0
+    for cov, pteb, pp, ct_flat, ctile, ids, rbd in buckets:
+        real = ids < scratch
+        n_real = int(real.sum())
+        pteb_r = pteb[real[:pteb.shape[0]]]     # form (c): one variant block
+        pp_r = pp[:, :, real]
+        nbytes += int(pteb_r.unique().numel()) * cov.shape[1] * 4
+        nbytes += (pp_r.numel() + pteb_r.numel() + n_real) * 4
+        if ctile is not None:
+            nbytes += int(ctile[real].unique().numel()) * ct_flat.shape[1] * 4
+        if rbd is not None:
+            nbytes += rbd[:, :, real].numel() * 4
+        nbytes += n_real * npx_out * 16 * (2 if init else 1)
+        valid = int((pp_r[:, _P_VALID, :] > 0).sum())
+        ops += valid * npx_out * (1 if rbd is not None else ss) * 20
+    return nbytes, ops
 
 
 def card_line() -> str:
@@ -225,6 +300,7 @@ def main() -> int:
     from vgtpu_torch.ops import composite_cuda, coverage_cuda, coverage_resolve_cuda
     from vgtpu_torch.ops.composite import composite_bucket_into_torch, frame_fb
     from vgtpu_torch.ops.coverage import (
+        cov_all_resolved,
         cov_all_resolved_torch,
         cov_all_torch,
         fold_extras,
@@ -234,6 +310,12 @@ def main() -> int:
         cov_split_resolved_torch,
         coverage_chunks_res_torch,
         resolve_cov_rows_torch,
+    )
+    from vgtpu_torch.raster.batch import (
+        VariantBatch,
+        _batch_tables,
+        _batch_values,
+        measure_batch_ms_per_frame,
     )
     from vgtpu_torch.raster.frame import execute_plan, execute_plan_torch, image_to_u8
     from vgtpu_torch.scenes import demo_ui
@@ -257,6 +339,20 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     K1, K2, K3 = coverage_cuda.K1, composite_cuda.K2, coverage_resolve_cuda.K3
     kernels = {"K1": K1, "K2": K2, "K3": K3}
+    form_launches = composite_cuda.FORM_LAUNCHES
+
+    def zero_counts():
+        """Every kernel's and K2 form's launch count to 0."""
+        for k in kernels.values():
+            k.launches = 0
+        for f in form_launches:
+            form_launches[f] = 0
+
+    def read_counts() -> dict:
+        torch.cuda.synchronize()
+        out = {name: k.launches for name, k in kernels.items()}
+        out.update({f"K2 ({f})": n for f, n in form_launches.items()})
+        return out
     # one nvcc per source, all started together (nvcc runs outside the GIL)
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         builds = {name: pool.submit(k.build) for name, k in kernels.items()}
@@ -390,6 +486,7 @@ def main() -> int:
                                      f"flags {flags}: {err}")
         print(f"[4] K2 on {len(dd['bucket_flags'])} {label} buckets: "
               f"max|K2 - plain| = {k2_err:.3e} (bound {K2_BOUND:.0e})")
+    k2_form_err = {"a": k2_err, "b": 0.0, "c": 0.0, "d": 0.0, "e": 0.0}
     lanes = np.array(sorted(covered)).any(axis=0)
     print(f"[4] flag tuples (grad,tri,tex,clip,eo,noaa,scissor): {sorted(covered)}")
     print(f"[4] lanes covered: {lanes.astype(int).tolist()}")
@@ -432,6 +529,7 @@ def main() -> int:
             torch.cuda.synchronize()
             err = float((fb_k[:nt] - fb_p[:nt]).abs().max())
             k2_err = max(k2_err, err)
+            k2_form_err[form] = max(k2_form_err[form], err)
             forms[form] += 1
             lanes_on = flags if form == "d" else [flags[j] for j in e_lanes]
             covered_ss2[form].add(tuple(int(f) for f in lanes_on))
@@ -449,15 +547,81 @@ def main() -> int:
             raise AssertionError(f"a lane of K2 form ({form}) was never exercised: "
                                  f"{lanes}")
 
+    # ---- 4c. K2 forms (b) and (c) vs plain -------------------------------
+    covered_bc = {"b": set(), "c": set()}
+    for label, p, dd in (("1080p ss=1", plan, d), ("1080p ss=2 split", plan2, d2)):
+        ss, th = p.supersample, p.tile_h
+        nt = p.ntx * p.nty
+        if dd["res"] is not None:
+            cov_final, cov_sub = cov_split_resolved_torch(dd["chunk_edges"], dd["res"],
+                                                          th, 128, ss)
+        else:
+            cov_final = None
+            cov_sub = cov_all_resolved_torch(dd["chunk_edges"], dd["cov_map"], th, 128)
+        # (b): every bucket in its own form from a random plane per tile
+        init = torch.from_numpy(
+            rng.uniform(0, 1, (nt + 1, 8, 128, 4)).astype(np.float32)).to(dev)
+        forms_b = {"a": 0, "d": 0, "e": 0}
+        for i, flags in enumerate(dd["bucket_flags"]):
+            form = "e" if cov_final is not None and not flags[3] else "ad"[ss > 1]
+            rbd = dd["bucket_rbd"][i] if form == "e" else None
+            args_b = (cov_final if form == "e" else cov_sub, dd["bucket_pteb"][i],
+                      dd["bucket_params"][i], dd["ct_flat"], dd["bucket_ctile"][i],
+                      dd["bucket_ids"][i], BG)
+            fb_k, fb_p = init.clone(), init.clone()
+            composite_cuda.composite_bucket_cuda(fb_k, *args_b, tile_w=128, flags=flags,
+                                                 ss=ss, rbd=rbd, init=True)
+            composite_bucket_into_torch(fb_p, *args_b, tile_w=128, flags=flags, ss=ss,
+                                        rbd=rbd, init=True)
+            torch.cuda.synchronize()
+            err = float((fb_k[:nt] - fb_p[:nt]).abs().max())
+            k2_form_err["b"] = max(k2_form_err["b"], err)
+            forms_b[form] += 1
+            covered_bc["b"].add(tuple(int(f) for f in flags))
+            if not err <= K2_BOUND:
+                raise AssertionError(f"K2 (b) with form ({form}) disagrees on {label} "
+                                     f"bucket {i} flags {flags}: {err}")
+        # (c): the batch's own tables (coverage rows over all pools, form (d)
+        # at ss > 1) and K_REP random paint / colour-tile variants
+        tb = _batch_tables(p, dd, K_REP)
+        snaps = []
+        for v in range(K_REP):
+            ep = p.entry_paint.copy()
+            ep[:, 10:18] *= rng.uniform(0.3, 1.0, (ep.shape[0], 8)).astype(np.float32)
+            snaps.append({"entry_paint": ep, "ct_flat": dd["ct_flat"] * (0.5 ** v)})
+        params_c, ct_c, ctile_c = _batch_values(dd, snaps)
+        cov_c = cov_all_resolved_torch(dd["chunk_edges"], tb["cov_map"], th, 128)
+        for i, flags in enumerate(dd["bucket_flags"]):
+            args_c = (cov_c, tb["pteb"][i], params_c[i], ct_c, ctile_c[i], tb["ids"][i], BG)
+            fb_k = torch.zeros((K_REP * nt + 1, 8, 128, 4), device=dev)
+            fb_p = fb_k.clone()
+            composite_cuda.composite_bucket_cuda(fb_k, *args_c, tile_w=128, flags=flags,
+                                                 ss=ss, k_rep=K_REP)
+            composite_bucket_into_torch(fb_p, *args_c, tile_w=128, flags=flags, ss=ss,
+                                        k_rep=K_REP)
+            torch.cuda.synchronize()
+            err = float((fb_k[:K_REP * nt] - fb_p[:K_REP * nt]).abs().max())
+            k2_form_err["c"] = max(k2_form_err["c"], err)
+            covered_bc["c"].add(tuple(int(f) for f in flags))
+            if not err <= K2_BOUND:
+                raise AssertionError(f"K2 (c) disagrees on {label} bucket {i} flags "
+                                     f"{flags}: {err}")
+        print(f"[4c] K2 on {label}: (b) over {forms_b} buckets, max|K2 - plain| = "
+              f"{k2_form_err['b']:.3e}; (c) k_rep={K_REP} over "
+              f"{len(dd['bucket_flags'])} buckets, max|K2 - plain| = "
+              f"{k2_form_err['c']:.3e} (bound {K2_BOUND:.0e})")
+    for form in ("b", "c"):
+        lanes = np.array(sorted(covered_bc[form])).any(axis=0)
+        print(f"[4c] form ({form}) lanes (grad,tri,tex,clip,eo,noaa,scissor) covered: "
+              f"{lanes.astype(int).tolist()}")
+
     # ---- 5. the main path ----------------------------------------------
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
     ctx = vg.createContext(device="cuda")
     vg.begin(ctx, 0, 1920, 1080, 1.0)
     vg.scenes.demo_ui.draw_benchmark_frame(ctx, 0.0)
     img = vg.end(ctx)
-    torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = read_counts()
     print(f"[5] main path launches: {launches}")
     if not (launches["K1"] > 0 and launches["K2"] > 0):
         raise AssertionError(f"main path skipped a kernel: {launches}")
@@ -493,16 +657,14 @@ def main() -> int:
         raise AssertionError(f"small scene CUDA vs CPU: {su8} u8 levels")
 
     # ---- 5b. the main path in parity mode (ss=2) --------------------------
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
     ctx2 = vg.createContext(vg.ContextConfig(coverage_supersample=2), device="cuda")
     vg.begin(ctx2, 0, 1920, 1080, 1.0)
     vg.scenes.demo_ui.draw_benchmark_frame(ctx2, 0.0)
     img2 = vg.end(ctx2)
-    torch.cuda.synchronize()
-    launches_ss2 = {name: k.launches for name, k in kernels.items()}
+    launches_ss2 = read_counts()
     print(f"[5b] main path (ss=2) launches: {launches_ss2}")
-    if not all(n > 0 for n in launches_ss2.values()):
+    if not all(launches_ss2[n] > 0 for n in ("K1", "K2", "K3", "K2 (d)", "K2 (e)")):
         raise AssertionError(f"ss=2 main path skipped a kernel: {launches_ss2}")
     if tuple(img2.shape) != (1080, 1920, 4) or img2.device.type != "cuda":
         raise AssertionError(f"ss=2 end() returned {tuple(img2.shape)} on {img2.device}")
@@ -544,6 +706,141 @@ def main() -> int:
               f"(bound {U8_BOUND})")
         if su8 > U8_BOUND:
             raise AssertionError(f"small scene ss={ss} CUDA vs CPU: {su8} u8 levels")
+
+    # ---- 7. the serving paths -------------------------------------------
+    paths = {"main ss=1": launches, "main ss=2": launches_ss2}
+
+    def app_frame(c, draw, dispatch=True):
+        vg.begin(c, 0, 1920, 1080, 1.0)
+        draw(c)
+        return vg.end(c, background=BG_APP, dispatch=dispatch)
+
+    def overlay(k):
+        """bench.py's anim / batch_diag frame: the north-star frame plus a
+        rect whose colour is the only delta."""
+        def f(c):
+            demo_ui.draw_benchmark_frame(c, 0.0)
+            vg.beginPath(c)
+            vg.rect(c, 1800, 1000, 60, 40)
+            vg.fillPath(c, vg.color4ub(50 + 17 * k, 120, 200, 180),
+                        vg.FillFlags.ConvexAA)
+        return f
+
+    def layer_frame(k):
+        return lambda c: demo_ui.draw_benchmark_frame(c, 0.3 + 0.05 * k)
+
+    def check_path(name, counts, need, pairs):
+        """A path's launch counts (each kernel in need launched), then its
+        images against their references."""
+        paths[name] = counts
+        print(f"[7] {name}: launches {counts}")
+        missing = [k for k in need if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{name} launched no {missing}: {counts}")
+        for a, b in pairs:
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: non-finite pixels")
+        worst = max(u8_levels(a, b) for a, b in pairs)
+        print(f"[7] {name}: {len(pairs)} images, worst {worst} u8 levels from the "
+              f"reference (bound {U8_BOUND})")
+        if worst > U8_BOUND:
+            raise AssertionError(f"{name}: an image is {worst} u8 levels off")
+
+    def bench_frame(c):
+        demo_ui.draw_benchmark_frame(c, 0.0)
+
+    # redraw: identical re-records re-render the resident plan
+    ctx_r = vg.createContext(device="cuda")
+    zero_counts()
+    imgs = [app_frame(ctx_r, bench_frame) for _ in range(5)]
+    counts = read_counts()
+    hits = ctx_r.profiler.counters.get("memo_hits", 0)
+    print(f"[7] redraw: memo_hits {hits} of 5 frames")
+    if hits != 4:
+        raise AssertionError(f"redraw took {hits} frame-memo hits, not 4")
+    check_path("redraw", counts, ("K1", "K2", "K2 (a)"),
+               [(im, imgs[0]) for im in imgs[1:]])
+
+    # anim: the overlay's colour changes, the resident paint rows are patched
+    ref_a = vg.createContext(vg.ContextConfig(frame_memo=False), device="cuda")
+    refs = [app_frame(ref_a, overlay(k)) for k in range(6)]
+    ctx_a = vg.createContext(device="cuda")
+    zero_counts()
+    imgs, up = [], []
+    for k in range(6):
+        u0 = ctx_a.profiler.counters.get("upload_bytes", 0)
+        imgs.append(app_frame(ctx_a, overlay(k)))
+        up.append(ctx_a.profiler.counters.get("upload_bytes", 0) - u0)
+    counts = read_counts()
+    hits = ctx_a.profiler.counters.get("memo_paint_hits", 0)
+    print(f"[7] anim: memo_paint_hits {hits} of 5 recolours; upload_bytes "
+          f"{up[0]} for the full frame, {up[1]} for a patch frame")
+    if hits != 5:
+        raise AssertionError(f"anim took {hits} paint patches, not 5")
+    check_path("anim", counts, ("K1", "K2", "K2 (a)"), list(zip(imgs, refs)))
+
+    # layer: the tiger and the UI's static part bake once, the moving UI
+    # composites over the resident tiles (K2 (b))
+    layer_ctx = {}
+    for ss in (1, 2):
+        ref_l = vg.createContext(vg.ContextConfig(coverage_supersample=ss,
+                                                  layer_memo=False), device="cuda")
+        refs = [app_frame(ref_l, layer_frame(k)) for k in range(6)]
+        ctx_l = vg.createContext(vg.ContextConfig(coverage_supersample=ss), device="cuda")
+        zero_counts()
+        imgs = [app_frame(ctx_l, layer_frame(k)) for k in range(6)]
+        counts = read_counts()
+        n = ctx_l.profiler.counters
+        print(f"[7] layer ss={ss}: layer_bakes {n.get('layer_bakes', 0)} layer_hits "
+              f"{n.get('layer_hits', 0)} of 6 frames; prefix {ctx_l._layer_used} of "
+              f"{len(ctx_l.ops)} ops; suffix plan {ctx_l.last_plan.stats.get('entries')} "
+              f"entries in {len(ctx_l.last_device_arrays['bucket_flags'])} buckets")
+        if n.get("layer_bakes", 0) != 1 or n.get("layer_hits", 0) < 3:
+            raise AssertionError(f"layer ss={ss}: {dict(n)}")
+        need = ("K1", "K2", "K2 (b)") + (("K3", "K2 (d)", "K2 (e)") if ss > 1
+                                         else ("K2 (a)",))
+        check_path(f"layer ss={ss}", counts, need, list(zip(imgs, refs)))
+        layer_ctx[ss] = ctx_l
+
+    # renderFrames: three different canvases, each ended with
+    # end(dispatch=False), rendered back to back
+    rf_cases = [(1, 1920, 1080, bench_frame), (2, 1920, 1080, bench_frame),
+                (1, WIDTH, HEIGHT, draw_small_scene)]
+
+    def rf_context(ss):
+        return vg.createContext(vg.ContextConfig(coverage_supersample=ss), device="cuda")
+
+    def rf_record(c, case, dispatch):
+        _ss, w, h, draw = case
+        vg.begin(c, 0, w, h, 1.0)
+        draw(c)
+        return vg.end(c, background=BG_APP, dispatch=dispatch)
+
+    refs = [rf_record(rf_context(case[0]), case, True) for case in rf_cases]
+    rf_ctxs = [rf_context(case[0]) for case in rf_cases]
+    for c, case in zip(rf_ctxs, rf_cases):
+        if rf_record(c, case, False) is not None or c.frame_image is not None:
+            raise AssertionError("end(dispatch=False) rendered a frame")
+    zero_counts()
+    rf_imgs = vg.renderFrames(rf_ctxs)
+    counts = read_counts()
+    check_path("renderFrames", counts,
+               ("K1", "K2", "K3", "K2 (a)", "K2 (d)", "K2 (e)"), list(zip(rf_imgs, refs)))
+
+    # batch: bench.py's K=6 overlay variants, coverage once, K2 (c) per bucket
+    ctx_b = vg.createContext(device="cuda")
+    zero_counts()
+    vb = VariantBatch.bake(ctx_b, [overlay(k) for k in range(K_BATCH)], 1920, 1080,
+                           background=BG_APP)
+    bimgs = vb.render(background=BG_APP)
+    counts = read_counts()
+    if tuple(bimgs.shape) != (K_BATCH, 1080, 1920, 4):
+        raise AssertionError(f"VariantBatch.render returned {tuple(bimgs.shape)}")
+    ref_b = vg.createContext(vg.ContextConfig(frame_memo=False), device="cuda")
+    refs = [app_frame(ref_b, overlay(k)) for k in range(K_BATCH)]
+    check_path("batch", counts, ("K1", "K2", "K2 (c)"),
+               [(bimgs[k], refs[k]) for k in range(K_BATCH)])
+    del refs, imgs, bimgs, rf_imgs
 
     # ---- 6. times -------------------------------------------------------
     pl, dv = ctx.last_plan, ctx.last_device_arrays
@@ -611,38 +908,157 @@ def main() -> int:
     }
     for name, v in ms.items():
         print(f"[6] {name:15s} {v:9.3f} ms  (median of 12, CUDA events; {card})")
+    # K2's forms one at a time: (d) and (e) split the ss=2 frame's buckets;
+    # (b) every bucket of the ss=1 layer frame's suffix plan over its
+    # resident tiles; (c) every bucket of the K=6 batch
+    def only(form, fn):
+        def run(*args, rbd=None, **kw):
+            if (rbd is not None) == (form == "e"):
+                fn(*args, rbd=rbd, **kw)
+        return run
+
+    cl = layer_ctx[1]
+    pb, db, tiles_b = cl.last_plan, cl.last_device_arrays, cl._layer_render
+    cov_b = fold_extras(coverage_cuda.cov_all_cuda(db["chunk_edges"], 8, 128),
+                        db["cov_map"])
+
+    def composite_layer(bucket_fn):
+        return frame_fb(cov_b, db["bucket_ids"], db["bucket_pteb"],
+                        db["bucket_params"], db["bucket_ctile"], db["ct_flat"],
+                        BG_APP, tile_h=8, tile_w=128, num_tiles=pb.ntx * pb.nty,
+                        bucket_flags=db["bucket_flags"], bucket_fn=bucket_fn,
+                        init_tiles=tiles_b)
+
+    tbv, nt_v = vb._tables, vb._plan.ntx * vb._plan.nty
+    cov_v = cov_all_resolved(vb._d["chunk_edges"], tbv["cov_map"], 8, 128)
+
+    def composite_batch(bucket_fn):
+        return frame_fb(cov_v, tbv["ids"], tbv["pteb"], vb._params, vb._ctile,
+                        vb._ct_flat, BG_APP, tile_h=8, tile_w=128,
+                        num_tiles=K_BATCH * nt_v, bucket_flags=vb._d["bucket_flags"],
+                        bucket_fn=bucket_fn, k_rep=K_BATCH)
+
+    k2cuda, k2plain = composite_cuda.composite_bucket_cuda, composite_bucket_into_torch
+    ms.update({
+        "K2d_ss2": time_ms(lambda: composite_all_ss2(only("d", k2cuda))),
+        "K2d_ss2_plain": time_ms(lambda: composite_all_ss2(only("d", k2plain))),
+        "K2e_ss2": time_ms(lambda: composite_all_ss2(only("e", k2cuda))),
+        "K2e_ss2_plain": time_ms(lambda: composite_all_ss2(only("e", k2plain))),
+        "K2b_layer": time_ms(lambda: composite_layer(k2cuda)),
+        "K2b_layer_plain": time_ms(lambda: composite_layer(k2plain)),
+        "K2c_batch": time_ms(lambda: composite_batch(k2cuda)),
+        "K2c_batch_plain": time_ms(lambda: composite_batch(k2plain), runs=3, warmup=1),
+        "layer_frame": time_ms(lambda: execute_plan(pb, BG_APP, device_arrays=db,
+                                                    init_tiles=tiles_b)),
+        "batch_render": time_ms(lambda: vb.render(BG_APP)),
+    })
+    for name in ("K2d_ss2", "K2e_ss2", "K2b_layer", "K2c_batch", "layer_frame",
+                 "batch_render"):
+        for key in (name, f"{name}_plain"):
+            if key in ms:
+                print(f"[6] {key:15s} {ms[key]:9.3f} ms  (CUDA events; {card})")
     # device time alone: the event times above include the host's launch
     # gaps (one Python wrapper call per pool and bucket)
     dev_ms = {}
-    for tag, p_, d_ in (("ss1", pl, dv), ("ss2", pl2, dv2)):
-        by, busy, window = device_breakdown(
-            lambda p_=p_, d_=d_: execute_plan(p_, BG, device_arrays=d_))
+    for tag, run in (("ss1", lambda: execute_plan(pl, BG, device_arrays=dv)),
+                     ("ss2", lambda: execute_plan(pl2, BG, device_arrays=dv2)),
+                     ("layer", lambda: execute_plan(pb, BG_APP, device_arrays=db,
+                                                    init_tiles=tiles_b)),
+                     ("batch", lambda: vb.render(BG_APP))):
+        by, busy, window = device_breakdown(run)
         dev_ms[tag] = by
-        print(f"[6] steady frame {tag}: device busy {busy:.4f} of {window:.4f} ms per "
-              f"frame ({100 * busy / window:.1f}% busy; torch.profiler, 10 frames; {card})")
+        print(f"[6] steady {tag}: device busy {busy:.4f} of {window:.4f} ms per "
+              f"call ({100 * busy / window:.1f}% busy; torch.profiler, 10 calls; {card})")
         for key, v in sorted(by.items(), key=lambda kv: -kv[1]):
-            print(f"[6]    {key:48s} {v:.4f} ms/frame")
-    # achieved rates from the shapes (H100 SXM peaks at 700 W: 67 TFLOP/s
-    # FP32 outside the tensor cores, 3.35 TB/s HBM)
+            print(f"[6]    {key:48s} {v:.4f} ms/call")
+
+    # the serving paths' host time: end() (or renderFrames) to
+    # torch.cuda.synchronize(), recording excluded, median of 5
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def end_ms(c, draw) -> float:
+        vg.begin(c, 0, 1920, 1080, 1.0)
+        draw(c)
+        return timed(lambda: vg.end(c, background=BG_APP))
+
+    ctx_f = vg.createContext(vg.ContextConfig(frame_memo=False), device="cuda")
+    end_ms(ctx_f, bench_frame)
+    c_a = dict(ctx_a.profiler.counters)
+    c_l = dict(layer_ctx[1].profiler.counters)
+    host = {
+        "end() full path": [end_ms(ctx_f, bench_frame) for _ in range(5)],
+        "end() redraw": [end_ms(ctx_r, bench_frame) for _ in range(5)],
+        "end() anim": [end_ms(ctx_a, overlay(6 + i)) for i in range(5)],
+        "end() layer": [end_ms(layer_ctx[1], layer_frame(6 + i)) for i in range(5)],
+    }
+    n_a, n_l = ctx_a.profiler.counters, layer_ctx[1].profiler.counters
+    if (n_a["memo_paint_hits"] - c_a["memo_paint_hits"] != 5
+            or n_l["layer_hits"] - c_l["layer_hits"] != 5):
+        raise AssertionError("[6] an anim or layer frame left its short path")
+
+    def rf_ms() -> float:
+        for c, case in zip(rf_ctxs, rf_cases):
+            rf_record(c, case, False)
+        return timed(lambda: vg.renderFrames(rf_ctxs))
+
+    host["renderFrames (3 contexts)"] = [rf_ms() for _ in range(5)]
+    for name, ts in host.items():
+        print(f"[6] {name:26s} {statistics.median(ts):9.3f} ms host  (median of 5, "
+              f"to torch.cuda.synchronize(); {[round(t, 3) for t in ts]}; {card})")
+    batch_ms = measure_batch_ms_per_frame(vb, BG_APP, reps_hi=8, reps_lo=2)
+    print(f"[6] measure_batch_ms_per_frame K={K_BATCH}: {batch_ms:.4f} ms per variant "
+          f"frame (CUDA events, 8 - 2 renders) beside the steady single frame "
+          f"{ms['frame']:.4f} ms ({card})")
+
+    # achieved rates and each kernel's bound from this run's shapes
     npx = 8 * 128
     k1_flop = sum(int(ce.shape[0]) * int(ce.shape[1]) for ce in dv["chunk_edges"]) \
         * npx * 25                       # ~25 float ops per edge and pixel
-    k2_bytes = npx * 16 * sum(int(i.shape[0]) for i in dv["bucket_ids"])  # fb out
-    for pteb, pp, ctile in zip(dv["bucket_pteb"], dv["bucket_params"],
-                               dv["bucket_ctile"]):
-        slots = pteb.numel()             # one coverage row + params per slot
-        k2_bytes += slots * (npx * 4 + pp.shape[1] * 4)
-        if ctile is not None:
-            k2_bytes += slots * npx * 16  # colour tile per slot
-    k1_rate = k1_flop / (ms["K1"] * 1e-3) / 1e12
-    k2_rate = k2_bytes / (ms["K2"] * 1e-3) / 1e12
+    k1_bytes = sum(ce.numel() * 4 + int(ce.shape[0]) * npx * 4
+                   for ce in dv["chunk_edges"])
     # K3: 2*npx sub-pixels per chunk, ~25 ops per edge + ~15 of epilogue
     k3_flop = sum(int(ce.shape[0]) * 2 * npx * (25 * int(ce.shape[1]) + 15)
                   for ce in dv2["chunk_edges"][:k])
+    nxe2 = res2["xe_primary_raw"].shape[0]
+    k3_bytes = (sum(ce.numel() * 4 + int(ce.shape[0]) * npx * 4
+                    for ce in dv2["chunk_edges"][:k])
+                + sum(rp.numel() * 4 for rp in res2["rparams"])
+                + nxe2 * (2 * npx * 4 + npx * 4) + res2["xe_rparams"].numel() * 4)
+    split2 = [(fin2 if rbd is not None else sub2, pteb, pp, dv2["ct_flat"], ct, ids, rbd)
+              for pteb, pp, ct, ids, rbd in zip(
+                  dv2["bucket_pteb"], dv2["bucket_params"], dv2["bucket_ctile"],
+                  dv2["bucket_ids"], dv2["bucket_rbd"])]
+    work = {
+        "K1": (k1_bytes, k1_flop),
+        "a": k2_work([(cov_res, *b, None) for b in zip(
+            dv["bucket_pteb"], dv["bucket_params"], [dv["ct_flat"]] * 99,
+            dv["bucket_ctile"], dv["bucket_ids"])], npx, 1, nt),
+        "b": k2_work([(cov_b, *b, None) for b in zip(
+            db["bucket_pteb"], db["bucket_params"], [db["ct_flat"]] * 99,
+            db["bucket_ctile"], db["bucket_ids"])], npx, 1, pb.ntx * pb.nty,
+            init=True),
+        "c": k2_work([(cov_v, *b, None) for b in zip(
+            tbv["pteb"], vb._params, [vb._ct_flat] * 99, vb._ctile, tbv["ids"])],
+            npx, 1, K_BATCH * nt_v),
+        "d": k2_work([b for b in split2 if b[6] is None], npx, 2, nt2),
+        "e": k2_work([b for b in split2 if b[6] is not None], npx, 2, nt2),
+        "K3": (k3_bytes, k3_flop),
+    }
+    for key, (nb, ops) in work.items():
+        bms, by_ = bound(nb, ops)
+        print(f"[6] work {key}: {nb / 1e6:.1f} MB, {ops / 1e9:.2f} G operations -> "
+              f"bound {bms:.4f} ms by {by_} (67 TFLOP/s FP32, 3.35 TB/s HBM)")
+    k1_rate = k1_flop / (ms["K1"] * 1e-3) / 1e12
+    k2_rate = work["a"][0] / (ms["K2"] * 1e-3) / 1e12
     k3_rate = k3_flop / (ms["K3_ss2"] * 1e-3) / 1e12
     print(f"[6] K1 ~{k1_flop / 1e9:.2f} GFLOP -> {k1_rate:.1f} TFLOP/s "
           f"({100 * k1_rate / 67:.0f}% of 67 FP32 peak; {card})")
-    print(f"[6] K2 ~{k2_bytes / 1e6:.1f} MB read+written -> {k2_rate:.3f} TB/s "
+    print(f"[6] K2 (a) ~{work['a'][0] / 1e6:.1f} MB read+written -> {k2_rate:.3f} TB/s "
           f"({100 * k2_rate / 3.35:.0f}% of 3.35 HBM peak; {card})")
     print(f"[6] K3 (ss=2, RES pools) ~{k3_flop / 1e9:.2f} GFLOP -> {k3_rate:.1f} "
           f"TFLOP/s ({100 * k3_rate / 67:.0f}% of 67 FP32 peak; {card})")
@@ -653,35 +1069,46 @@ def main() -> int:
                     if m == "jax" or m.startswith(("jax.", "vgtpu.")) or m == "vgtpu")
     if leaked:
         raise AssertionError(f"chip_smoke imported {leaked}")
-    def launch_counts(name):
-        by_path = {"ss1": launches[name], "ss2": launches_ss2[name]}
-        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
-    def device_ms(*keys):
-        return {f"device_ms_{tag}": sum(dev_ms[tag].get(k, 0.0) for k in keys)
-                for tag in ("ss1", "ss2")}
+    def entry(name, key, source, replaces, err, t, t_plain, dev_t, **extra):
+        """One kernel's record: launches summed over the main paths' runs
+        (phases 5, 5b and 7), the bound from this run's shapes, its device
+        ms per call of the run that times it (torch.profiler)."""
+        by_path = {p: c[key] for p, c in paths.items() if c[key]}
+        bms, by_ = bound(*work[key.split()[-1].strip("()")])
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err, "ms": t,
+                "plain_ms": t_plain, "bound_ms": bms, "bound_by": by_,
+                "library_ms": None, "device_ms": dev_t, **extra}
+
+    k2src = "vgtpu_torch/csrc/composite.cu"
+    k2rep = "vgtpu/ops/composite_pallas.py:181"
+
+    def dms(tag, *keys):
+        return sum(dev_ms[tag].get(k, 0.0) for k in keys)
 
     print(json.dumps({"kernels": [
-        {"name": "K1 chunk coverage", "route": "cuda",
-         "source": "vgtpu_torch/csrc/coverage.cu",
-         "replaces": "vgtpu/ops/coverage_pallas.py:254",
-         **launch_counts("K1"), "max_abs_err": k1_err,
-         "ms": ms["K1"], "plain_ms": ms["K1_plain"],
-         "ms_ss2": ms["K1_ss2"], "plain_ms_ss2": ms["K1_ss2_plain"],
-         **device_ms("K1")},
-        {"name": "K2 fused painter composite", "route": "cuda",
-         "source": "vgtpu_torch/csrc/composite.cu",
-         "replaces": "vgtpu/ops/composite_pallas.py:181",
-         **launch_counts("K2"), "max_abs_err": k2_err,
-         "ms": ms["K2"], "plain_ms": ms["K2_plain"],
-         "ms_ss2": ms["K2_ss2"], "plain_ms_ss2": ms["K2_ss2_plain"],
-         **device_ms("K2 (a)/(d)", "K2 (e)")},
-        {"name": "K3 resolved chunk coverage", "route": "cuda",
-         "source": "vgtpu_torch/csrc/coverage_resolve.cu",
-         "replaces": "vgtpu/ops/coverage_resolve.py:204",
-         **launch_counts("K3"), "max_abs_err": k3_err,
-         "ms": ms["K3_ss2"], "plain_ms": ms["K3_ss2_plain"],
-         **device_ms("K3", "K3 rows")},
+        entry("K1 chunk coverage", "K1", "vgtpu_torch/csrc/coverage.cu",
+              "vgtpu/ops/coverage_pallas.py:254", k1_err, ms["K1"], ms["K1_plain"],
+              dms("ss1", "K1"), ms_ss2=ms["K1_ss2"], plain_ms_ss2=ms["K1_ss2_plain"],
+              device_ms_ss2=dms("ss2", "K1")),
+        entry("K2 (a) painter composite, ss=1", "K2 (a)", k2src, k2rep,
+              k2_form_err["a"], ms["K2"], ms["K2_plain"], dms("ss1", "K2 (a)/(d)")),
+        entry("K2 (b) per-tile init planes (layer memo)", "K2 (b)", k2src,
+              f"{k2rep} (form :577)", k2_form_err["b"], ms["K2b_layer"],
+              ms["K2b_layer_plain"], dms("layer", "K2 (a)/(d)")),
+        entry("K2 (c) k_rep variant blocks (VariantBatch)", "K2 (c)", k2src,
+              f"{k2rep} (form :550)", k2_form_err["c"], ms["K2c_batch"],
+              ms["K2c_batch_plain"], dms("batch", "K2 (a)/(d)")),
+        entry("K2 (d) sub-row coverage, ss>1", "K2 (d)", k2src, k2rep,
+              k2_form_err["d"], ms["K2d_ss2"], ms["K2d_ss2_plain"],
+              dms("ss2", "K2 (a)/(d)")),
+        entry("K2 (e) final coverage + rbd, ss>1", "K2 (e)", k2src, k2rep,
+              k2_form_err["e"], ms["K2e_ss2"], ms["K2e_ss2_plain"], dms("ss2", "K2 (e)")),
+        entry("K3 resolved chunk coverage", "K3", "vgtpu_torch/csrc/coverage_resolve.cu",
+              "vgtpu/ops/coverage_resolve.py:204", k3_err, ms["K3_ss2"],
+              ms["K3_ss2_plain"], dms("ss2", "K3", "K3 rows")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -312,3 +312,157 @@ def test_frame_fb_split_matches_frame_fb_pallas():
     assert got.shape == ref.shape == (nt, plan.tile_h // ss, plan.tile_w, 4)
     np.testing.assert_allclose(got.numpy(), ref, atol=3e-6, rtol=0)
 
+
+
+# ---- K2 forms (b) per-tile init planes and (c) k_rep variant blocks -------
+
+_FLAGS_BC = (True, False, False, False, True, True, True)   # grad, eo, noaa, scissor
+
+
+def _synthetic_bucket(rng, *, ss, k_rep=1, nb=128, mo=4, th_out=8, tw=16):
+    """A bucket of nb tiles (8x16 output pixels) x mo slots with random solid
+    and gradient paints, rules, AA, scissors and backdrops; k_rep variant
+    blocks of params that differ in their colours.  Returns (ew_t raw
+    sub-row winding (MO, NPX, nb), params (MO, NPP, k_rep*nb), th)."""
+    from vgtpu_torch.ops.composite import (
+        _P_AA, _P_BD, _P_KIND, _P_OX, _P_OY, _P_PAINT, _P_PK, _P_RULE, _P_SC,
+        _P_VALID, _npp)
+    from vgtpu_torch.raster.binning import K_DRAW, P_GRADIENT, P_SOLID
+
+    th = th_out * ss
+    pp = np.zeros((mo, _npp(th), nb), np.float32)
+    valid = rng.uniform(size=(mo, nb)) < 0.85
+    pp[:, _P_VALID] = valid
+    pp[:, _P_KIND] = K_DRAW
+    pp[:, _P_RULE] = rng.integers(0, 2, (mo, nb))
+    pp[:, _P_AA] = rng.integers(0, 2, (mo, nb))
+    pp[:, _P_PK] = np.where(rng.uniform(size=(mo, nb)) < 0.5, P_SOLID, P_GRADIENT)
+    tile = np.arange(nb)
+    ox, oy = (tile % 16) * tw, (tile // 16) * th
+    pp[:, _P_OX], pp[:, _P_OY] = ox, oy
+    has = rng.uniform(size=(mo, nb)) < 0.5
+    x0, y0 = ox + rng.uniform(-4, tw, (mo, nb)), oy + rng.uniform(-4, th, (mo, nb))
+    pp[:, _P_SC + 0] = np.where(has, x0, -1e9)
+    pp[:, _P_SC + 1] = np.where(has, y0, -1e9)
+    pp[:, _P_SC + 2] = np.where(has, x0 + rng.uniform(1, tw, (mo, nb)), 1e9)
+    pp[:, _P_SC + 3] = np.where(has, y0 + rng.uniform(1, th, (mo, nb)), 1e9)
+    paint = np.zeros((18, mo, nb), np.float32)
+    paint[0:4] = rng.uniform(-0.1, 0.1, (4, mo, nb)) + np.array([1, 0, 0, 1])[:, None, None]
+    paint[4:6] = rng.uniform(-300, 0, (2, mo, nb))
+    paint[6:8] = rng.uniform(5, 60, (2, mo, nb))
+    paint[8] = rng.uniform(0, 5, (mo, nb))
+    paint[9] = rng.uniform(1, 20, (mo, nb))
+    paint[10:18] = rng.uniform(0, 1, (8, mo, nb))
+    pp[:, _P_PAINT : _P_PAINT + 18] = paint.transpose(1, 0, 2)
+    pp[:, _P_BD : _P_BD + th] = (rng.integers(-1, 2, (mo, th, nb))
+                                 * valid[:, None, :])
+    blocks = [pp]
+    for _k in range(1, k_rep):
+        q = pp.copy()
+        q[:, _P_PAINT + 10 : _P_PAINT + 18] = rng.uniform(0, 1, (mo, 8, nb))
+        blocks.append(q)
+    ew_t = rng.uniform(-1.2, 1.2, (mo, th * tw, nb)).astype(np.float32)
+    return ew_t, np.ascontiguousarray(np.concatenate(blocks, axis=2)), th
+
+
+def _both_bucket(ew_t, pp, bg_vec, th, ss, k_rep=1, tw=16):
+    ref = np.asarray(composite_bucket_pallas(
+        jnp.asarray(ew_t), jnp.asarray(pp), None, jnp.asarray(bg_vec),
+        npx=th * tw, tile_w=tw, flags=_FLAGS_BC, add_backdrop=True,
+        interpret=True, ss=ss, k_rep=k_rep))
+    got = composite_bucket_torch(
+        torch.from_numpy(ew_t), torch.from_numpy(pp), None,
+        torch.from_numpy(bg_vec), tile_w=tw, flags=_FLAGS_BC, ss=ss,
+        k_rep=k_rep).numpy()
+    return got, ref
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_composite_bucket_torch_init_plane_matches_pallas(ss):
+    """Form (b): a random per-tile init plane (4*NPX_OUT, Nb) instead of
+    the broadcast background column (vgtpu's layer-memo bg_vec)."""
+    rng = np.random.default_rng(11 + ss)
+    ew_t, pp, th = _synthetic_bucket(rng, ss=ss)
+    plane = rng.uniform(0, 1, (4 * 8 * 16, pp.shape[2])).astype(np.float32)
+    got, ref = _both_bucket(ew_t, pp, plane, th, ss)
+    assert got.shape == ref.shape == plane.shape
+    np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+    # the plane is what the tiles start from: a different plane moves them
+    other, _ = _both_bucket(ew_t, pp, plane * 0.5, th, ss)
+    assert not np.allclose(other, got)
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_composite_bucket_torch_k_rep_matches_pallas(ss):
+    """Form (c): k_rep=2 variant blocks of params share one block of
+    coverage (Pallas's ew index map i % bpv); Nb = 128, 8x16 tiles, MO 4."""
+    rng = np.random.default_rng(21 + ss)
+    ew_t, pp, th = _synthetic_bucket(rng, ss=ss, k_rep=2)
+    bg_vec = np.repeat(np.asarray(BG, np.float32), 8 * 16)[:, None]
+    got, ref = _both_bucket(ew_t, pp, bg_vec, th, ss, k_rep=2)
+    assert got.shape == ref.shape == (4 * 8 * 16, 256)
+    np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+    # each variant block equals its own k_rep=1 render
+    for k in range(2):
+        one, _ = _both_bucket(ew_t, np.ascontiguousarray(pp[:, :, 128 * k : 128 * (k + 1)]),
+                              bg_vec, th, ss)
+        np.testing.assert_array_equal(got[:, 128 * k : 128 * (k + 1)], one)
+
+
+def test_frame_fb_init_tiles_matches_frame_fb_pallas(feature_plan):
+    """The whole fused frame over resident init tiles (the layer memo): the
+    framebuffer starts as the tiles plus the background scratch row and
+    every bucket takes form (b); tiles no bucket covers keep their init."""
+    plan, host = feature_plan
+    cov = _cov_all(plan, host)
+    nt = plan.ntx * plan.nty
+    init = np.random.default_rng(7).uniform(
+        0, 1, (nt, plan.tile_h, plan.tile_w, 4)).astype(np.float32)
+    params, cts = [], []
+    for te_b, _ids, flags in plan.tile_buckets:
+        pp, ct = build_bucket_aux(plan, te_b, need_ct=bool(flags[2]))
+        params.append(jnp.asarray(pp))
+        cts.append(None if ct is None else jnp.asarray(ct))
+    ref = np.asarray(frame_fb_pallas(
+        jnp.asarray(cov),
+        [(jnp.asarray(te), jnp.asarray(ids)) for te, ids, _fl in plan.tile_buckets],
+        tuple(jnp.asarray(p) for p in host["bucket_pteb"]), tuple(params),
+        tuple(cts), jnp.asarray(np.asarray(BG, np.float32)),
+        tile_h=plan.tile_h, tile_w=plan.tile_w, num_tiles=nt,
+        bucket_flags=host["bucket_flags"], interpret=True,
+        init_tiles=jnp.asarray(init)))
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    got = frame_fb(
+        torch.from_numpy(cov), [t(x) for x in host["bucket_ids"]],
+        [t(x) for x in host["bucket_pteb"]],
+        [t(x) for x in host["bucket_params"]],
+        [t(x) for x in host["bucket_ctile"]], t(host["ct_flat"]), BG,
+        tile_h=plan.tile_h, tile_w=plan.tile_w, num_tiles=nt,
+        bucket_flags=host["bucket_flags"], init_tiles=torch.from_numpy(init))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-6, rtol=0)
+    covered = np.zeros(nt, bool)
+    for ids in host["bucket_ids"]:
+        covered[ids[ids < nt]] = True
+    assert (~covered).any(), "every tile is covered: init never shows"
+    np.testing.assert_array_equal(got.numpy()[~covered], init[~covered])
+
+
+def test_k2_twin_refuses_bad_k_rep():
+    """k_rep needs ids for k_rep blocks of the coverage rows' tiles, and
+    raw sub-row coverage (vgtpu's batch never pairs it with cov_final)."""
+    from vgtpu_torch.ops.composite import composite_bucket_into_torch
+
+    fb = torch.zeros((3, 8, 128, 4))
+    pteb = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="coverage rows"):
+        composite_bucket_into_torch(fb, torch.zeros((2, 1024)), pteb, None, None,
+                                    None, torch.zeros(3, dtype=torch.int32), BG,
+                                    tile_w=128, flags=(False,) * 7, k_rep=2)
+    with pytest.raises(ValueError, match="k_rep=1"):
+        composite_bucket_torch(torch.zeros((4, 1024, 1)), torch.zeros((4, 48, 2)),
+                               None, torch.zeros((4096, 1)), tile_w=128,
+                               flags=(False,) * 7, ss=1, cov_final=True,
+                               rbd_t=torch.zeros((4, 8, 1)), k_rep=2)

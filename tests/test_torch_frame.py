@@ -50,8 +50,10 @@ def test_end_matches_vgtpu_small_scene():
 
 
 def test_second_frame_and_plain_path_agree():
-    """end() takes the full path every frame; execute_plan and the plain
-    execute_plan_torch are the same computation on the CPU."""
+    """Two frames of the same scene render the same image (the scene makes
+    a new image each frame, so the second takes the full path too);
+    execute_plan and the plain execute_plan_torch are the same computation
+    on the CPU."""
     from vgtpu_torch.raster.frame import execute_plan, execute_plan_torch
 
     ctx = vgt.createContext(device="cpu")
@@ -102,6 +104,18 @@ def test_port_imports_and_renders_with_jax_blocked():
         "img = vg.end(ctx)\n"
         "assert img.shape == (256, 512, 4) and bool(torch.isfinite(img).all())\n"
         "assert ctx.last_device_arrays['res'] is not None\n"
+        "def scene(c, col):\n"
+        "    vg.beginPath(c); vg.rect(c, 10, 10, 200, 100)\n"
+        "    vg.fillPath(c, vg.color4ub(*col, 200), vg.FillFlags.ConvexAA)\n"
+        "ctx = vg.createContext(device='cpu')\n"
+        "for col in ((200, 40, 40), (200, 40, 40), (40, 200, 40)):\n"
+        "    vg.begin(ctx, 0, 256, 128, 1.0); scene(ctx, col); img = vg.end(ctx)\n"
+        "n = ctx.profiler.counters\n"
+        "assert n['memo_hits'] == 1 and n['memo_paint_hits'] == 1, dict(n)\n"
+        "vb = vg.VariantBatch.bake(ctx, [lambda c, k=k: scene(c, (40 * k, 90, 90))\n"
+        "                                for k in range(3)], 256, 128)\n"
+        "imgs = vb.render()\n"
+        "assert imgs.shape == (3, 128, 256, 4) and bool(torch.isfinite(imgs).all())\n"
         "bad = [m for m in sys.modules if m == 'vgtpu' or m.startswith('vgtpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -122,14 +136,12 @@ def test_create_context_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda ctx: vgt.end(ctx, dispatch=False),
-    lambda ctx: vgt.renderFrames([ctx]),
     lambda ctx: vgt.createCommandList(ctx, 0),
     lambda ctx: vgt.clBeginPath(ctx, None),
-    lambda ctx: vgt.VariantBatch.bake(ctx, [], 64, 64),
+    lambda ctx: vgt.VariantBatch.render_sharded(None, None),
     lambda ctx: RetainedScene.bake(ctx),
-], ids=["end_no_dispatch", "renderFrames", "createCommandList", "clBeginPath",
-        "VariantBatch", "RetainedScene"])
+], ids=["createCommandList", "clBeginPath", "VariantBatch.render_sharded",
+        "RetainedScene"])
 def test_unported_entry_points_raise(call):
     ctx = vgt.createContext(device="cpu")
     vgt.begin(ctx, 0, 64, 64, 1.0)
@@ -245,3 +257,19 @@ def test_end_supersampled_ss8():
     """ss=8: 64 sub-rows per tile, within K3's and K2's limits."""
     ctx = _end_both(_ss_scene, 8, w=128, h=64)
     assert ctx.last_plan.tile_h == 64
+
+
+def _rounded_rect(ctx, vg, _font_data):
+    vg.beginPath(ctx)
+    vg.roundedRect(ctx, 10, 10, 150, 90, 18)
+    vg.fillPath(ctx, vg.color4ub(200, 80, 40, 255), vg.FillFlags.ConvexAA)
+
+
+def test_end_supersampled_without_a_pad_entry():
+    """A plan whose entry table has no pad row (n_real_entries == NE): the
+    split's pad RES chunks must not become the primary chunk of the last,
+    real entry."""
+    ctx = _end_both(_rounded_rect, 2, w=320, h=160)
+    plan = ctx.last_plan
+    assert plan.n_real_entries == plan.entry_backdrop.shape[0]
+    assert ctx.last_device_arrays["res"] is not None

@@ -57,7 +57,7 @@ from vgtpu_torch.api.context import (  # noqa: F401 (explicit for IDEs)
     GlyphPosition,
     isValid,
 )
-from vgtpu_torch.raster.batch import (  # noqa: F401  (not ported: raises)
+from vgtpu_torch.raster.batch import (  # noqa: F401
     VariantBatch,
     measure_batch_ms_per_frame,
 )

@@ -1,6 +1,7 @@
 # Copied from vgtpu/api/config.py: the jax-free host half of the PyTorch port.
-# The fields are vgtpu's; in the port use_pallas, device_sampling, frame_memo,
-# paint_memo, incremental_bin and layer_memo have no effect yet (ROADMAP.md Q1).
+# The fields are vgtpu's; in the port use_pallas and device_sampling have no
+# effect (the port always runs its own kernels and samples textures with the
+# numpy sampler; device sampling is ROADMAP.md Q1).
 """Runtime configuration (reference: ContextConfig, include/vg/vg.h:325-337,
 defaults at vg.cpp:719-730) plus TPU-specific knobs.
 

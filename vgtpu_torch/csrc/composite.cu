@@ -1,8 +1,8 @@
 // K2: the fused painter composite of one bucket of tiles.
 //
 // Replaces the Pallas TPU kernel vgtpu/ops/composite_pallas.py::_kernel_rows
-// (driven by composite_bucket_pallas / frame_fb_pallas) in three forms, all
-// with a broadcast background and one variant (k_rep=1):
+// (driven by composite_bucket_pallas / frame_fb_pallas) in all five of its
+// forms.  Three pick the coverage the slot loop reads:
 //   (a) ss = 1 and (d) ss > 1, over raw sub-row winding (add_backdrop):
 //       per tile it scans the bucket's MO painter slots in order; per slot
 //       and sub-pixel it
@@ -24,11 +24,27 @@
 //     triangle affine colour / colour-tile texture at the output pixel
 //     (paint row oy/ss + output-row centre),
 //   - blends premultiplied src-over into the framebuffer.
+// Two runtime switches combine with any of them:
+//   (b) per-tile init planes (`init`): each tile starts from its own
+//       framebuffer row fb[ids[t]], which the caller filled with a resident
+//       layer (the layer memo), instead of the broadcast background.  Pad
+//       tiles (ids[t] == the scratch row) start from the background: every
+//       pad block of a bucket writes the scratch row, and one reading it
+//       while another writes would race.  Buckets partition the tiles, so a
+//       real row is read and written by its one block only.  Cost: one extra
+//       16-byte load per output pixel per bucket.
+//   (c) k_rep variant blocks (`nbp1` < nbp): the bucket's nbp tiles are
+//       k_rep = nbp / nbp1 blocks of one variant's nbp1 tiles each; params,
+//       ctile and ids are read at t, the coverage row at pteb[t % nbp1], so
+//       the variants share one block of winding coverage (vgtpu's index map
+//       i % bpv).  It adds no traffic: the shared coverage rows are re-read
+//       from L2 across variants.
 // The seven lane flags (gradient, tri, texture, clip, even-odd, non-AA,
 // scissor) are the template bit mask F of forms (a)/(d), so a bucket
 // compiles only its lanes; ss is a runtime loop bound.  Form (e) reads only
 // four lanes (gradient, tri, texture, scissor): its own template G, 16
-// instantiations.  The plain twin is vgtpu_torch/ops/composite.py::
+// instantiations.  (b) and (c) are block-uniform runtime values, so they add
+// no instantiation.  The plain twin is vgtpu_torch/ops/composite.py::
 // composite_bucket_torch.
 //
 // What bounds it on an H100: memory traffic of the coverage gather.  Each
@@ -140,6 +156,24 @@ __device__ __forceinline__ void shade_blend(const float* pp, int nbp,
   fa = a + fa * one_minus_a;
 }
 
+// The thread's 4 starting pixels: the broadcast background, or (form (b))
+// the tile's own framebuffer row, except on pad tiles (row == scratch).
+__device__ __forceinline__ void load_start(const float* fb, int row, int init,
+                                           int scratch, int npx_out, float4 bg,
+                                           float* fr, float* fg, float* fbl,
+                                           float* fa) {
+  const bool from_fb = init != 0 && row != scratch;
+  const float4* in = reinterpret_cast<const float4*>(fb) + static_cast<size_t>(row) * npx_out;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const float4 v = from_fb ? in[threadIdx.x + k * blockDim.x] : bg;
+    fr[k] = v.x;
+    fg[k] = v.y;
+    fbl[k] = v.z;
+    fa[k] = v.w;
+  }
+}
+
 // Forms (a) ss = 1 and (d) ss > 1: raw sub-row winding.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
@@ -149,25 +183,24 @@ composite_bucket_kernel(const float* __restrict__ cov,
                         const float* __restrict__ ct,
                         const int* __restrict__ ctile,
                         const int* __restrict__ ids, float4 bg,
-                        float* __restrict__ fb, int nbp, int mo, int npp,
-                        int tile_w, int npx_out, int ss) {
+                        float* __restrict__ fb, int nbp, int nbp1, int mo,
+                        int npp, int tile_w, int npx_out, int ss, int init,
+                        int scratch) {
   constexpr bool kGrad = F & 1, kTri = F & 2, kTex = F & 4, kClip = F & 8;
   constexpr bool kEo = F & 16, kNoAa = F & 32, kScissor = F & 64;
   // clip lane: mask[npx], accum[npx] over the tile's sub-pixels
   extern __shared__ float clip_state[];
   const int t = blockIdx.x;
+  const int tc = t % nbp1;                  // coverage rows: variant block 0
   const int npx = npx_out * ss;
   const float inv_ss = 1.f / static_cast<float>(ss);
   float* smask = clip_state;
   float* saccum = clip_state + npx;
 
   float fr[kPix], fg[kPix], fbl[kPix], fa[kPix];
+  load_start(fb, ids[t], init, scratch, npx_out, bg, fr, fg, fbl, fa);
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    fr[k] = bg.x;
-    fg[k] = bg.y;
-    fbl[k] = bg.z;
-    fa[k] = bg.w;
     if (kClip) {
       const int p = threadIdx.x + k * blockDim.x;
       const int ro = p / tile_w;
@@ -192,7 +225,7 @@ composite_bucket_kernel(const float* __restrict__ cov,
     const bool is_cadd = valid > 0.f && kind == K_CLIP_ADD;
     const bool is_ccommit = valid > 0.f && kind == K_CLIP_COMMIT;
     const bool is_creset = valid > 0.f && kind == K_CLIP_RESET;
-    const float* cw = cov + static_cast<size_t>(pteb[t * mo + slot]) * npx;
+    const float* cw = cov + static_cast<size_t>(pteb[tc * mo + slot]) * npx;
     const float* ctp = nullptr;
     if (kTex) ctp = ct + static_cast<size_t>(ctile[t * mo + slot]) * 4 * npx_out;
 
@@ -272,20 +305,16 @@ composite_final_kernel(const float* __restrict__ cov,
                        const int* __restrict__ ctile,
                        const float* __restrict__ rbd,
                        const int* __restrict__ ids, float4 bg,
-                       float* __restrict__ fb, int nbp, int mo, int npp,
-                       int rbr, int tile_w, int npx_out, int ss) {
+                       float* __restrict__ fb, int nbp, int nbp1, int mo,
+                       int npp, int rbr, int tile_w, int npx_out, int ss,
+                       int init, int scratch) {
   constexpr bool kGrad = G & 1, kTri = G & 2, kTex = G & 4, kScissor = G & 8;
   const int t = blockIdx.x;
+  const int tc = t % nbp1;                  // coverage rows: variant block 0
   const float inv_ss = 1.f / static_cast<float>(ss);
 
   float fr[kPix], fg[kPix], fbl[kPix], fa[kPix];
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    fr[k] = bg.x;
-    fg[k] = bg.y;
-    fbl[k] = bg.z;
-    fa[k] = bg.w;
-  }
+  load_start(fb, ids[t], init, scratch, npx_out, bg, fr, fg, fbl, fa);
 
   for (int slot = 0; slot < mo; ++slot) {
     const float* pp = params + static_cast<size_t>(slot) * npp * nbp + t;
@@ -294,7 +323,7 @@ composite_final_kernel(const float* __restrict__ cov,
     const float ox = P(P_OX), oy = P(P_OY);
     const bool use_ct =
         kTex && (P(P_CTILE) > 0.f) && (pk == PK_TEXTURE || pk == PK_IMAGE);
-    const float* cw = cov + static_cast<size_t>(pteb[t * mo + slot]) * npx_out;
+    const float* cw = cov + static_cast<size_t>(pteb[tc * mo + slot]) * npx_out;
     const float* rb = rbd + static_cast<size_t>(slot) * rbr * nbp + t;
     const float* ctp = nullptr;
     if (kTex) ctp = ct + static_cast<size_t>(ctile[t * mo + slot]) * 4 * npx_out;
@@ -337,7 +366,7 @@ struct Args {
   const int* ids;
   float4 bg;
   float* fb;
-  int nbp, mo, npp, rbr, tile_w, npx_out, ss;
+  int nbp, nbp1, mo, npp, rbr, tile_w, npx_out, ss, init, scratch;
   cudaStream_t stream;
 };
 
@@ -355,7 +384,7 @@ struct Dispatch {
       }
       composite_bucket_kernel<F><<<a.nbp, a.npx_out / kPix, smem, a.stream>>>(
           a.cov, a.pteb, a.params, a.ct, a.ctile, a.ids, a.bg, a.fb, a.nbp,
-          a.mo, a.npp, a.tile_w, a.npx_out, a.ss);
+          a.nbp1, a.mo, a.npp, a.tile_w, a.npx_out, a.ss, a.init, a.scratch);
     } else {
       Dispatch<F - 1>::run(flags, a);
     }
@@ -374,7 +403,8 @@ struct DispatchFinal {
     if (lanes == G) {
       composite_final_kernel<G><<<a.nbp, a.npx_out / kPix, 0, a.stream>>>(
           a.cov, a.pteb, a.params, a.ct, a.ctile, a.rbd, a.ids, a.bg, a.fb,
-          a.nbp, a.mo, a.npp, a.rbr, a.tile_w, a.npx_out, a.ss);
+          a.nbp, a.nbp1, a.mo, a.npp, a.rbr, a.tile_w, a.npx_out, a.ss,
+          a.init, a.scratch);
     } else {
       DispatchFinal<G - 1>::run(lanes, a);
     }
@@ -388,13 +418,18 @@ struct DispatchFinal<-1> {
 
 }  // namespace
 
-// One bucket.  pteb, ctile (nbp, mo) i32; params (mo, npp, nbp); ct
+// One bucket.  pteb (nbp1, mo) i32, with nbp a multiple of nbp1 (form (c):
+// nbp / nbp1 variant blocks share the coverage rows; nbp1 == nbp
+// otherwise); ctile (nbp, mo) i32; params (mo, npp, nbp); ct
 // (NCT+1, 4*npx_out) or null without the texture lane; ids (nbp,)
-// framebuffer rows; fb (T+1, npx_out, 4).  flags bit i = lane i of
-// (gradient, tri, texture, clip, even-odd, non-AA, scissor).
+// framebuffer rows; fb (scratch+1, npx_out, 4), row `scratch` the pad
+// tiles' row.  init != 0 (form (b)): tiles start from their fb rows.
+// flags bit i = lane i of (gradient, tri, texture, clip, even-odd, non-AA,
+// scissor).
 // Form (a)/(d), rbd == null: cov (NC+1, npx_out*ss) raw sub-row winding,
 // npp >= 32 + TH.  Form (e), rbd != null: cov (R, npx_out) final coverage,
-// rbd (mo, rbr, nbp) with rbr >= TH_OUT; the clip lane is refused.
+// rbd (mo, rbr, nbp) with rbr >= TH_OUT; the clip lane and form (c) are
+// refused.
 // npx_out must be a multiple of 4 with npx_out/4 <= 256 (checked by the
 // Python wrapper).  Launches on `stream`, does not synchronise; returns
 // cudaGetLastError().
@@ -403,17 +438,19 @@ extern "C" int vg_composite_bucket(const float* cov, const int* pteb,
                                    const int* ctile, const float* rbd,
                                    const int* ids, float bg_r, float bg_g,
                                    float bg_b, float bg_a, float* fb, int nbp,
-                                   int mo, int npp, int rbr, int tile_w,
-                                   int npx_out, int ss, int flags,
+                                   int nbp1, int mo, int npp, int rbr,
+                                   int tile_w, int npx_out, int ss, int flags,
+                                   int init, int scratch,
                                    cudaStream_t stream) {
   if (flags < 0 || flags >= 128 || ss < 1 || npx_out % kPix ||
-      npx_out / kPix > kThreads || (rbd != nullptr && (flags & 8))) {
+      npx_out / kPix > kThreads || nbp1 < 1 || nbp % nbp1 ||
+      (rbd != nullptr && ((flags & 8) || nbp1 != nbp))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nbp > 0) {
     const Args a{cov, pteb, params, ct, ctile, rbd, ids,
-                 make_float4(bg_r, bg_g, bg_b, bg_a), fb, nbp, mo, npp, rbr,
-                 tile_w, npx_out, ss, stream};
+                 make_float4(bg_r, bg_g, bg_b, bg_a), fb, nbp, nbp1, mo, npp,
+                 rbr, tile_w, npx_out, ss, init, scratch, stream};
     if (rbd != nullptr) {
       const int lanes = (flags & 7) | ((flags >> 6) & 1) << 3;
       DispatchFinal<15>::run(lanes, a);

@@ -3,13 +3,15 @@
 chunk coverage.
 
 Twin of the fused TPU formulation in vgtpu/ops/composite_pallas.py
-(frame_fb_pallas -> composite_bucket_pallas -> _kernel_rows) with a
-broadcast background and one variant, in three forms: (a) ss=1 and (d)
-ss>1 over raw sub-row coverage, the per-entry backdrop added in the
-composite; (e) over final resolved coverage (ops/coverage_resolve.py).  On
-a CUDA tensor `composite_bucket` launches kernel K2 (csrc/composite.cu, via
-ops/composite_cuda.py); on a CPU tensor it runs the plain torch twin.  Any
-other device raises.
+(frame_fb_pallas -> composite_bucket_pallas -> _kernel_rows) in all its
+forms: (a) ss=1 and (d) ss>1 over raw sub-row coverage, the per-entry
+backdrop added in the composite; (e) over final resolved coverage
+(ops/coverage_resolve.py); each with (b) per-tile init planes (a resident
+layer the tiles start from, instead of the broadcast background) and (c)
+k_rep variant blocks that share one block of coverage rows (raster/
+batch.py).  On a CUDA tensor `composite_bucket` launches kernel K2
+(csrc/composite.cu, via ops/composite_cuda.py); on a CPU tensor it runs the
+plain torch twin.  Any other device raises.
 
 Reference behaviour: the end() draw loop vg.cpp:1162-1287, the four shader
 programs src/shaders/*.sc, and the stencil clip semantics vg.cpp:1193-1215.
@@ -17,7 +19,8 @@ programs src/shaders/*.sc, and the stencil clip semantics vg.cpp:1193-1215.
 Per-bucket static data (host-built by raster/frame.plan_to_device):
   params: (MO, _npp(tile_h), NbP) f32 — per (slot, tile) metadata rows (_P_*)
   pteb:   (NbP, MO) i32 — coverage row per (tile, slot): the entry's primary
-          chunk, or the dead row if none (rows of cov_final in form (e))
+          chunk, or the dead row if none (rows of cov_final in form (e));
+          one variant block of NbP/k_rep rows in form (c)
   ctile:  (NbP, MO) i32 — colour-tile id per (tile, slot) (NCT = zeros row),
           only for buckets whose texture lane is on
   ids:    (NbP,) i32 — framebuffer row per tile (pad rows: the scratch row)
@@ -132,10 +135,12 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
                            ct_t: torch.Tensor | None, bg_vec: torch.Tensor,
                            *, tile_w: int, flags: tuple, ss: int = 1,
                            cov_final: bool = False,
-                           rbd_t: torch.Tensor | None = None) -> torch.Tensor:
-    """One bucket's painter scan -> fb_t (4*NPX_OUT, Nb), channel-major: the
-    plain twin of vgtpu's composite_bucket_pallas with the rows kernel, and
-    of kernel K2.  Expressions follow _kernel_rows per pixel, in its order.
+                           rbd_t: torch.Tensor | None = None,
+                           k_rep: int = 1) -> torch.Tensor:
+    """One bucket's painter scan -> fb_t (4*NPX_OUT, k_rep*Nb),
+    channel-major: the plain twin of vgtpu's composite_bucket_pallas with the
+    rows kernel, and of kernel K2.  Expressions follow _kernel_rows per
+    pixel, in its order.
 
     Form (a)/(d), cov_final=False (add_backdrop=True): ew_t (MO, NPX, Nb) is
     raw SUB-row winding (NPX = TH*TW, TH = ss * output rows).  Backdrop,
@@ -149,12 +154,19 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
     backdrop rows rbd_t (MO, RBR, Nb) times the x half of the scissor.  No
     rule, AA or clip work (clip buckets never take this form).
 
-    params_t (MO, NPP, Nb); ct_t (MO, 4*NPX_OUT, Nb) or None; bg_vec
-    (4*NPX_OUT, 1)."""
+    bg_vec (4*NPX_OUT, 1) is the broadcast background column, or (form (b))
+    a per-tile init plane (4*NPX_OUT, k_rep*Nb) the tiles start from.
+    k_rep > 1 (form (c)): params_t, ct_t and the output have k_rep variant
+    blocks of Nb lanes; every block reads the one block of ew_t (winding
+    coverage is variant-invariant).  Not with cov_final.
+
+    params_t (MO, NPP, k_rep*Nb); ct_t (MO, 4*NPX_OUT, k_rep*Nb) or None."""
     has_grad, has_tri, has_tex, has_clip, has_eo, has_noaa, has_scissor = flags
-    if cov_final and (has_clip or rbd_t is None):
-        raise ValueError("composite_bucket_torch: cov_final needs rbd rows "
-                         "and no clip lane")
+    if cov_final and (has_clip or rbd_t is None or k_rep != 1):
+        raise ValueError("composite_bucket_torch: cov_final needs rbd rows, "
+                         "no clip lane and k_rep=1")
+    if k_rep > 1:
+        ew_t = ew_t.repeat(1, 1, k_rep)
     mo, _rows, nb = ew_t.shape
     npx_out = bg_vec.shape[0] // 4
     th_out = npx_out // tile_w
@@ -305,43 +317,55 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
 
 def composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile, ids,
                                 background, *, tile_w: int, flags: tuple,
-                                ss: int = 1, rbd=None) -> None:
+                                ss: int = 1, rbd=None, init: bool = False,
+                                k_rep: int = 1) -> None:
     """Plain twin of K2 on the tensors' own device: gather the bucket's
     coverage (and colour tiles), run composite_bucket_torch, scatter the
-    tiles into fb (T+1, TH//ss, TW, 4) in place at rows ids.  background:
-    the 4 premultiplied RGBA floats.  cov is raw sub-row coverage
-    (NC+1, TH*TW) (forms (a)/(d)), or final coverage (R, TH//ss*TW) when the
-    bucket's resolved-backdrop rows rbd (MO, RBR, NbP) are given (form (e))."""
-    nb, _mo = pteb.shape
+    tiles into fb (T+1, TH//ss, TW, 4) in place at rows ids (the last row
+    is the pad tiles' scratch row).  background: the 4 premultiplied RGBA
+    floats.  cov is raw sub-row coverage (NC+1, TH*TW) (forms (a)/(d)), or
+    final coverage (R, TH//ss*TW) when the bucket's resolved-backdrop rows
+    rbd (MO, RBR, NbP) are given (form (e)).  init (form (b)): each tile
+    starts from its own fb row, pad tiles from the background.  k_rep
+    (form (c)): pteb holds one variant block, params/ctile/ids k_rep."""
+    nb = ids.shape[0]
+    if pteb.shape[0] * k_rep != nb:
+        raise ValueError(f"composite_bucket_into_torch: {nb} tiles for "
+                         f"{pteb.shape[0]} coverage rows x k_rep={k_rep}")
     th_out = fb.shape[1]
     npx_out = th_out * tile_w
-    ew_t = cov[pteb].permute(1, 2, 0)                       # (MO, NPX|NPX_OUT, NbP)
+    ew_t = cov[pteb].permute(1, 2, 0)                       # (MO, NPX|NPX_OUT, NbP1)
     ct_t = ct_flat[ctile].permute(1, 2, 0) if flags[2] else None
     bg = torch.tensor(background, dtype=torch.float32, device=fb.device)
     bg_vec = bg.repeat_interleave(npx_out)[:, None]
+    if init:
+        plane = fb[ids].permute(3, 1, 2, 0).reshape(4 * npx_out, nb)
+        bg_vec = torch.where(ids == fb.shape[0] - 1, bg_vec, plane)
     fb_t = composite_bucket_torch(ew_t, params, ct_t, bg_vec, tile_w=tile_w,
                                   flags=tuple(flags), ss=ss,
-                                  cov_final=rbd is not None, rbd_t=rbd)
+                                  cov_final=rbd is not None, rbd_t=rbd,
+                                  k_rep=k_rep)
     fb[ids] = fb_t.reshape(4, th_out, tile_w, nb).permute(3, 1, 2, 0)
 
 
 def composite_bucket(fb, cov, pteb, params, ct_flat, ctile, ids,
                      background, *, tile_w: int, flags: tuple, ss: int = 1,
-                     rbd=None) -> None:
+                     rbd=None, init: bool = False, k_rep: int = 1) -> None:
     """Composite one bucket into fb (T+1, TH//ss, TW, 4) in place (the
     update saves a per-bucket framebuffer copy): kernel K2 on CUDA, the plain
-    twin on the CPU.  rbd given: form (e) over final coverage."""
+    twin on the CPU.  rbd given: form (e) over final coverage; init: form
+    (b); k_rep > 1: form (c)."""
     dev = fb.device
+    kw = dict(tile_w=tile_w, flags=flags, ss=ss, rbd=rbd, init=init,
+              k_rep=k_rep)
     if dev.type == "cuda":
         from vgtpu_torch.ops.composite_cuda import composite_bucket_cuda
 
         composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
-                              background, tile_w=tile_w, flags=flags, ss=ss,
-                              rbd=rbd)
+                              background, **kw)
     elif dev.type == "cpu":
         composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile,
-                                    ids, background, tile_w=tile_w,
-                                    flags=flags, ss=ss, rbd=rbd)
+                                    ids, background, **kw)
     else:
         raise ValueError(f"composite_bucket: unsupported device {dev}")
 
@@ -349,11 +373,19 @@ def composite_bucket(fb, cov, pteb, params, ct_flat, ctile, ids,
 def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
              ct_flat, background, *, tile_h: int, tile_w: int, num_tiles: int,
              bucket_flags: tuple, bucket_fn=composite_bucket, ss: int = 1,
-             cov_final_arr=None, bucket_rbd=None) -> torch.Tensor:
+             cov_final_arr=None, bucket_rbd=None, init_tiles=None,
+             k_rep: int = 1) -> torch.Tensor:
     """Fused frame composite -> (T, TH//ss, TW, 4) tiles: the twin of
     vgtpu's frame_fb_pallas.  Buckets gather straight from chunk coverage
     via the host-built primary-chunk ids; tiles no bucket covers keep the
-    background.  tile_h counts sub-rows when ss > 1.
+    background (or their init tile).  tile_h counts sub-rows when ss > 1.
+
+    init_tiles: optional (T, TH//ss, TW, 4) resident layer (the layer memo)
+    the frame composites over: the framebuffer starts as a copy of it (plus
+    the background scratch row) and every bucket takes form (b).
+
+    k_rep > 1 (form (c), raster/batch.py): num_tiles counts all k_rep
+    variants' tiles, each bucket's pteb one variant block.
 
     Without cov_final_arr every bucket takes form (a) (ss=1) or (d) over the
     raw sub-row cov_all, adding the entry backdrop in the composite.  With
@@ -369,8 +401,15 @@ def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
     th_out = tile_h // ss
     fb = torch.empty((num_tiles + 1, th_out, tile_w, 4), dtype=torch.float32,
                      device=cov_all.device)
-    fb.copy_(torch.tensor(background, dtype=torch.float32, device=fb.device)
-             .expand(num_tiles + 1, th_out, tile_w, 4))
+    bg = torch.tensor(background, dtype=torch.float32, device=fb.device)
+    if init_tiles is None:
+        fb.copy_(bg.expand(num_tiles + 1, th_out, tile_w, 4))
+    else:
+        if tuple(init_tiles.shape) != (num_tiles, th_out, tile_w, 4):
+            raise ValueError(f"frame_fb: init_tiles {tuple(init_tiles.shape)}, "
+                             f"expected {(num_tiles, th_out, tile_w, 4)}")
+        fb[:num_tiles].copy_(init_tiles)
+        fb[num_tiles].copy_(bg.expand(th_out, tile_w, 4))
     if bucket_rbd is None:
         bucket_rbd = (None,) * len(bucket_pteb)
     for ids, pteb, pp, ctile, flags, rbd in zip(
@@ -383,7 +422,8 @@ def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
                              "plan has no rbd rows")
         bucket_fn(fb, cov_final_arr if covf else cov_all, pteb, pp, ct_flat,
                   ctile, ids, background, tile_w=tile_w, flags=tuple(flags),
-                  ss=ss, rbd=rbd if covf else None)
+                  ss=ss, rbd=rbd if covf else None,
+                  init=init_tiles is not None, k_rep=k_rep)
     return fb[:num_tiles]
 
 

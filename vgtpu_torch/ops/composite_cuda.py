@@ -1,11 +1,17 @@
 """Kernel K2 (csrc/composite.cu) bound to torch: one bucket of the fused
 painter composite on CUDA.
 
-Replaces vgtpu/ops/composite_pallas.py::_kernel_rows in its forms (a) ss=1,
-(d) ss>1 over raw sub-row coverage, and (e) over final coverage with
-resolved-backdrop rows.  The plain twin is ops/composite.py::
+Replaces vgtpu/ops/composite_pallas.py::_kernel_rows in all its forms: (a)
+ss=1, (d) ss>1 over raw sub-row coverage, (e) over final coverage with
+resolved-backdrop rows, each optionally with (b) per-tile init planes
+(tiles start from their framebuffer rows) and (c) k_rep variant blocks
+sharing one block of coverage rows.  The plain twin is ops/composite.py::
 composite_bucket_into_torch; ops/composite.py::composite_bucket routes CUDA
 tensors here and nowhere else.
+
+K2.launches counts every launch; FORM_LAUNCHES counts them per form: each
+launch adds one to its coverage form (a, d or e) and one to b and c when it
+takes them.
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ _i = ctypes.c_int
 _f = ctypes.c_float
 K2 = CudaKernel("composite", {"vg_composite_bucket": [
     _vp, _vp, _vp, _vp, _vp, _vp, _vp, _f, _f, _f, _f, _vp,
-    _i, _i, _i, _i, _i, _i, _i, _i, _vp,
+    _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
 ]})
+FORM_LAUNCHES = dict.fromkeys("abcde", 0)
 
 
 def _check(name, t, dtype, shape, dev):
@@ -41,13 +48,17 @@ def _check(name, t, dtype, shape, dev):
 
 def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
                           background, *, tile_w: int, flags: tuple,
-                          ss: int = 1, rbd=None) -> None:
+                          ss: int = 1, rbd=None, init: bool = False,
+                          k_rep: int = 1) -> None:
     """Launch K2 for one bucket: writes the bucket's tiles into
-    fb (T+1, TH//ss, TW, 4) at rows ids (pad rows hit the scratch row T).
-    Without rbd, cov is raw sub-row coverage (NC+1, TH*TW) (forms (a)/(d));
-    with rbd (MO, RBR, NbP), cov is final coverage (R, TH//ss*TW) (form (e),
-    no clip lane).  background: the 4 premultiplied RGBA floats (host
-    values, no sync)."""
+    fb (T+1, TH//ss, TW, 4) at rows ids (pad rows hit the scratch row T,
+    the last row).  Without rbd, cov is raw sub-row coverage (NC+1, TH*TW)
+    (forms (a)/(d)); with rbd (MO, RBR, NbP), cov is final coverage
+    (R, TH//ss*TW) (form (e), no clip lane).  init (form (b)): each tile
+    starts from its own fb row instead of the background.  k_rep > 1 (form
+    (c)): pteb holds one variant block of NbP1 rows and params, ctile and
+    ids k_rep * NbP1 (not with rbd).  background: the 4 premultiplied RGBA
+    floats (host values, no sync)."""
     dev = fb.device
     if not fb.is_cuda:
         raise ValueError(f"composite_bucket_cuda: framebuffer on {dev}")
@@ -63,10 +74,14 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
                          f"(npx_out/4 <= {MAX_THREADS} threads)")
     if len(flags) != 7:
         raise ValueError(f"composite_bucket_cuda: 7 lane flags, got {flags}")
-    nbp, mo = pteb.shape
+    nbp1, mo = pteb.shape
+    nbp = nbp1 * k_rep
     npp = params.shape[1]
+    if k_rep < 1 or (k_rep > 1 and rbd is not None):
+        raise ValueError(f"composite_bucket_cuda: k_rep={k_rep}; k_rep > 1 "
+                         f"takes raw sub-row coverage (no rbd)")
     _check("fb", fb, torch.float32, (nt1, th_out, tw, 4), dev)
-    _check("pteb", pteb, torch.int32, (nbp, mo), dev)
+    _check("pteb", pteb, torch.int32, (nbp1, mo), dev)
     _check("params", params, torch.float32, (mo, npp, nbp), dev)
     _check("ids", ids, torch.int32, (nbp,), dev)
     rbd_ptr, rbr = None, 0
@@ -97,5 +112,10 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
         K2.launch("vg_composite_bucket", _vp(cov.data_ptr()),
                   _vp(pteb.data_ptr()), _vp(params.data_ptr()), _vp(ct_ptr),
                   _vp(ctile_ptr), _vp(rbd_ptr), _vp(ids.data_ptr()), *bg,
-                  _vp(fb.data_ptr()), nbp, mo, npp, rbr, tw, npx_out, ss,
-                  bits, stream_ptr(dev))
+                  _vp(fb.data_ptr()), nbp, nbp1, mo, npp, rbr, tw, npx_out,
+                  ss, bits, int(bool(init)), nt1 - 1, stream_ptr(dev))
+    FORM_LAUNCHES["e" if rbd is not None else "d" if ss > 1 else "a"] += 1
+    if init:
+        FORM_LAUNCHES["b"] += 1
+    if k_rep > 1:
+        FORM_LAUNCHES["c"] += 1

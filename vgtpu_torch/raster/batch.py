@@ -1,23 +1,255 @@
-"""Batched paint-variant rendering (vgtpu/raster/batch.py): not ported yet.
+"""Batched variant rendering: K value-variants of one scene in one pass
+(the fused formulation of vgtpu/raster/batch.py).
 
-The names exist so that code written against vgtpu reaches a clear
-NotImplementedError naming the ROADMAP.md item."""
+The serving / throughput mode.  The batch axis folds into the composite's
+TILE axis, which the engine already treats as fully independent:
+
+  * geometry is identical across variants, so chunk coverage (kernel K1 and
+    the extras fold) is computed ONCE;
+  * every bucket runs kernel K2 once for all K variants in form (c): its
+    params, colour-tile ids and framebuffer rows are K blocks of one
+    variant's tiles, and every block reads the one block of coverage rows
+    (pteb), so no K-fold copy of the coverage is gathered;
+  * colour tiles (text / pattern pre-samples) stack per variant: the K
+    ct_flat tables concatenate and each variant block's ctile ids are offset
+    by k * (NCT + 1) on the host side of the bake.
+
+What may vary between variants is exactly what the paint-value memo patch
+(Context._value_only_update) accepts: solid/gradient paint rows (same
+opacity class) and texture/pattern/text-colour values.  Geometry, draw
+order, clips and scissors are shared.
+
+Bake protocol: each draw_fn records its variant through the ordinary API;
+frame 0 establishes the structural plan and every later frame must hit the
+value-patch (or full-memo) path, anything structural raises.
+
+vgtpu's portable XLA formulation (entry-axis folding, _host_folded_tables)
+is not ported: the port always takes the fused one.  render_sharded is the
+multi-GPU item of ROADMAP.md Q1.
+"""
 
 from __future__ import annotations
 
-from vgtpu_torch.api.context import _unported
+import time
+
+import numpy as np
+import torch
+
+from vgtpu_torch.ops.composite import build_bucket_pteb, frame_fb
+from vgtpu_torch.ops.coverage import build_cov_gather_map, cov_all_resolved
+from vgtpu_torch.raster.frame import patch_bucket_paint
+
+
+def _record_snaps(ctx, draw_fns, width, height, dpr, background,
+                  expect_plan=None, expect_d=None):
+    """Record the K variants through the ordinary API and snapshot the
+    value tables after each frame.  Every frame after the first (or ALL
+    frames, when re-recording against an existing bake via expect_plan)
+    must leave the resident plan object untouched, i.e. hit the memo or
+    paint-value-patch path, or ValueError."""
+    snaps = []
+    plan0, d0 = expect_plan, expect_d
+    # the batch renders plans WITHOUT layer tiles: prefix-layer splitting
+    # is suppressed for the bake records (full single plans)
+    suppress0 = ctx._suppress_layer
+    ctx._suppress_layer = True
+    try:
+        for k, fn in enumerate(draw_fns):
+            ctx.begin(0, width, height, dpr)
+            fn(ctx)
+            # only the resident plan + paint tables are needed: skip the K
+            # per-variant device renders
+            ctx.end(background=background, dispatch=False)
+            if ctx._layer_render is not None:
+                raise ValueError(
+                    "a resident layer (layer memo) is active on this "
+                    "context's frames: layered frames cannot bake into a "
+                    "VariantBatch (the batch renders plans without layer "
+                    "tiles)")
+            plan = ctx.last_plan
+            if plan0 is None:
+                plan0, d0 = plan, ctx.last_device_arrays
+            elif plan is not plan0 or ctx.last_device_arrays is not d0:
+                raise ValueError(
+                    f"variant {k} changed the frame structure (geometry, "
+                    "draw order, clips, texture topology or an opacity "
+                    "class); only paint/texture VALUES may differ")
+            snaps.append({
+                "entry_paint": plan.entry_paint.copy(),
+                "ct_flat": d0["ct_flat"],
+            })
+    finally:
+        ctx._suppress_layer = suppress0
+    return plan0, d0, snaps
+
+
+def _batch_tables(plan, d, K: int) -> dict:
+    """Static (value-independent) batched bucket tables on the plan's device.
+
+    Coverage: a gather map and per-bucket coverage rows (pteb) over
+    plan.chunk_pools, the order of d["chunk_edges"].  A split plan (ss > 1)
+    keeps its own resident tables against cov_final/cov_sub; the batch, as
+    vgtpu's fused batch, runs K1 + the fold over all pools and K2 form (d)
+    on every bucket, so it builds these tables itself.
+
+    Per bucket: ids are K blocks of the padded framebuffer rows, variant k
+    offset by k*T, pad rows to the batch scratch row K*T."""
+    dev = d["ct_flat"].device
+    T = plan.ntx * plan.nty
+    ne = plan.entry_backdrop.shape[0]
+    m = build_cov_gather_map(plan.chunk_pools, ne)
+    dead = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
+    ptebs, ids_k = [], []
+    for (te_b, _ids, _fl), ids in zip(plan.tile_buckets, d["bucket_ids"]):
+        ptebs.append(torch.as_tensor(
+            build_bucket_pteb(te_b, m["primary"], dead)).to(dev))
+        ids_k.append(torch.cat([
+            torch.where(ids >= T, K * T, ids + k * T) for k in range(K)
+        ]).to(torch.int32))
+    return {
+        "cov_map": {"extra_chunk": torch.as_tensor(m["extra_chunk"]).to(dev),
+                    "extra_primary": torch.as_tensor(m["extra_primary"]).to(dev)},
+        "pteb": ptebs,
+        "ids": ids_k,
+    }
+
+
+def _batch_values(d, snaps) -> tuple:
+    """Per-variant value planes: each bucket's params as K lane blocks (the
+    resident params with variant k's paint rows, frame.patch_bucket_paint
+    on a copy), the K
+    ct_flat tables stacked, and each texture bucket's colour-tile ids
+    offset by k * (NCT + 1) per block."""
+    dev = d["ct_flat"].device
+    K = len(snaps)
+    blocks = []                     # per variant: every bucket's params
+    for s in snaps:
+        pps = [pp.clone() for pp in d["bucket_params"]]
+        patch_bucket_paint(pps, d["bucket_te"],
+                           torch.as_tensor(s["entry_paint"]).to(dev))
+        blocks.append(pps)
+    params = [torch.cat(b, dim=2).contiguous() for b in zip(*blocks)]
+    nct1 = d["ct_flat"].shape[0]
+    if any(s["ct_flat"].shape[0] != nct1 for s in snaps):
+        raise ValueError("variants differ in their colour-tile count")
+    ct_flat = torch.cat([s["ct_flat"] for s in snaps]).contiguous()
+    ctiles = [None if ct is None else
+              torch.cat([ct + k * nct1 for k in range(K)]).contiguous()
+              for ct in d["bucket_ctile"]]
+    return params, ct_flat, ctiles
 
 
 class VariantBatch:
-    """K paint variants of one scene in one dispatch: not ported."""
+    """K baked value-variants of one structural plan; render() produces all
+    K frames -> (K, H, W, 4) premultiplied f32 on the plan's device."""
 
-    def __init__(self, *_args, **_kwargs):
-        raise _unported("VariantBatch", "batch with K2 (c)")
+    def __init__(self, plan, d, snaps):
+        self.K = len(snaps)
+        self._plan = plan
+        self._d = d
+        self._snaps = snaps
+        self._tables = _batch_tables(plan, d, self.K)
+        self._params, self._ct_flat, self._ctile = _batch_values(d, snaps)
+        self._record = None   # (ctx, w, h, dpr, background) from bake
 
-    @classmethod
-    def bake(cls, *_args, **_kwargs):
-        raise _unported("VariantBatch.bake", "batch with K2 (c)")
+    @property
+    def device(self) -> torch.device:
+        return self._d["ct_flat"].device
+
+    @staticmethod
+    def bake(ctx, draw_fns, width: int, height: int, dpr: float = 1.0,
+             background=(0.0, 0.0, 0.0, 1.0)) -> "VariantBatch":
+        """Record each variant through the ordinary API and fold the batch.
+
+        draw_fns: sequence of callables f(ctx); each records ONE variant
+        frame.  The first defines the structure; every later one must be a
+        value-only delta (the paint-memo eligibility rules) or ValueError.
+        Bake cost is K ordinary frame records; render() amortizes from then
+        on."""
+        draw_fns = list(draw_fns)
+        if not draw_fns:
+            raise ValueError("need at least one variant")
+        if not (ctx.cfg.frame_memo and ctx.cfg.paint_memo):
+            raise ValueError("VariantBatch.bake requires frame_memo and "
+                             "paint_memo enabled (they gate the value-patch "
+                             "path the bake snapshots)")
+        plan0, d0, snaps = _record_snaps(ctx, draw_fns, width, height, dpr,
+                                         background)
+        vb = VariantBatch(plan0, d0, snaps)
+        vb._record = (ctx, width, height, dpr, background)
+        return vb
+
+    def update_values(self, draw_fns) -> None:
+        """Refresh the K variants' VALUES in place, the per-tick serving
+        loop.  Re-records each variant (every frame must hit the memo or
+        paint-value-patch path against the baked structure, else ValueError)
+        and rebuilds only the value planes: the coverage and framebuffer-row
+        tables are reused."""
+        if self._record is None:
+            raise ValueError("update_values needs a bake()-built batch")
+        draw_fns = list(draw_fns)
+        if len(draw_fns) != self.K:
+            raise ValueError(f"{len(draw_fns)} draw_fns for K={self.K}")
+        ctx, w, h, dpr, bg = self._record
+        _plan, _d, snaps = _record_snaps(ctx, draw_fns, w, h, dpr, bg,
+                                         expect_plan=self._plan,
+                                         expect_d=self._d)
+        self._snaps = snaps
+        self._params, self._ct_flat, self._ctile = _batch_values(self._d, snaps)
+
+    def render(self, background=(0.0, 0.0, 0.0, 1.0)) -> torch.Tensor:
+        """All K variant frames -> (K, H, W, 4): coverage once (K1 + the
+        extras fold over all pools), then K2 form (c) per bucket (form (d)
+        sub-rows at ss > 1), then one gather of the K*T tiles into image
+        layout."""
+        plan, d, tb = self._plan, self._d, self._tables
+        K, ss = self.K, plan.supersample
+        th, tw = plan.tile_h, plan.tile_w
+        T = plan.ntx * plan.nty
+        cov = cov_all_resolved(d["chunk_edges"], tb["cov_map"], th, tw)
+        fb = frame_fb(cov, tb["ids"], tb["pteb"], self._params, self._ctile,
+                      self._ct_flat, background, tile_h=th, tile_w=tw,
+                      num_tiles=K * T, bucket_flags=d["bucket_flags"], ss=ss,
+                      k_rep=K)
+        th_out = th // ss
+        img = (fb.view(K, plan.nty, plan.ntx, th_out, tw, 4)
+               .permute(0, 1, 3, 2, 4, 5)
+               .reshape(K, plan.nty * th_out, plan.ntx * tw, 4))
+        return img[:, : plan.height, : plan.width]
+
+    def render_sharded(self, *_args, **_kwargs):
+        """The variant axis across several GPUs: not ported."""
+        raise NotImplementedError(
+            "VariantBatch.render_sharded is not ported to vgtpu_torch yet "
+            "(ROADMAP.md Q1: multi-GPU)")
 
 
-def measure_batch_ms_per_frame(*_args, **_kwargs):
-    raise _unported("measure_batch_ms_per_frame", "batch with K2 (c)")
+def measure_batch_ms_per_frame(vb: VariantBatch, background=(0, 0, 0, 1),
+                               reps_hi: int = 16, reps_lo: int = 2) -> float:
+    """Device ms per VARIANT FRAME: repeated render() calls on the batch's
+    own device, (t(reps_hi) - t(reps_lo)) / (reps_hi - reps_lo) / K, so the
+    fixed cost of a timed window cancels.  CUDA events on a CUDA batch; the
+    host clock on the CPU."""
+    if reps_hi <= reps_lo:
+        raise ValueError(f"reps_hi {reps_hi} must exceed reps_lo {reps_lo}")
+    dev = vb.device
+
+    def run(n: int) -> float:
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                vb.render(background)
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            vb.render(background)
+        return (time.perf_counter() - t0) * 1e3
+
+    run(reps_lo)          # warm-up
+    lo = run(reps_lo)
+    hi = run(reps_hi)
+    return (hi - lo) / (reps_hi - reps_lo) / vb.K

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from vgtpu_torch.ops.composite import (
+    _P_PAINT,
     _pad_tiles,
     build_bucket_aux,
     build_bucket_pteb,
@@ -39,7 +40,7 @@ from vgtpu_torch.ops.coverage_resolve import (
     cov_split_resolved,
     cov_split_resolved_torch,
 )
-from vgtpu_torch.raster.binning import FramePlan, compute_tile_buckets
+from vgtpu_torch.raster.binning import PAINT_NF, FramePlan, compute_tile_buckets
 from vgtpu_torch.raster.resolve import build_resolve_aux, build_resolve_split
 
 
@@ -102,8 +103,10 @@ def _prepare_plan(plan: FramePlan):
 def plan_host_arrays(plan: FramePlan) -> dict:
     """The fused path's host arrays for one plan (numpy): tile buckets,
     chunk compaction, the resolve split (ss > 1), the chunk->entry gather
-    map, and per bucket its padded framebuffer rows, coverage-row ids,
-    params, colour-tile ids and (split plans) resolved-backdrop rows.
+    map, and per bucket its padded framebuffer rows, padded entry table
+    (entry ids, 0 where no entry: the rows build_bucket_aux reads the paint
+    from), coverage-row ids, params, colour-tile ids and (split plans)
+    resolved-backdrop rows.
 
     With a split, "res" holds the K3 inputs and the extras/XE tables against
     the RAW rows, and bucket_pteb indexes cov_sub (clip buckets) or
@@ -111,24 +114,24 @@ def plan_host_arrays(plan: FramePlan) -> dict:
     (ss = 1, or no resolvable chunk) "res" is None and every bucket indexes
     the one folded coverage array."""
     split = _prepare_plan(plan)
-    ss = plan.supersample
     ne = plan.entry_backdrop.shape[0]
     num_tiles = plan.ntx * plan.nty
     m = build_cov_gather_map(plan.chunk_pools, ne)
     dead_id = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
     nct = plan.color_tiles.shape[0]
-    ids_l, pp_l, ctile_l, flags_l = [], [], [], []
+    ids_l, te_l, pp_l, ctile_l, flags_l = [], [], [], [], []
     for te_b, ids_b, flags in plan.tile_buckets:
         pp, _unused = build_bucket_aux(plan, te_b, need_ct=False)
         nbp = _pad_tiles(te_b.shape[0])
         ids = np.full(nbp, num_tiles, np.int32)
         ids[: len(ids_b)] = ids_b
+        te_p = np.full((nbp, te_b.shape[1]), -1, np.int32)
+        te_p[: len(te_b)] = te_b
+        te = np.maximum(te_p, 0)
+        te_l.append(te)
         ctile = None
         if flags[2]:
-            te_p = np.full((nbp, te_b.shape[1]), -1, te_b.dtype)
-            te_p[: len(te_b)] = te_b
-            ct = np.where(te_p >= 0,
-                          plan.entry_color_tile[np.maximum(te_p, 0)], -1)
+            ct = np.where(te_p >= 0, plan.entry_color_tile[te], -1)
             ctile = np.where(ct >= 0, ct, nct).astype(np.int32)
         ids_l.append(ids)
         pp_l.append(pp)
@@ -164,19 +167,14 @@ def plan_host_arrays(plan: FramePlan) -> dict:
     for ctile in ctile_l:
         if ctile is not None and ctile.size and (ctile.min() < 0 or ctile.max() > nct):
             raise ValueError("plan_to_device: colour-tile id out of range")
-    # colour tiles live on the OUTPUT domain: (NCT, TH//ss, TW, 4) ->
-    # (NCT+1, 4*NPX_OUT) channel-major + the zeros row
-    npx_out = (plan.tile_h // ss) * plan.tile_w
-    ct = np.asarray(plan.color_tiles, np.float32)
-    ct_flat = np.concatenate([
-        ct.transpose(0, 3, 1, 2).reshape(ct.shape[0], 4 * npx_out),
-        np.zeros((1, 4 * npx_out), np.float32)])
+    ct_flat = color_tiles_flat(plan)
     return {
         "chunk_edges": [np.ascontiguousarray(ce, np.float32)
                         for ce, _cent in plan.chunk_pools],
         "cov_map": cov_map,
         "res": res,
         "bucket_ids": ids_l,
+        "bucket_te": te_l,
         "bucket_pteb": pteb_l,
         "bucket_params": pp_l,
         "bucket_ctile": ctile_l,
@@ -184,6 +182,17 @@ def plan_host_arrays(plan: FramePlan) -> dict:
         "ct_flat": ct_flat,
         "bucket_flags": tuple(flags_l),
     }
+
+
+def color_tiles_flat(plan: FramePlan) -> np.ndarray:
+    """The plan's colour tiles in K2's layout: they live on the OUTPUT
+    domain, (NCT, TH//ss, TW, 4) -> (NCT+1, 4*NPX_OUT) channel-major plus
+    the zeros row that pad and untextured slots read."""
+    npx_out = (plan.tile_h // plan.supersample) * plan.tile_w
+    ct = np.asarray(plan.color_tiles, np.float32)
+    return np.concatenate([
+        ct.transpose(0, 3, 1, 2).reshape(ct.shape[0], 4 * npx_out),
+        np.zeros((1, 4 * npx_out), np.float32)])
 
 
 def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
@@ -227,7 +236,17 @@ def _leaves(x) -> list:
     return [] if x is None else [x]
 
 
-def _render(plan, d, background, plain):
+def patch_bucket_paint(bucket_params, bucket_te, entry_paint: torch.Tensor) -> None:
+    """Rewrite the 18 paint rows of each bucket params tensor in place from
+    an (NE, 18) entry paint table on the same device: one gather per bucket
+    through its padded entry table (plan_host_arrays' bucket_te).  The rows
+    equal a fresh build_bucket_aux: that does not mask paint by validity
+    either, so invalid and pad slots carry entry 0's paint on both sides."""
+    for pp, te in zip(bucket_params, bucket_te):
+        pp[:, _P_PAINT : _P_PAINT + PAINT_NF, :] = entry_paint[te].permute(1, 2, 0)
+
+
+def _render(plan, d, background, plain, init_tiles=None, tiles=False):
     th, tw, ss = plan.tile_h, plan.tile_w, plan.supersample
     if d["res"] is not None:
         split = cov_split_resolved_torch if plain else cov_split_resolved
@@ -241,32 +260,50 @@ def _render(plan, d, background, plain):
         tile_h=th, tile_w=tw, num_tiles=plan.ntx * plan.nty,
         bucket_flags=d["bucket_flags"],
         bucket_fn=composite_bucket_into_torch if plain else composite_bucket,
-        ss=ss, cov_final_arr=cov_final, bucket_rbd=d["bucket_rbd"])
+        ss=ss, cov_final_arr=cov_final, bucket_rbd=d["bucket_rbd"],
+        init_tiles=init_tiles)
+    if tiles:
+        return fb
     return tiles_to_image(fb, ntx=plan.ntx, nty=plan.nty, tile_h=th // ss,
                           tile_w=tw, width=plan.width, height=plan.height)
 
 
-def execute_plan(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
-                 device_arrays=None, device=None) -> torch.Tensor:
-    """Run the device pipeline; returns (H, W, 4) premultiplied f32 RGBA on
-    the arrays' device: kernels K1, K3 and K2 on CUDA, the plain twins on
-    the CPU.  Without device_arrays the plan is uploaded to `device` first."""
+def _arrays(plan, device_arrays, device, who):
     if device_arrays is None:
         if device is None:
-            raise ValueError("execute_plan: pass device_arrays or a device")
+            raise ValueError(f"{who}: pass device_arrays or a device")
         device_arrays = plan_to_device(plan, device)
-    return _render(plan, device_arrays, background, plain=False)
+    return device_arrays
+
+
+def execute_plan(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
+                 device_arrays=None, device=None,
+                 init_tiles=None) -> torch.Tensor:
+    """Run the device pipeline; returns (H, W, 4) premultiplied f32 RGBA on
+    the arrays' device: kernels K1, K3 and K2 on CUDA, the plain twins on
+    the CPU.  Without device_arrays the plan is uploaded to `device` first.
+    init_tiles: optional resident layer (execute_plan_tiles output) the plan
+    composites over instead of the background (K2 form (b))."""
+    d = _arrays(plan, device_arrays, device, "execute_plan")
+    return _render(plan, d, background, plain=False, init_tiles=init_tiles)
 
 
 def execute_plan_torch(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
-                       device_arrays=None, device=None) -> torch.Tensor:
+                       device_arrays=None, device=None,
+                       init_tiles=None) -> torch.Tensor:
     """execute_plan through the plain torch twins on the arrays' own device:
     the reference the CUDA kernels are held against on the card."""
-    if device_arrays is None:
-        if device is None:
-            raise ValueError("execute_plan_torch: pass device_arrays or a device")
-        device_arrays = plan_to_device(plan, device)
-    return _render(plan, device_arrays, background, plain=True)
+    d = _arrays(plan, device_arrays, device, "execute_plan_torch")
+    return _render(plan, d, background, plain=True, init_tiles=init_tiles)
+
+
+def execute_plan_tiles(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
+                       device_arrays=None, device=None) -> torch.Tensor:
+    """Render a plan to its (T, TH//ss, TW, 4) tile framebuffer, no image
+    assembly: the layer memo's bake, which later frames pass to execute_plan
+    as init_tiles."""
+    d = _arrays(plan, device_arrays, device, "execute_plan_tiles")
+    return _render(plan, d, background, plain=False, tiles=True)
 
 
 def image_to_u8(img) -> np.ndarray:

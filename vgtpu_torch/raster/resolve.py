@@ -73,7 +73,7 @@ def build_resolve_split(plan):
     from vgtpu_torch.raster.frame import _bucket128
 
     th, tw = plan.tile_h, plan.tile_w
-    res_pools, raw_pools, rparams = [], [], []
+    res_pools, raw_pools, rparams, res_real = [], [], [], []
     for ce, cent in plan.chunk_pools:
         ce, cent = np.asarray(ce), np.asarray(cent)
         is_res = entry_res[np.clip(cent, 0, ne - 1)] & (cent >= 0) & (cent < ne)
@@ -87,11 +87,20 @@ def build_resolve_split(plan):
             centp = np.full(nc, ne - 1, cent.dtype)
             centp[: len(cent2)] = cent2
             into.append((cep, centp))
-    for cep, centp in res_pools:
+            if into is res_pools:
+                res_real.append(len(cent2))
+    for (cep, centp), n in zip(res_pools, res_real):
         rparams.append(build_chunk_rparams(
             centp, plan.entry_rule, plan.entry_aa, plan.entry_paint_kind,
             plan.entry_scissor, plan.entry_backdrop, plan.entry_tile,
             flags[:, :4], tile_h=th, tile_w=tw, ntx=plan.ntx))
+        # the pad RES chunks (all-zero edges, read by no gather) then point
+        # at the pool's first entry: it owns one chunk, which precedes them,
+        # so that chunk stays its primary.  Left at entry NE-1 (vgtpu's
+        # choice, kept for the rparams above) they break plans without a
+        # pad entry: NE-1 is then a real RAW entry, a res pad becomes its
+        # primary and its real chunk an extra folding into a res row.
+        centp[n:] = centp[0]
 
     plan.chunk_pools = res_pools + raw_pools
     plan.stats["chunks"] = sum(len(ce) for ce, _ in plan.chunk_pools)
