@@ -5,13 +5,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the process exits non-zero):
   1. CUDA present; print the card's name and power limit (nvidia-smi).
-  2. Build kernels K1 (csrc/coverage.cu), K2 (csrc/composite.cu) and K3
-     (csrc/coverage_resolve.cu) with nvcc from the checkout, one nvcc each,
-     all started together; print the build seconds and ptxas's register and
-     spill report.
+  2. Build kernels K1 (csrc/coverage.cu), K2 (csrc/composite.cu), K3
+     (csrc/coverage_resolve.cu) and K4 (csrc/coverage_t.cu) with nvcc from
+     the checkout, one nvcc each, all started together; print the build
+     seconds and ptxas's register and spill report.
   3. K1 against its plain twin coverage_chunks_torch on the card: random
      chunks (horizontal, near-vertical, tiny-dy, zero-length, out-of-tile
      edges) at CH = 2, 4, 8, 24 and the 1080p frame's pool sizes.
+  3c. K4 (pixel-major chunk coverage) against coverage_chunks_t_torch: the
+     same random chunks at CH = 2, 4, 8, 24 and the 1080p frame's pools.
   3b. K3 against coverage_chunks_res_torch: random chunks at ss = 2, 4 and
      CH = 2, 4, 6, 12, 24 with random resolve params (even-odd, non-AA,
      texture, scissor, backdrop), and the RES pools of the 1080p ss=2 plan;
@@ -52,6 +54,15 @@ Phases (any failure raises and the process exits non-zero):
      ended with end(dispatch=False), against fresh end()s) and batch
      (VariantBatch of bench.py's K=6 overlay variants through K2 (c),
      against per-variant full-path renders).
+  8. The multi-GPU paths at 1080p over meshes of n shards, one per card
+     while cards last, then repeating them (one card: n shards on cuda:0),
+     each run with the launch counts zeroed before and read after, each
+     image within 1 u8 level of its single-device reference:
+     render_frame_sharded (K4 + the oracle composite) at n = 1, 2, 4 against
+     the phase 5 end() image; render_frame_sharded_fused (K1, the fold, K2)
+     at n = 2, 4 and ss = 1, 2 against the phase 5 and 5b images; and
+     VariantBatch.render_sharded of the phase 7 batch (K=6) over 4 shards
+     (padded to 8) against each variant's full-path render.
   6. Times (CUDA events, median of 12 runs after warm-up): the steady frame
      from resident arrays at ss=1 and ss=2, K1, K2 (each form) and K3 beside
      their plain twins; each kernel's device time per steady frame and the
@@ -59,11 +70,13 @@ Phases (any failure raises and the process exits non-zero):
      frame (K2 (b)) and a batch render (K2 (c)); end() host time (median of
      5, ending in torch.cuda.synchronize()) for a full-path frame, a redraw,
      an anim frame and a layer frame; renderFrames over three contexts; and
-     measure_batch_ms_per_frame at K=6.  Phase 6 runs after phase 7, whose
-     contexts it times.
+     measure_batch_ms_per_frame at K=6; the sharded frames per n (CUDA
+     events, median of 12, from resident shards), K4 beside its twin and
+     its device time in the n = 1 sharded frame, render_sharded per
+     variant.  Phase 6 runs after phases 7 and 8, whose contexts it times.
 
 The last two lines are the kernels' JSON record (K1, K2's forms (a)-(e),
-K3: launches on the main paths, error against the twin, times, and the
+K3, K4: launches on the main paths, error against the twin, times, and the
 bound from this run's shapes) and the contract line
 {"ok": true, "device": {...}}.  Imports neither jax nor vgtpu.
 """
@@ -247,7 +260,7 @@ def device_breakdown(run, frames: int = 10):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(min(frames, 3)):
         run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -257,7 +270,8 @@ def device_breakdown(run, frames: int = 10):
     ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ev:
         raise AssertionError("torch.profiler recorded no device time")
-    names = (("coverage_chunks_kernel", "K1"), ("coverage_res_kernel", "K3"),
+    names = (("coverage_chunks_t_kernel", "K4"), ("coverage_chunks_kernel", "K1"),
+             ("coverage_res_kernel", "K3"),
              ("resolve_rows_kernel", "K3 rows"), ("composite_final_kernel", "K2 (e)"),
              ("composite_bucket_kernel", "K2 (a)/(d)"))
     by = {}
@@ -297,12 +311,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from vgtpu_torch import native
-    from vgtpu_torch.ops import composite_cuda, coverage_cuda, coverage_resolve_cuda
+    from vgtpu_torch.ops import (
+        composite_cuda,
+        coverage_cuda,
+        coverage_resolve_cuda,
+        coverage_t_cuda,
+    )
     from vgtpu_torch.ops.composite import composite_bucket_into_torch, frame_fb
     from vgtpu_torch.ops.coverage import (
         cov_all_resolved,
         cov_all_resolved_torch,
         cov_all_torch,
+        coverage_chunks_t_torch,
         fold_extras,
     )
     from vgtpu_torch.ops.coverage_resolve import (
@@ -317,6 +337,11 @@ def main() -> int:
         _batch_values,
         measure_batch_ms_per_frame,
     )
+    from vgtpu_torch.parallel.sharded_fused import (
+        render_frame_sharded_fused,
+        shard_frame_fused,
+    )
+    from vgtpu_torch.parallel.sharding import Mesh, render_frame_sharded, shard_frame
     from vgtpu_torch.raster.frame import execute_plan, execute_plan_torch, image_to_u8
     from vgtpu_torch.scenes import demo_ui
     from vgtpu_torch.scenes.small import (
@@ -338,7 +363,8 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     K1, K2, K3 = coverage_cuda.K1, composite_cuda.K2, coverage_resolve_cuda.K3
-    kernels = {"K1": K1, "K2": K2, "K3": K3}
+    K4 = coverage_t_cuda.K4
+    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
     form_launches = composite_cuda.FORM_LAUNCHES
 
     def zero_counts():
@@ -376,12 +402,14 @@ def main() -> int:
     # ---- 3. K1 vs plain -------------------------------------------------
     rng = np.random.default_rng(SEED)
     k1_err = 0.0
+    rand_edges = []                    # phase 3c holds K4 to the same chunks
     pools_nc = [int(ce.shape[0]) for ce in d["chunk_edges"]]
     for ch in (2, 4, 8, 24):
         nc = next((n for n, ce in zip(pools_nc, d["chunk_edges"])
                    if ce.shape[1] == ch), 2048)
         nc = min(max(nc, 2048), 8192)
         edges = torch.from_numpy(random_chunks(rng, nc, ch)).to(dev)
+        rand_edges.append(edges)
         got = coverage_cuda.cov_all_cuda([edges], 8, 128)
         ref = cov_all_torch([edges], 8, 128)
         torch.cuda.synchronize()
@@ -398,6 +426,24 @@ def main() -> int:
     print(f"[3] K1 on the 1080p pools {pools_nc}: max|K1 - plain| = {err:.3e}")
     if not err <= K1_BOUND:
         raise AssertionError(f"K1 disagrees on the 1080p pools: {err}")
+
+    # ---- 3c. K4 vs plain ------------------------------------------------
+    # K4 is K1's function in the pixel-major layout, with K1's arithmetic:
+    # K1's bound, and its transpose should equal K1's rows too
+    k4_err = 0.0
+    for label, edges in [(f"CH={int(e.shape[1]):2d} NC={int(e.shape[0])}", e)
+                         for e in rand_edges] + [
+            (f"1080p pool {tuple(ce.shape[:2])}", ce) for ce in d["chunk_edges"]]:
+        got = coverage_t_cuda.coverage_chunks_t_cuda(edges, 8, 128)
+        ref = coverage_chunks_t_torch(edges, 8, 128)
+        k1_rows = coverage_cuda.cov_all_cuda([edges], 8, 128)[:-1]
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        k4_err = max(k4_err, err)
+        print(f"[3c] K4 {label}: max|K4 - plain| = {err:.3e} (bound {K1_BOUND:.0e}); "
+              f"max|K4 - K1 transposed| = {float((got.t() - k1_rows).abs().max()):.3e}")
+        if not err <= K1_BOUND:
+            raise AssertionError(f"K4 disagrees with its plain twin on {label}: {err}")
 
     # ---- 3b. K3 vs plain ------------------------------------------------
     k3_err = 0.0
@@ -729,20 +775,24 @@ def main() -> int:
     def layer_frame(k):
         return lambda c: demo_ui.draw_benchmark_frame(c, 0.3 + 0.05 * k)
 
-    def check_path(name, counts, need, pairs):
+    def check_path(name, counts, need, pairs, tag="[7]"):
         """A path's launch counts (each kernel in need launched), then its
         images against their references."""
         paths[name] = counts
-        print(f"[7] {name}: launches {counts}")
+        print(f"{tag} {name}: launches {counts}")
         missing = [k for k in need if counts[k] <= 0]
         if missing:
             raise AssertionError(f"{name} launched no {missing}: {counts}")
         for a, b in pairs:
+            if tuple(a.shape) != tuple(b.shape):
+                raise AssertionError(f"{name}: image {tuple(a.shape)}, reference "
+                                     f"{tuple(b.shape)}")
             if not bool(torch.isfinite(a).all()):
                 raise AssertionError(f"{name}: non-finite pixels")
         worst = max(u8_levels(a, b) for a, b in pairs)
-        print(f"[7] {name}: {len(pairs)} images, worst {worst} u8 levels from the "
-              f"reference (bound {U8_BOUND})")
+        diff = max(float((a - b).abs().max()) for a, b in pairs)
+        print(f"{tag} {name}: {len(pairs)} images, worst {worst} u8 levels from the "
+              f"reference (bound {U8_BOUND}), max|diff| {diff:.3e}")
         if worst > U8_BOUND:
             raise AssertionError(f"{name}: an image is {worst} u8 levels off")
 
@@ -840,7 +890,70 @@ def main() -> int:
     refs = [app_frame(ref_b, overlay(k)) for k in range(K_BATCH)]
     check_path("batch", counts, ("K1", "K2", "K2 (c)"),
                [(bimgs[k], refs[k]) for k in range(K_BATCH)])
-    del refs, imgs, bimgs, rf_imgs
+    refs_batch = refs
+
+    # ---- 8. the multi-GPU paths -----------------------------------------
+    n_cards = torch.cuda.device_count()
+
+    def mesh_of(n):
+        """n shards, one per card while cards last, then repeating them."""
+        return Mesh(tuple(torch.device("cuda", k % n_cards) for k in range(n)))
+
+    def mesh_note(mesh):
+        devs = [str(x) for x in mesh.devices]
+        if len(set(devs)) == len(devs):
+            return f"devices {devs}: one shard per card"
+        return (f"devices {devs}: {len(devs)} shards on {len(set(devs))} card(s), "
+                f"repeated (no cross-card copy for the repeats)")
+
+    def meta_note(m):
+        return (f"chunk_balance {m['chunk_balance']:.4f} entry_balance "
+                f"{m['entry_balance']:.4f} ici_bytes_per_frame "
+                f"{m['ici_bytes_per_frame']}; ne_dev {m['ne_dev']} t_pad {m['t_pad']} "
+                f"chunk slots live {m['chunk_slots_live']} of {m['chunk_slots_padded']}")
+
+    # the tile-sharded frame: K4 + the oracle composite, held to phase 5
+    sharded = {}
+    for n in (1, 2, 4):
+        mesh = mesh_of(n)
+        zero_counts()
+        simg, meta = render_frame_sharded(ctx.last_plan, mesh, ctx.background,
+                                          return_meta=True)
+        counts = read_counts()
+        print(f"[8] sharded n={n}: {mesh_note(mesh)}; {meta_note(meta)}; tile table "
+              f"{meta['t_pad'] // n} x {ctx.last_plan.tile_entries.shape[1]} per shard")
+        check_path(f"sharded n={n}", counts, ("K4",), [(simg, ctx.frame_image)],
+                   tag="[8]")
+        sharded[n] = mesh
+    # the sharded fused frame: K1, the fold, K2 per shard (the RAW
+    # formulation at ss=2), held to phases 5 and 5b
+    sharded_fused = {}
+    for ss, c in ((1, ctx), (2, ctx2)):
+        for n in (2, 4):
+            mesh = mesh_of(n)
+            zero_counts()
+            fimg, meta = render_frame_sharded_fused(c.last_plan, mesh, c.background,
+                                                    return_meta=True)
+            counts = read_counts()
+            print(f"[8] sharded fused ss={ss} n={n}: {mesh_note(mesh)}; "
+                  f"{meta_note(meta)}")
+            check_path(f"sharded fused ss={ss} n={n}", counts,
+                       ("K1", "K2", "K2 (a)" if ss == 1 else "K2 (d)"),
+                       [(fimg, c.frame_image)], tag="[8]")
+            sharded_fused[(ss, n)] = mesh
+    # the variant-sharded batch: phase 7's K=6 batch over 4 shards (8 frames)
+    mesh4 = mesh_of(4)
+    zero_counts()
+    simgs = vb.render_sharded(mesh4, BG_APP)
+    counts = read_counts()
+    if tuple(simgs.shape) != (K_BATCH, 1080, 1920, 4) or simgs.device != ctx.frame_image.device:
+        raise AssertionError(f"render_sharded returned {tuple(simgs.shape)} on "
+                             f"{simgs.device}")
+    print(f"[8] render_sharded: K={K_BATCH} over {mesh_note(mesh4)}, padded to "
+          f"{-(-K_BATCH // 4) * 4} frames")
+    check_path("render_sharded n=4", counts, ("K4",),
+               [(simgs[k], refs_batch[k]) for k in range(K_BATCH)], tag="[8]")
+    del refs, refs_batch, imgs, bimgs, rf_imgs, simgs
 
     # ---- 6. times -------------------------------------------------------
     pl, dv = ctx.last_plan, ctx.last_device_arrays
@@ -1015,6 +1128,45 @@ def main() -> int:
           f"frame (CUDA events, 8 - 2 renders) beside the steady single frame "
           f"{ms['frame']:.4f} ms ({card})")
 
+    # the multi-GPU paths from resident shards (partitioned and uploaded
+    # once): CUDA events on cuda:0, where every shard's framebuffer lands
+    sharded = {n: shard_frame(ctx.last_plan, mesh) for n, mesh in sharded.items()}
+    sharded_fused = {(ss, n): shard_frame_fused((ctx if ss == 1 else ctx2).last_plan, mesh)
+                     for (ss, n), mesh in sharded_fused.items()}
+    for n, sf in sharded.items():
+        ms[f"sharded n={n}"] = time_ms(lambda sf=sf: sf.render(ctx.background))
+    for (ss, n), sf in sharded_fused.items():
+        c = ctx if ss == 1 else ctx2
+        ms[f"sharded fused ss={ss} n={n}"] = time_ms(
+            lambda sf=sf, c=c: sf.render(c.background))
+    for name, sf in [(f"sharded n={n}", sf) for n, sf in sharded.items()] + [
+            (f"sharded fused ss={ss} n={n}", sf)
+            for (ss, n), sf in sharded_fused.items()]:
+        print(f"[6] {name:26s} {ms[name]:9.3f} ms  (median of 12, CUDA events; "
+              f"{mesh_note(sf.mesh)}; {card})")
+    # K4 over the n = 1 shard's pools (every live chunk of the frame)
+    k4_pools = sharded[1].shards[0]["chunk_edges"]
+    ms["K4"] = time_ms(lambda: [coverage_t_cuda.coverage_chunks_t_cuda(ce, 8, 128)
+                                for ce in k4_pools])
+    ms["K4_plain"] = time_ms(lambda: [coverage_chunks_t_torch(ce, 8, 128)
+                                      for ce in k4_pools])
+    for key in ("K4", "K4_plain"):
+        print(f"[6] {key:15s} {ms[key]:9.3f} ms  (median of 12, CUDA events; pools "
+              f"{[tuple(ce.shape[:2]) for ce in k4_pools]}; {card})")
+    by, busy, window = device_breakdown(lambda: sharded[1].render(ctx.background),
+                                        frames=3)
+    dev_ms["sharded"] = by
+    print(f"[6] sharded n=1: device busy {busy:.4f} of {window:.4f} ms per frame "
+          f"({100 * busy / window:.1f}% busy; torch.profiler, 3 frames; {card})")
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    for key, v in top + ([] if "K4" in dict(top) else [("K4", by.get("K4", 0.0))]):
+        print(f"[6]    {key:48s} {v:.4f} ms/frame")
+    ms["render_sharded"] = time_ms(lambda: vb.render_sharded(mesh4, BG_APP), runs=5,
+                                   warmup=1)
+    print(f"[6] render_sharded K={K_BATCH} over {mesh_note(mesh4)}: "
+          f"{ms['render_sharded']:.3f} ms, {ms['render_sharded'] / K_BATCH:.3f} ms per "
+          f"variant (median of 5, CUDA events; {card})")
+
     # achieved rates and each kernel's bound from this run's shapes
     npx = 8 * 128
     k1_flop = sum(int(ce.shape[0]) * int(ce.shape[1]) for ce in dv["chunk_edges"]) \
@@ -1048,6 +1200,11 @@ def main() -> int:
         "d": k2_work([b for b in split2 if b[6] is None], npx, 2, nt2),
         "e": k2_work([b for b in split2 if b[6] is not None], npx, 2, nt2),
         "K3": (k3_bytes, k3_flop),
+        # K4 over the live chunk slots of the n = 1 partition, counted as K1's
+        "K4": (sum(live * (int(ce.shape[1]) * 16 + npx * 4)
+                   for live, ce in zip(sharded[1].meta["chunk_slots_live"], k4_pools)),
+               sum(live * int(ce.shape[1]) * npx * 25
+                   for live, ce in zip(sharded[1].meta["chunk_slots_live"], k4_pools))),
     }
     for key, (nb, ops) in work.items():
         bms, by_ = bound(nb, ops)
@@ -1072,7 +1229,7 @@ def main() -> int:
 
     def entry(name, key, source, replaces, err, t, t_plain, dev_t, **extra):
         """One kernel's record: launches summed over the main paths' runs
-        (phases 5, 5b and 7), the bound from this run's shapes, its device
+        (phases 5, 5b, 7 and 8), the bound from this run's shapes, its device
         ms per call of the run that times it (torch.profiler)."""
         by_path = {p: c[key] for p, c in paths.items() if c[key]}
         bms, by_ = bound(*work[key.split()[-1].strip("()")])
@@ -1109,6 +1266,9 @@ def main() -> int:
         entry("K3 resolved chunk coverage", "K3", "vgtpu_torch/csrc/coverage_resolve.cu",
               "vgtpu/ops/coverage_resolve.py:204", k3_err, ms["K3_ss2"],
               ms["K3_ss2_plain"], dms("ss2", "K3", "K3 rows")),
+        entry("K4 pixel-major chunk coverage", "K4", "vgtpu_torch/csrc/coverage_t.cu",
+              "vgtpu/ops/coverage_pallas.py:158", k4_err, ms["K4"], ms["K4_plain"],
+              dms("sharded", "K4")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@ K2 form (c)'s twin: K variant blocks sharing one block of coverage rows) is
 held to vgtpu's per-frame end() of that variant, and each renderFrames image
 (contexts ended with end(dispatch=False)) to vgtpu's own end() of the same
 scene: atol=1e-5 and 1 u8 level after image_to_u8.  The cases mirror
-tests/test_batch.py's single-device ones."""
+tests/test_batch.py's; render_sharded runs on CPU meshes of repeated
+devices against vgtpu's render_sharded on its virtual mesh (3e-6)."""
 
 from __future__ import annotations
 
@@ -427,3 +428,111 @@ def test_render_frames_over_a_resident_layer():
     assert ctx._layer_render is not None
     (img,) = vgt.renderFrames([ctx])
     _close(img, _oracle(frame(0.6)), "layered frame")
+
+
+# ---- render_sharded: the variant axis over a mesh ----------------------------
+
+def _cpu_mesh(n):
+    from vgtpu_torch.parallel.sharding import Mesh
+
+    return Mesh((torch.device("cpu"),) * n)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_render_sharded_matches_vgtpu_and_per_frame(n):
+    """K=3 over 2 and 4 shards (padded to 4: the last variant repeats) against
+    vgtpu's render_sharded on as many virtual devices (3e-6) and against the
+    port's own per-variant end() images (1 u8 level)."""
+    import jax
+
+    from vgtpu.raster.batch import VariantBatch as VariantBatchJ
+
+    draws = _variant_fns(VARIANTS)
+    vb, _ctx, _ = _bake(draws, setup=_font)
+    imgs = vb.render_sharded(_cpu_mesh(n), background=BG)
+    assert imgs.shape == (len(VARIANTS), H, W, 4) and imgs.device.type == "cpu"
+
+    ctx_j = vgj.createContext(vgj.ContextConfig(device_sampling=False))
+    font_j = _font(ctx_j, vgj)
+    vb_j = VariantBatchJ.bake(ctx_j, [lambda c, f=f: f(c, vgj, font_j) for f in draws],
+                              W, H, background=BG)
+    mesh_j = jax.make_mesh((n,), ("variants",), devices=jax.devices()[:n])
+    ref = np.asarray(vb_j.render_sharded(mesh_j, background=BG))
+    np.testing.assert_allclose(imgs.numpy(), ref, atol=3e-6, rtol=0)
+    for k, f in enumerate(draws):
+        c = vgt.createContext(device="cpu")
+        font = _font(c, vgt)
+        vgt.begin(c, 0, W, H, 1.0)
+        f(c, vgt, font)
+        single = vgt.end(c, background=BG)
+        u8 = np.abs(image_to_u8(imgs[k]).astype(np.int16)
+                    - image_to_u8(single).astype(np.int16)).max()
+        assert u8 <= 1, f"variant {k}: {u8} u8 levels"
+
+
+def test_render_sharded_after_update_values():
+    """tests/test_batch.py's serving tick: update_values swaps the values
+    and the sharded render (its value tables cached per mesh) shows them."""
+    ctx = vgt.createContext(device="cpu")
+    font = _font(ctx, vgt)
+    vb = VariantBatch.bake(
+        ctx, [lambda c, p=p: _draw_variant(c, vgt, font, p) for p in VARIANTS],
+        W, H, background=BG)
+    mesh = _cpu_mesh(2)
+    vb.render_sharded(mesh, background=BG)          # fills the mesh's cache
+    structure = vb._sharded[mesh]["struct"]
+    vb.update_values(
+        [lambda c, p=p: _draw_variant(c, vgt, font, p) for p in VARIANTS2])
+    assert vb._sharded[mesh]["values"] is None
+    imgs = vb.render_sharded(mesh, background=BG)
+    assert vb._sharded[mesh]["struct"] is structure
+    for k, f in enumerate(_variant_fns(VARIANTS2)):
+        _close(imgs[k], _oracle(f, setup=_font), f"sharded variant {k}")
+
+
+def test_measure_batch_records_on_the_batchs_device(monkeypatch):
+    """measure_batch_ms_per_frame records and waits on its CUDA events
+    inside torch.cuda.device(the batch's device), not on the current one:
+    a batch on cuda:1 with stand-ins for the device context and events."""
+    import contextlib
+
+    from vgtpu_torch.raster import batch as batch_mod
+
+    current = ["cuda:0"]
+    seen = []
+
+    @contextlib.contextmanager
+    def device(dev):
+        prev, current[0] = current[0], str(dev)
+        try:
+            yield
+        finally:
+            current[0] = prev
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            seen.append(("record", current[0]))
+            self.t = float(len(seen))
+
+        def synchronize(self):
+            seen.append(("synchronize", current[0]))
+
+        def elapsed_time(self, other):
+            return other.t - self.t
+
+    class FakeBatch:
+        K = 2
+        device = torch.device("cuda", 1)
+
+        def render(self, _bg):
+            seen.append(("render", current[0]))
+
+    monkeypatch.setattr(batch_mod.torch.cuda, "device", device)
+    monkeypatch.setattr(batch_mod.torch.cuda, "Event", Event)
+    ms = measure_batch_ms_per_frame(FakeBatch(), reps_hi=3, reps_lo=1)
+    assert np.isfinite(ms)
+    assert seen and all(where == "cuda:1" for _what, where in seen), seen
+    assert {what for what, _ in seen} == {"record", "synchronize", "render"}

@@ -1,6 +1,8 @@
 """The port's chunk coverage (vgtpu_torch/ops/coverage.py) against vgtpu's:
 the plain twin vs the XLA body and the Pallas TPU kernel in interpret mode
-(K1's reference), and the extras fold vs vgtpu's cov_all_resolved.
+(K1's reference), the extras fold vs vgtpu's cov_all_resolved, and the
+pixel-major twin (K4's) and the entry segment-sum of the sharded paths vs
+vgtpu's _kernel_t2 and entry_coverage_from_pools.
 
 Tolerance atol=1e-5: both sides evaluate the same float32 expressions in the
 same order, with the two FMAs XLA contracts written out in the twin; what is
@@ -159,3 +161,75 @@ def test_cov_all_resolved_matches_vgtpu():
         [torch.from_numpy(ce) for ce, _cent in plan.chunk_pools],
         {k: torch.from_numpy(v) for k, v in m.items()}, TH, TW)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+# ---- K4: pixel-major coverage and the entry segment-sum ----------------------
+
+@pytest.mark.parametrize("ch", [2, 4, 6, 24])
+def test_coverage_chunks_t_torch_matches_pallas_kernel(ch):
+    """K4's TPU kernel (_kernel_t2, variant "row") in interpret mode,
+    pixel-major; unroll=1 for the reason given above."""
+    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t_raw
+
+    from vgtpu_torch.ops.coverage import coverage_chunks_t_torch
+
+    edges = random_chunks(200 + ch, 128, ch)
+    ref = np.asarray(coverage_chunks_pallas_t_raw(
+        jnp.asarray(edges), TH, TW, interpret=True, unroll=1))
+    got = coverage_chunks_t_torch(torch.from_numpy(edges), TH, TW)
+    assert got.shape == (TH * TW, 128)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+    # the same values as K1's twin, transposed, bit for bit
+    k1 = coverage_chunks_torch(torch.from_numpy(edges), TH, TW).reshape(128, -1)
+    assert torch.equal(got, k1.t())
+
+
+def test_coverage_t_pools_match_pallas_default_unroll():
+    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t_raw
+
+    from vgtpu_torch.ops.coverage import coverage_chunks_t
+
+    for ce, _cent in _small_scene_plan().chunk_pools:
+        n = len(ce)
+        npad = -(-n // 128) * 128
+        edges = np.zeros((npad,) + ce.shape[1:], np.float32)
+        edges[:n] = ce
+        ref = np.asarray(coverage_chunks_pallas_t_raw(
+            jnp.asarray(edges), TH, TW, interpret=True))
+        got = coverage_chunks_t(torch.from_numpy(edges), TH, TW)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_entry_coverage_from_pools_matches_vgtpu():
+    """The per-pool segment-sum (index_add_ over chunks, pools in order) vs
+    vgtpu's segment_sum on the small scene + text, which has multi-chunk
+    entries and several pools."""
+    from vgtpu.ops.coverage import entry_coverage_from_pools as entry_cov_j
+
+    from vgtpu_torch.ops.coverage import entry_coverage_from_pools
+
+    plan = _small_scene_plan()
+    ne = plan.entry_backdrop.shape[0]
+    assert len(plan.chunk_pools) > 1
+    ref = np.asarray(entry_cov_j(
+        [(jnp.asarray(ce), jnp.asarray(cent)) for ce, cent in plan.chunk_pools],
+        ne, TH, TW))
+    got = entry_coverage_from_pools(
+        [torch.from_numpy(ce) for ce, _cent in plan.chunk_pools],
+        [torch.from_numpy(cent) for _ce, cent in plan.chunk_pools], ne, TH, TW)
+    assert got.shape == (ne, TH, TW)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_k4_wrapper_refuses_cpu_tensors_and_other_devices():
+    """The CUDA wrapper never runs the plain twin; the dispatcher refuses
+    devices other than CUDA and the CPU."""
+    from vgtpu_torch.ops.coverage import coverage_chunks_t
+    from vgtpu_torch.ops.coverage_t_cuda import K4, coverage_chunks_t_cuda
+
+    before = K4.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        coverage_chunks_t_cuda(torch.zeros((4, 2, 4)), TH, TW)
+    assert K4.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        coverage_chunks_t(torch.zeros((4, 2, 4), device="meta"), TH, TW)

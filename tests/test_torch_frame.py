@@ -116,6 +116,11 @@ def test_port_imports_and_renders_with_jax_blocked():
         "                                for k in range(3)], 256, 128)\n"
         "imgs = vb.render()\n"
         "assert imgs.shape == (3, 128, 256, 4) and bool(torch.isfinite(imgs).all())\n"
+        "from vgtpu_torch.parallel.sharding import Mesh, render_frame_sharded\n"
+        "mesh = Mesh(('cpu',) * 2)\n"
+        "assert float((vb.render_sharded(mesh) - imgs).abs().max()) < 1e-5\n"
+        "img = render_frame_sharded(ctx.last_plan, mesh, ctx.background)\n"
+        "assert img.shape == (128, 256, 4) and bool(torch.isfinite(img).all())\n"
         "bad = [m for m in sys.modules if m == 'vgtpu' or m.startswith('vgtpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -138,10 +143,8 @@ def test_create_context_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("call", [
     lambda ctx: vgt.createCommandList(ctx, 0),
     lambda ctx: vgt.clBeginPath(ctx, None),
-    lambda ctx: vgt.VariantBatch.render_sharded(None, None),
     lambda ctx: RetainedScene.bake(ctx),
-], ids=["createCommandList", "clBeginPath", "VariantBatch.render_sharded",
-        "RetainedScene"])
+], ids=["createCommandList", "clBeginPath", "RetainedScene"])
 def test_unported_entry_points_raise(call):
     ctx = vgt.createContext(device="cpu")
     vgt.begin(ctx, 0, 64, 64, 1.0)

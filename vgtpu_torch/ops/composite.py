@@ -13,6 +13,11 @@ batch.py).  On a CUDA tensor `composite_bucket` launches kernel K2
 (csrc/composite.cu, via ops/composite_cuda.py); on a CPU tensor it runs the
 plain torch twin.  Any other device raises.
 
+composite_tiles_body / composite_bucketed_body are the plain torch twins
+of vgtpu's XLA oracle composite, which its sharded paths run; they are no
+kernel's twin, and only parallel/sharding.py and
+raster/batch.VariantBatch.render_sharded take them.
+
 Reference behaviour: the end() draw loop vg.cpp:1162-1287, the four shader
 programs src/shaders/*.sc, and the stencil clip semantics vg.cpp:1193-1215.
 
@@ -424,6 +429,201 @@ def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
                   ctile, ids, background, tile_w=tile_w, flags=tuple(flags),
                   ss=ss, rbd=rbd if covf else None,
                   init=init_tiles is not None, k_rep=k_rep)
+    return fb[:num_tiles]
+
+
+def _sdroundrect(ux, uy, ex, ey, rad):
+    """fs_color_gradient.sc:12-18 (copied from vgtpu/ops/composite.py); the
+    sqrt in float64, rounded once, as in composite_bucket_torch."""
+    dx = torch.abs(ux) - (ex - rad)
+    dy = torch.abs(uy) - (ey - rad)
+    mx = torch.clamp_min(dx, 0.0)
+    my = torch.clamp_min(dy, 0.0)
+    return (torch.clamp_max(torch.maximum(dx, dy), 0.0)
+            + torch.sqrt((mx * mx + my * my).double()).float() - rad)
+
+
+def composite_tiles_body(entry_w, tile_entries, tile_ids, entry_kind,
+                         entry_rule, entry_aa, entry_paint_kind, entry_paint,
+                         entry_scissor, entry_color_tile, color_tiles,
+                         background, *, ntx: int, tile_h: int, tile_w: int,
+                         max_ops: int, lane_flags: tuple = (True,) * 7,
+                         ss: int = 1, init_tiles=None) -> torch.Tensor:
+    """The painter composite over whole tiles in plain torch: the twin of
+    vgtpu's composite_tiles_body (its XLA oracle composite, which vgtpu's
+    sharded frame runs on every platform).  This is not kernel K2's twin:
+    it scans tile_entries slot by slot over (T, TH, TW) planes, and only the
+    sharded frame (parallel/sharding.py) and VariantBatch.render_sharded
+    take it.  Expressions follow vgtpu's in its order; the gradient's u/v
+    take one FMA each and its sqrt runs in float64, the roundings of
+    composite_bucket_torch.
+
+    entry_w (NE, TH, TW) winding incl. backdrop; tile_entries (T, MAX_OPS)
+    entry ids, -1 padded; tile_ids (T,) flat tile index (row * ntx + col);
+    entry_* per-entry tables; color_tiles (NCT, TH//ss, TW, 4) premultiplied,
+    on the output rows; background the 4 premultiplied RGBA floats.
+    Returns (T, TH//ss, TW, 4) premultiplied tiles.
+
+    lane_flags = (gradient, tri, texture, clip, evenodd, non_aa, scissor)
+    leave out the lanes no entry of the call uses.  ss > 1: winding,
+    coverage, scissor and clip live on tile_h sub-rows; the rule-applied
+    coverage averages down to output rows before shading and blending.
+    init_tiles: optional (T, TH//ss, TW, 4) initial values instead of the
+    broadcast background."""
+    has_grad, has_tri, has_tex, has_clip, has_eo, has_noaa = lane_flags[:6]
+    has_scissor = lane_flags[6] if len(lane_flags) > 6 else True
+    dev = entry_w.device
+    th_out = tile_h // ss
+    T = tile_entries.shape[0]
+    tid = tile_ids.long()
+    ox = ((tid % ntx) * tile_w).to(torch.float32)
+    oy = ((tid // ntx) * tile_h).to(torch.float32)
+    ix = torch.arange(tile_w, dtype=torch.float32, device=dev).expand(tile_h, tile_w)
+    iy = torch.arange(tile_h, dtype=torch.float32, device=dev)[:, None].expand(tile_h, tile_w)
+    # sub-row sample centres, scaled space: (T, TH, TW); scissors are scaled
+    pxc = ox[:, None, None] + ix + 0.5
+    pyc = oy[:, None, None] + iy + 0.5
+    if ss == 1:
+        pxc_o, pyc_o = pxc, pyc
+    else:
+        # output-pixel centres for shading (paints are pixel-space)
+        pxc_o = ox[:, None, None] + ix[:th_out] + 0.5
+        pyc_o = (oy / ss)[:, None, None] + iy[:th_out] + 0.5
+
+    bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
+    if init_tiles is None:
+        fb = bg.expand(T, th_out, tile_w, 4)
+    else:
+        fb = init_tiles.to(torch.float32)
+    mask = torch.ones((T, tile_h, tile_w), dtype=torch.float32, device=dev)
+    accum = torch.zeros((T, tile_h, tile_w), dtype=torch.float32, device=dev)
+
+    for s in range(max_ops):
+        eid = tile_entries[:, s].long()
+        valid = (eid >= 0)[:, None, None]
+        e = torch.clamp_min(eid, 0)
+
+        w = entry_w[e]                                  # (T, TH, TW)
+        kind = entry_kind[e][:, None, None]
+        rule = entry_rule[e][:, None, None]
+        aa = entry_aa[e][:, None, None]
+        pk = entry_paint_kind[e][:, None, None]
+        paint = entry_paint[e]                          # (T, 18)
+        sc = entry_scissor[e]                           # (T, 4)
+
+        is_quad_tex = pk == P_TEXTURE       # coverage lives in the colour tile
+        if has_tex:
+            has_ctile = (entry_color_tile[e] >= 0)[:, None, None]
+            use_ctile = has_ctile & (is_quad_tex | (pk == P_IMAGE))
+        cov = torch.clamp_max(torch.abs(w), 1.0)
+        if has_eo:
+            cov_eo = 1.0 - torch.abs(torch.remainder(w, 2.0) - 1.0)
+            cov = torch.where(rule == 0, cov, cov_eo)
+        if has_noaa:
+            cov = torch.where(aa != 0, cov, (cov >= 0.5).to(torch.float32))
+        if has_tex:
+            cov = torch.where(is_quad_tex, 1.0, cov)
+        if has_scissor:
+            # scissor (pixel-centre test, like the GPU scissor rect)
+            inside = ((pxc >= sc[:, 0, None, None]) & (pyc >= sc[:, 1, None, None])
+                      & (pxc < sc[:, 2, None, None]) & (pyc < sc[:, 3, None, None]))
+            cov = cov * inside.to(torch.float32)
+
+        # shading, each lane gated by the call's lane flags
+        inner = paint[:, None, None, 10:14]
+        col = inner.expand(T, th_out, tile_w, 4)
+        if has_grad:
+            # gradient uv via the inverse paint matrix (vg.cpp:3712-3880)
+            m = paint[:, 0:6, None, None]
+            uxg = fma(m[:, 0], pxc_o, m[:, 2] * pyc_o) + m[:, 4]
+            uyg = fma(m[:, 1], pxc_o, m[:, 3] * pyc_o) + m[:, 5]
+            feather = torch.clamp_min(paint[:, 9, None, None], 1e-6)
+            sd = _sdroundrect(uxg, uyg, paint[:, 6, None, None],
+                              paint[:, 7, None, None], paint[:, 8, None, None])
+            d = torch.clamp((sd + feather * 0.5) / feather, 0.0, 1.0)[..., None]
+            grad = inner * (1.0 - d) + paint[:, None, None, 14:18] * d
+            col = torch.where((pk == P_GRADIENT)[..., None], grad, col)
+        if has_tri:
+            # per-vertex-colour triangles: rgba(x, y) = A*x + B*y + C
+            tri = (paint[:, None, None, 0:4] * pxc_o[..., None]
+                   + paint[:, None, None, 4:8] * pyc_o[..., None]
+                   + paint[:, None, None, 8:12])
+            col = torch.where((pk == P_TRI)[..., None], tri, col)
+
+        if has_tex:
+            # textured entries: pre-sampled premultiplied colour tiles
+            ct = color_tiles[torch.clamp_min(entry_color_tile[e], 0).long()]
+            src_a = torch.where(use_ctile, ct[..., 3], col[..., 3])
+            src_rgb = torch.where(use_ctile[..., None], ct[..., 0:3],
+                                  col[..., 0:3] * col[..., 3:4])
+        else:
+            src_a = col[..., 3]
+            src_rgb = col[..., 0:3] * col[..., 3:4]
+
+        # op-kind state machine
+        if has_clip:
+            c = torch.where(valid & (kind == K_DRAW), cov * mask, 0.0)
+        else:
+            c = torch.where(valid, cov, 0.0)
+        if ss > 1:
+            # average the rule-applied sub-row coverage down to output rows,
+            # the sub-rows summed in order
+            c = c.reshape(T, th_out, ss, tile_w)
+            c_sum = c[:, :, 0]
+            for k in range(1, ss):
+                c_sum = c_sum + c[:, :, k]
+            c = c_sum / ss
+        a = src_a * c
+        fb = torch.cat([src_rgb * c[..., None] + fb[..., 0:3] * (1.0 - a)[..., None],
+                        (a + fb[..., 3] * (1.0 - a))[..., None]], dim=-1)
+
+        if has_clip:
+            is_cadd = valid & (kind == K_CLIP_ADD)
+            is_ccommit = valid & (kind == K_CLIP_COMMIT)
+            is_creset = valid & (kind == K_CLIP_RESET)
+            accum = torch.where(is_cadd, accum + cov, accum)
+            committed = torch.where(rule == 0, accum > 0.5,
+                                    ~(accum > 0.5)).to(torch.float32)
+            mask = torch.where(is_ccommit, committed, mask)
+            accum = torch.where(is_ccommit, 0.0, accum)
+            mask = torch.where(is_creset, 1.0, mask)
+    return fb
+
+
+def composite_bucketed_body(entry_w, buckets, entry_kind, entry_rule,
+                            entry_aa, entry_paint_kind, entry_paint,
+                            entry_scissor, entry_color_tile, color_tiles,
+                            background, *, ntx: int, tile_h: int, tile_w: int,
+                            num_tiles: int, bucket_flags: tuple | None = None,
+                            ss: int = 1, init_tiles=None) -> torch.Tensor:
+    """composite_tiles_body over tiles grouped by op-count bucket (the twin
+    of vgtpu's composite_bucketed_body): each bucket scans only as many
+    painter slots as its busiest tile needs; op-free tiles keep the
+    background (or their init tile).  buckets: [(tile_entries_b (Nb, MOb),
+    tile_ids_b (Nb,))]; pad rows carry tile id num_tiles, a scratch row.
+    Returns (num_tiles, TH//ss, TW, 4)."""
+    dev = entry_w.device
+    bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
+    th_out = tile_h // ss
+    fb = bg.expand(num_tiles + 1, th_out, tile_w, 4).clone()
+    if init_tiles is not None:
+        fb[:num_tiles] = init_tiles
+    if bucket_flags is None:
+        bucket_flags = ((True,) * 7,) * len(buckets)
+    for (te_b, ids_b), flags in zip(buckets, bucket_flags, strict=True):
+        # gather the bucket's entries once, then scan its flat slot ids
+        nb, mo = te_b.shape
+        ef = torch.clamp_min(te_b, 0).reshape(-1).long()
+        flat_ids = torch.arange(nb * mo, device=dev).reshape(nb, mo)
+        flat_ids = torch.where(te_b >= 0, flat_ids, -1)
+        ids = ids_b.long()
+        fb[ids] = composite_tiles_body(
+            entry_w[ef], flat_ids, ids_b, entry_kind[ef], entry_rule[ef],
+            entry_aa[ef], entry_paint_kind[ef], entry_paint[ef],
+            entry_scissor[ef], entry_color_tile[ef], color_tiles, bg,
+            ntx=ntx, tile_h=tile_h, tile_w=tile_w, max_ops=mo,
+            lane_flags=tuple(flags), ss=ss,
+            init_tiles=None if init_tiles is None else fb[ids])
     return fb[:num_tiles]
 
 

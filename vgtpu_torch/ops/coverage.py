@@ -9,8 +9,9 @@ Input layout (from vgtpu_torch.raster.binning):
   chunk_edges: (NC, CHUNK, 4) f32 — edge segments, tile-origin-relative
 
 On a CUDA tensor `cov_all` launches kernel K1 (csrc/coverage.cu, via
-ops/coverage_cuda.py); on a CPU tensor it runs the plain torch twin
-`cov_all_torch`.  Any other device raises.
+ops/coverage_cuda.py) and `coverage_chunks_t` kernel K4 (csrc/coverage_t.cu,
+via ops/coverage_t_cuda.py); on a CPU tensor they run the plain torch twins
+`cov_all_torch` and `coverage_chunks_t_torch`.  Any other device raises.
 """
 
 from __future__ import annotations
@@ -74,6 +75,62 @@ def coverage_chunks_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
         x0, y0, x1, y1 = (chunk_edges[:, e, k][:, None, None] for k in range(4))
         acc = acc + _edge_contribution(px, py, x0, y0, x1, y1)
     return acc
+
+
+def coverage_chunks_t_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
+                            tile_w: int = 128) -> torch.Tensor:
+    """(NC, CH, 4) edges -> (TH*TW, NC) pixel-major coverage: the plain twin
+    of kernel K4 and of vgtpu's coverage_chunks_pallas_t_raw (_kernel_t2).
+    The same arithmetic as coverage_chunks_torch, in edge order: the TPU
+    kernel's (g0 - g1) * b_gen + a_vert * c0 always has one exact-zero term,
+    so it equals the select form of _edge_contribution bit for bit."""
+    nc, ch, _ = chunk_edges.shape
+    dev = chunk_edges.device
+    flat = torch.arange(tile_h * tile_w, device=dev)
+    px = (flat % tile_w).to(torch.float32)[:, None]        # (NPX, 1)
+    py = (flat // tile_w).to(torch.float32)[:, None]
+    acc = torch.zeros((tile_h * tile_w, nc), dtype=torch.float32, device=dev)
+    for e in range(ch):
+        x0, y0, x1, y1 = (chunk_edges[:, e, k][None, :] for k in range(4))
+        acc = acc + _edge_contribution(px, py, x0, y0, x1, y1)
+    return acc
+
+
+def coverage_chunks_t(chunk_edges: torch.Tensor, tile_h: int,
+                      tile_w: int) -> torch.Tensor:
+    """(TH*TW, NC) pixel-major chunk coverage: kernel K4 on CUDA, the plain
+    twin on the CPU."""
+    dev = chunk_edges.device
+    if dev.type == "cuda":
+        from vgtpu_torch.ops.coverage_t_cuda import coverage_chunks_t_cuda
+
+        return coverage_chunks_t_cuda(chunk_edges, tile_h, tile_w)
+    if dev.type == "cpu":
+        return coverage_chunks_t_torch(chunk_edges, tile_h, tile_w)
+    raise ValueError(f"coverage_chunks_t: unsupported device {dev}")
+
+
+def entry_coverage_from_pools(chunk_edges: list, chunk_entry: list,
+                              num_entries: int, tile_h: int,
+                              tile_w: int) -> torch.Tensor:
+    """Per-entry coverage (NE, TH, TW) of pooled chunks: the twin of vgtpu's
+    entry_coverage_from_pools, which the sharded frame and the variant-sharded
+    batch take.  Each pool's pixel-major coverage (kernel K4 on CUDA) is
+    segment-summed over its chunk -> entry map (index_add_ over chunks into
+    an (NE, NPX) accumulator), and the pools' sums add in pool order.  On
+    CUDA index_add_ is atomic, so a multi-chunk entry's adds land in no fixed
+    order; on the CPU they run in chunk order, as XLA's segment_sum does."""
+    npx = tile_h * tile_w
+    acc = None
+    for ce, cent in zip(chunk_edges, chunk_entry, strict=True):
+        cov_t = coverage_chunks_t(ce, tile_h, tile_w)
+        part = torch.zeros((num_entries, npx), dtype=torch.float32,
+                           device=ce.device)
+        part.index_add_(0, cent, cov_t.t())
+        acc = part if acc is None else acc + part
+    if acc is None:
+        raise ValueError("entry_coverage_from_pools: no chunk pools")
+    return acc.reshape(num_entries, tile_h, tile_w)
 
 
 def build_cov_gather_map(chunk_pools, num_entries: int) -> dict:

@@ -1,0 +1,49 @@
+"""Kernel K4 (csrc/coverage_t.cu) bound to torch: pixel-major chunk coverage
+on CUDA.
+
+Replaces vgtpu/ops/coverage_pallas.py::_kernel_t2 (coverage_chunks_pallas_t_raw,
+variant "row").  The plain twin is ops/coverage.py::coverage_chunks_t_torch;
+ops/coverage.py::coverage_chunks_t routes CUDA tensors here and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vgtpu_torch.utils.cuda_build import CudaKernel, stream_ptr
+
+MAX_CH = 32    # edges per chunk the kernel's shared staging holds
+
+K4 = CudaKernel("coverage_t", {"vg_coverage_chunks_t": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]})
+
+
+def coverage_chunks_t_cuda(chunk_edges: torch.Tensor, tile_h: int,
+                           tile_w: int) -> torch.Tensor:
+    """(NC, CH, 4) edges -> (TH*TW, NC) pixel-major coverage: one K4 launch
+    on the edges' own device and its current stream."""
+    ce = chunk_edges
+    if not ce.is_cuda:
+        raise ValueError(f"coverage_chunks_t_cuda: edges on {ce.device}, "
+                         f"not a CUDA device")
+    if ce.dtype != torch.float32 or ce.dim() != 3 or ce.shape[2] != 4:
+        raise ValueError(f"coverage_chunks_t_cuda: edges must be (NC, CH, 4) "
+                         f"float32, got {tuple(ce.shape)} {ce.dtype}")
+    if not ce.is_contiguous():
+        raise ValueError("coverage_chunks_t_cuda: edges must be contiguous")
+    nc, ch = int(ce.shape[0]), int(ce.shape[1])
+    if not 1 <= ch <= MAX_CH:
+        raise ValueError(f"coverage_chunks_t_cuda: CH={ch} outside 1..{MAX_CH}")
+    npx = tile_h * tile_w
+    dev = ce.device
+    out = torch.empty((npx, nc), dtype=torch.float32, device=dev)
+    if nc:
+        with torch.cuda.device(dev):
+            K4.launch("vg_coverage_chunks_t", ctypes.c_void_p(ce.data_ptr()),
+                      ctypes.c_void_p(out.data_ptr()), nc, ch, tile_w, npx,
+                      stream_ptr(dev))
+    return out

@@ -24,8 +24,8 @@ frame 0 establishes the structural plan and every later frame must hit the
 value-patch (or full-memo) path, anything structural raises.
 
 vgtpu's portable XLA formulation (entry-axis folding, _host_folded_tables)
-is not ported: the port always takes the fused one.  render_sharded is the
-multi-GPU item of ROADMAP.md Q1.
+is not ported: the port always takes the fused one.  render_sharded splits
+the variant axis over a mesh (parallel/sharding.Mesh), as vgtpu's does.
 """
 
 from __future__ import annotations
@@ -35,8 +35,17 @@ import time
 import numpy as np
 import torch
 
-from vgtpu_torch.ops.composite import build_bucket_pteb, frame_fb
-from vgtpu_torch.ops.coverage import build_cov_gather_map, cov_all_resolved
+from vgtpu_torch.ops.composite import (
+    build_bucket_pteb,
+    composite_bucketed_body,
+    frame_fb,
+    tiles_to_image,
+)
+from vgtpu_torch.ops.coverage import (
+    build_cov_gather_map,
+    cov_all_resolved,
+    entry_coverage_from_pools,
+)
 from vgtpu_torch.raster.frame import patch_bucket_paint
 
 
@@ -151,6 +160,7 @@ class VariantBatch:
         self._tables = _batch_tables(plan, d, self.K)
         self._params, self._ct_flat, self._ctile = _batch_values(d, snaps)
         self._record = None   # (ctx, w, h, dpr, background) from bake
+        self._sharded = {}    # mesh -> render_sharded's uploaded tables
 
     @property
     def device(self) -> torch.device:
@@ -196,6 +206,8 @@ class VariantBatch:
                                          expect_d=self._d)
         self._snaps = snaps
         self._params, self._ct_flat, self._ctile = _batch_values(self._d, snaps)
+        for entry in self._sharded.values():
+            entry["values"] = None       # render_sharded uploads them anew
 
     def render(self, background=(0.0, 0.0, 0.0, 1.0)) -> torch.Tensor:
         """All K variant frames -> (K, H, W, 4): coverage once (K1 + the
@@ -217,11 +229,85 @@ class VariantBatch:
                .reshape(K, plan.nty * th_out, plan.ntx * tw, 4))
         return img[:, : plan.height, : plan.width]
 
-    def render_sharded(self, *_args, **_kwargs):
-        """The variant axis across several GPUs: not ported."""
-        raise NotImplementedError(
-            "VariantBatch.render_sharded is not ported to vgtpu_torch yet "
-            "(ROADMAP.md Q1: multi-GPU)")
+    def render_sharded(self, mesh, background=(0.0, 0.0, 0.0, 1.0)) -> torch.Tensor:
+        """All K variants data-parallel over a mesh (parallel/sharding.Mesh)
+        -> (K, H, W, 4) on mesh.devices[0]: the port of vgtpu's
+        render_sharded.  The variant axis splits over the mesh; K pads to a
+        multiple of the mesh size by repeating the last variant (pad frames
+        are rendered and dropped).  Each shard computes entry coverage once
+        (kernel K4 through entry_coverage_from_pools), adds the backdrop and
+        runs the plain torch oracle composite (composite_bucketed_body) for
+        each of its variants; no collective, then one copy of each shard's
+        images to devices[0].  The structural tables upload once per mesh
+        device, the value tables once per mesh until update_values."""
+        plan = self._plan
+        n, K = mesh.size, self.K
+        entry = self._sharded.get(mesh)
+        if entry is None:
+            entry = self._sharded[mesh] = {
+                "struct": {dev: _sharded_structure(plan, dev)
+                           for dev in dict.fromkeys(mesh.devices)},
+                "values": None}
+        if entry["values"] is None:
+            kl = -(-K // n)
+            snaps_p = list(self._snaps) + [self._snaps[-1]] * (kl * n - K)
+            entry["values"] = [
+                [_sharded_values(plan, s, dev) for s in snaps_p[k * kl:(k + 1) * kl]]
+                for k, dev in enumerate(mesh.devices)]
+        th, tw, ss = plan.tile_h, plan.tile_w, plan.supersample
+        ne = plan.entry_backdrop.shape[0]
+        geo = dict(ntx=plan.ntx, nty=plan.nty, tile_h=th // ss, tile_w=tw,
+                   width=plan.width, height=plan.height)
+        background = tuple(float(v) for v in background)
+        outs = []
+        for dev, values in zip(mesh.devices, entry["values"]):
+            st = entry["struct"][dev]
+            ew = entry_coverage_from_pools(st["chunk_edges"], st["chunk_entry"],
+                                           ne, th, tw)
+            ew = ew + st["entry_backdrop"][:, :, None]
+            outs.append(torch.stack([tiles_to_image(composite_bucketed_body(
+                ew, st["buckets"], st["entry_kind"], st["entry_rule"],
+                st["entry_aa"], st["entry_paint_kind"], ep, st["entry_scissor"],
+                st["entry_color_tile"], ct, background, ntx=plan.ntx,
+                tile_h=th, tile_w=tw, num_tiles=plan.ntx * plan.nty,
+                bucket_flags=st["bucket_flags"], ss=ss), **geo)
+                for ep, ct in values]))
+        dev0 = mesh.devices[0]
+        return torch.cat([o.to(dev0) for o in outs])[:K]
+
+
+def _sharded_structure(plan, dev) -> dict:
+    """The variant-invariant tables render_sharded reads, on one device:
+    the chunk pools, the per-entry tables and the tile buckets."""
+    ne = plan.entry_backdrop.shape[0]
+    for _ce, cent in plan.chunk_pools:
+        if len(cent) and (cent.min() < 0 or cent.max() >= ne):
+            raise ValueError("render_sharded: a chunk's entry id is outside "
+                             "the entry tables")
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    return {
+        "chunk_edges": [put(ce) for ce, _cent in plan.chunk_pools],
+        "chunk_entry": [put(cent) for _ce, cent in plan.chunk_pools],
+        **{k: put(getattr(plan, k)) for k in (
+            "entry_backdrop", "entry_kind", "entry_rule", "entry_aa",
+            "entry_paint_kind", "entry_scissor", "entry_color_tile")},
+        "buckets": [(put(te), put(ids)) for te, ids, _fl in plan.tile_buckets],
+        "bucket_flags": tuple(tuple(bool(f) for f in fl)
+                              for _te, _ids, fl in plan.tile_buckets),
+    }
+
+
+def _sharded_values(plan, snap, dev) -> tuple:
+    """One variant's value tables on one device: its (NE, 18) paint table
+    and its colour tiles (NCT, TH//ss, TW, 4), unpacked from the snapshot's
+    K2-layout ct_flat."""
+    th_out = plan.tile_h // plan.supersample
+    ct = snap["ct_flat"][:-1].reshape(-1, 4, th_out, plan.tile_w)
+    return (torch.as_tensor(snap["entry_paint"]).to(dev),
+            ct.permute(0, 2, 3, 1).to(dev).contiguous())
 
 
 def measure_batch_ms_per_frame(vb: VariantBatch, background=(0, 0, 0, 1),
@@ -236,13 +322,15 @@ def measure_batch_ms_per_frame(vb: VariantBatch, background=(0, 0, 0, 1),
 
     def run(n: int) -> float:
         if dev.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(n):
-                vb.render(background)
-            b.record()
-            b.synchronize()
+            # the events record on the batch's device, not the current one
+            with torch.cuda.device(dev):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(n):
+                    vb.render(background)
+                b.record()
+                b.synchronize()
             return a.elapsed_time(b)
         t0 = time.perf_counter()
         for _ in range(n):
