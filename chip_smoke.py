@@ -6,14 +6,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure raises and the process exits non-zero):
   1. CUDA present; print the card's name and power limit (nvidia-smi).
   2. Build kernels K1 (csrc/coverage.cu), K2 (csrc/composite.cu), K3
-     (csrc/coverage_resolve.cu) and K4 (csrc/coverage_t.cu) with nvcc from
-     the checkout, one nvcc each, all started together; print the build
-     seconds and ptxas's register and spill report.
+     (csrc/coverage_resolve.cu), K4 (csrc/coverage_t.cu), K5
+     (csrc/coverage_t_flat.cu), K6 (csrc/coverage_slots.cu), K7
+     (csrc/composite_flat.cu) and K8 (csrc/probe.cu) with nvcc from the
+     checkout, one nvcc each, all started together; print the build seconds
+     and ptxas's register and spill report.
   3. K1 against its plain twin coverage_chunks_torch on the card: random
      chunks (horizontal, near-vertical, tiny-dy, zero-length, out-of-tile
      edges) at CH = 2, 4, 8, 24 and the 1080p frame's pool sizes.
   3c. K4 (pixel-major chunk coverage) against coverage_chunks_t_torch: the
      same random chunks at CH = 2, 4, 8, 24 and the 1080p frame's pools.
+  3d. K6 (chunk coverage, one thread per chunk and pixel) against
+     coverage_chunks_torch and K1: random chunks at CH = 2, 6, 24 and the
+     1080p frame's pools.
+  3e. K5 (pixel-major coverage, flat form) against coverage_chunks_t_torch
+     and K4: the same random chunks, the 1080p frame's pools and the pools
+     of its n = 1 partition.
   3b. K3 against coverage_chunks_res_torch: random chunks at ss = 2, 4 and
      CH = 2, 4, 6, 12, 24 with random resolve params (even-odd, non-AA,
      texture, scissor, backdrop), and the RES pools of the 1080p ss=2 plan;
@@ -33,11 +41,22 @@ Phases (any failure raises and the process exits non-zero):
      random paint variants, the batch's own tables) against the twin on
      every bucket of the 1080p plan at ss=1 and of the ss=2 split plan, so
      (b) runs with forms (a), (d) and (e).
+  4d. K7 (the flat composite) against composite_bucket_torch on every
+     bucket of phase 4's scenes at ss=1: over chunk coverage with the
+     backdrop rows added (add_backdrop), over entry winding gathered by the
+     bucket's entry table, from a random init plane, and k_rep=3 (on every
+     bucket: the kernel takes any Nb, the entry point as vgtpu only
+     Nb % 128 == 0); every lane must be covered.
   5. The main path: createContext(device="cuda"), begin 1920x1080,
      scenes.demo_ui.draw_benchmark_frame, end().  Both kernels' launch
      counts must be > 0; the image must match the same plan through the
      plain twins on the card within 1 u8 level, and the small scene must
      match the CPU path within 1 u8 level.
+  5c. The 1080p frame assembled through the entry points of this slice's
+     kernels (raster/frame.execute_plan_flat): chunk coverage per pool through K5 (then again
+     through K6), the chunk -> entry index_add_, + backdrop, per bucket K7
+     over the gathered entry winding; K5 (K6) and K7 launch counts > 0, the
+     image within 1 u8 level of phase 5's.
   5b. The main path in parity mode: createContext(ContextConfig(
      coverage_supersample=2), device="cuda"), the same frame; K1, K2 and K3
      launch counts > 0; the image within 1 u8 level of the plain twins on
@@ -73,10 +92,16 @@ Phases (any failure raises and the process exits non-zero):
      measure_batch_ms_per_frame at K=6; the sharded frames per n (CUDA
      events, median of 12, from resident shards), K4 beside its twin and
      its device time in the n = 1 sharded frame, render_sharded per
-     variant.  Phase 6 runs after phases 7 and 8, whose contexts it times.
+     variant; K5, K6, K7 and K8 beside their twins (K8 also beside
+     torch.add(1, x, alpha=2)), the [5c] frames beside the steady frame.
+     Phase 6 runs after phases 7 and 8, whose contexts it times.
+  9. Cold start (vgtpu_torch.utils.cold_probe): torch's context and first
+     cuBLAS call, K8's load and first launch, and the first 1080p frame,
+     each in a fresh process with jax blocked, after phase 2 has built the
+     kernels.
 
 The last two lines are the kernels' JSON record (K1, K2's forms (a)-(e),
-K3, K4: launches on the main paths, error against the twin, times, and the
+K3-K8: launches on the main paths, error against the twin, times, and the
 bound from this run's shapes) and the contract line
 {"ok": true, "device": {...}}.  Imports neither jax nor vgtpu.
 """
@@ -161,6 +186,26 @@ def k2_work(buckets, npx_out: int, ss: int, scratch: int,
         nbytes += n_real * npx_out * 16 * (2 if init else 1)
         valid = int((pp_r[:, _P_VALID, :] > 0).sum())
         ops += valid * npx_out * (1 if rbd is not None else ss) * 20
+    return nbytes, ops
+
+
+def k7_work(buckets, npx: int, scratch: int) -> tuple:
+    """K7's least (bytes, operations) over buckets of (ew_t, params, ct_t,
+    ids), counting the real tiles only (ids < scratch), as k2_work: of the
+    dense ew_t and colour tiles the valid slots' values (invalid slots
+    composite nothing), the params columns, the background column, each
+    tile written once; ~20 operations per valid slot and pixel."""
+    from vgtpu_torch.ops.composite import _P_VALID
+
+    nbytes = 4 * npx * 4
+    ops = 0
+    for _ew, pp, ct, ids in buckets:
+        real = ids < scratch
+        pp_r = pp[:, :, real]
+        valid = int((pp_r[:, _P_VALID, :] > 0).sum())
+        nbytes += (valid * npx * (5 if ct is not None else 1) + pp_r.numel()
+                   + int(real.sum()) * 4 * npx) * 4
+        ops += valid * npx * 20
     return nbytes, ops
 
 
@@ -253,16 +298,20 @@ def record_plan(vg, draw, w, h, device, ss=1, split=True):
     return ctx, plan, plan_to_device(plan, device)
 
 
-def device_breakdown(run, frames: int = 10):
-    """torch.profiler over `frames` calls of run(): device ms per frame by
-    kernel (K1, K2 forms, K3 entry points, the rest by name), device-busy ms
-    per frame, and the window from the first device op to the last."""
+def device_breakdown(run, frames: int = 10, zero=None):
+    """torch.profiler over `frames` calls of run(): device ms per call by
+    kernel (K1, K2 forms, K3 entry points, the rest by name), recorded
+    device events per call by the same keys, device-busy ms per call, and
+    the window from the first device op to the last.  zero() runs just
+    before the profiled calls (the caller's launch counts to 0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(min(frames, 3)):
         run()
     torch.cuda.synchronize()
+    if zero is not None:
+        zero()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
             run()
@@ -273,15 +322,18 @@ def device_breakdown(run, frames: int = 10):
     names = (("coverage_chunks_t_kernel", "K4"), ("coverage_chunks_kernel", "K1"),
              ("coverage_res_kernel", "K3"),
              ("resolve_rows_kernel", "K3 rows"), ("composite_final_kernel", "K2 (e)"),
-             ("composite_bucket_kernel", "K2 (a)/(d)"))
-    by = {}
+             ("composite_bucket_kernel", "K2 (a)/(d)"),
+             ("coverage_t_flat_kernel", "K5"), ("coverage_slots_kernel", "K6"),
+             ("composite_flat_kernel", "K7"), ("probe_affine_kernel", "K8"))
+    by, calls = {}, {}
     for e in ev:
         key = next((k for n, k in names if n in e.name), e.name[:48])
         by[key] = by.get(key, 0.0) + e.device_time / 1e3 / frames
+        calls[key] = calls.get(key, 0.0) + 1.0 / frames
     busy = sum(e.device_time for e in ev) / 1e3 / frames
     window = (max(e.time_range.end for e in ev)
               - min(e.time_range.start for e in ev)) / 1e3 / frames
-    return by, busy, window
+    return by, calls, busy, window
 
 
 def ptxas_summary(log: str) -> str:
@@ -313,16 +365,27 @@ def main() -> int:
     from vgtpu_torch import native
     from vgtpu_torch.ops import (
         composite_cuda,
+        composite_flat_cuda,
         coverage_cuda,
         coverage_resolve_cuda,
+        coverage_slots_cuda,
         coverage_t_cuda,
+        coverage_t_flat_cuda,
+        probe_cuda,
     )
-    from vgtpu_torch.ops.composite import composite_bucket_into_torch, frame_fb
+    from vgtpu_torch.ops.composite import (
+        _P_PAINT,
+        composite_bucket_into_torch,
+        composite_bucket_torch,
+        frame_fb,
+    )
     from vgtpu_torch.ops.coverage import (
         cov_all_resolved,
         cov_all_resolved_torch,
         cov_all_torch,
         coverage_chunks_t_torch,
+        coverage_chunks_torch,
+        entry_coverage_from_pools,
         fold_extras,
     )
     from vgtpu_torch.ops.coverage_resolve import (
@@ -341,8 +404,19 @@ def main() -> int:
         render_frame_sharded_fused,
         shard_frame_fused,
     )
-    from vgtpu_torch.parallel.sharding import Mesh, render_frame_sharded, shard_frame
-    from vgtpu_torch.raster.frame import execute_plan, execute_plan_torch, image_to_u8
+    from vgtpu_torch.parallel.sharding import (
+        Mesh,
+        partition_plan_for_mesh,
+        plan_dense_arrays,
+        render_frame_sharded,
+        shard_frame,
+    )
+    from vgtpu_torch.raster.frame import (
+        execute_plan,
+        execute_plan_flat,
+        execute_plan_torch,
+        image_to_u8,
+    )
     from vgtpu_torch.scenes import demo_ui
     from vgtpu_torch.scenes.small import (
         HEIGHT,
@@ -351,6 +425,7 @@ def main() -> int:
         draw_resolve_scene,
         draw_small_scene,
     )
+    from vgtpu_torch.utils import cold_probe
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -363,8 +438,9 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     K1, K2, K3 = coverage_cuda.K1, composite_cuda.K2, coverage_resolve_cuda.K3
-    K4 = coverage_t_cuda.K4
-    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": coverage_t_cuda.K4,
+               "K5": coverage_t_flat_cuda.K5, "K6": coverage_slots_cuda.K6,
+               "K7": composite_flat_cuda.K7, "K8": probe_cuda.K8}
     form_launches = composite_cuda.FORM_LAUNCHES
 
     def zero_counts():
@@ -444,6 +520,54 @@ def main() -> int:
               f"max|K4 - K1 transposed| = {float((got.t() - k1_rows).abs().max()):.3e}")
         if not err <= K1_BOUND:
             raise AssertionError(f"K4 disagrees with its plain twin on {label}: {err}")
+
+    # ---- 3d. K6 vs plain and vs K1 ---------------------------------------
+    # K6 is K1's function and layout with K1's arithmetic, its own simple
+    # design: K1's bound, and it should equal K1's rows too
+    rand_56 = []                       # phase 3e holds K5 to the same chunks
+    for ch in (2, 6, 24):
+        nc = next((n for n, ce in zip(pools_nc, d["chunk_edges"])
+                   if ce.shape[1] == ch), 2048)
+        nc = min(max(nc, 2048), 8192)
+        rand_56.append((f"CH={ch:2d} NC={nc}", torch.from_numpy(
+            random_chunks(rng, nc, ch)).to(dev)))
+    frame_pools = [(f"1080p pool {tuple(ce.shape[:2])}", ce) for ce in d["chunk_edges"]]
+    k6_err = 0.0
+    for label, edges in rand_56 + frame_pools:
+        got = coverage_slots_cuda.coverage_chunks_slots_cuda(edges, 8, 128)
+        ref = coverage_chunks_torch(edges, 8, 128)
+        k1_rows = coverage_cuda.cov_all_cuda([edges], 8, 128)[:-1]
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        vs_k1 = float((got.reshape(k1_rows.shape) - k1_rows).abs().max())
+        k6_err = max(k6_err, err)
+        print(f"[3d] K6 {label}: max|K6 - plain| = {err:.3e} (bound {K1_BOUND:.0e}); "
+              f"max|K6 - K1| = {vs_k1:.3e}")
+        if not (err <= K1_BOUND and vs_k1 <= K1_BOUND):
+            raise AssertionError(f"K6 disagrees with its plain twin or K1 on {label}: "
+                                 f"{err}, {vs_k1}")
+
+    # ---- 3e. K5 vs plain and vs K4 ---------------------------------------
+    # K5 is K4's function and layout with K1's arithmetic, in the flat form;
+    # also on the pools of the n = 1 partition (the sharded frame's K4 input)
+    part_pools = [(f"partitioned pool {tuple(ce.shape[:2])}",
+                   torch.from_numpy(np.ascontiguousarray(ce)).to(dev))
+                  for ce, _cent in partition_plan_for_mesh(
+                      plan_dense_arrays(plan), plan, 1)[0]["chunk_pools"]]
+    k5_err = 0.0
+    for label, edges in rand_56 + frame_pools + part_pools:
+        got = coverage_t_flat_cuda.coverage_chunks_t_flat_cuda(edges, 8, 128)
+        ref = coverage_chunks_t_torch(edges, 8, 128)
+        k4 = coverage_t_cuda.coverage_chunks_t_cuda(edges, 8, 128)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        vs_k4 = float((got - k4).abs().max())
+        k5_err = max(k5_err, err)
+        print(f"[3e] K5 {label}: max|K5 - plain| = {err:.3e} (bound {K1_BOUND:.0e}); "
+              f"max|K5 - K4| = {vs_k4:.3e}")
+        if not (err <= K1_BOUND and vs_k4 <= K1_BOUND):
+            raise AssertionError(f"K5 disagrees with its plain twin or K4 on {label}: "
+                                 f"{err}, {vs_k4}")
 
     # ---- 3b. K3 vs plain ------------------------------------------------
     k3_err = 0.0
@@ -661,6 +785,68 @@ def main() -> int:
         print(f"[4c] form ({form}) lanes (grad,tri,tex,clip,eo,noaa,scissor) covered: "
               f"{lanes.astype(int).tolist()}")
 
+    # ---- 4d. K7 vs plain -------------------------------------------------
+    # every bucket at ss=1 of phase 4's scenes, in four settings: chunk
+    # coverage gathered by pteb with the backdrop rows added in the kernel;
+    # entry winding (entry coverage + backdrop) gathered by the bucket's
+    # entry table (vgtpu's composite_bucketed_pallas_body); the same from a
+    # random init plane; and k_rep=3 paint variants over one block of ew_t
+    # on every bucket (the entry point, as vgtpu, takes k_rep only where
+    # Nb % 128 == 0; the kernel takes any Nb)
+    k7_err, covered_k7, k7_runs, n128 = 0.0, set(), {}, 0
+    for label, p, dd in scenes:
+        ne = p.entry_backdrop.shape[0]
+        cov_p = cov_all_resolved_torch(dd["chunk_edges"], dd["cov_map"], 8, 128)
+        cents = [torch.from_numpy(np.asarray(c)).to(dev) for _ce, c in p.chunk_pools]
+        entry_w = (entry_coverage_from_pools(dd["chunk_edges"], cents, ne, 8, 128)
+                   + torch.from_numpy(p.entry_backdrop).to(dev)[:, :, None]).reshape(ne, -1)
+        bg_col = torch.tensor(BG, device=dev).repeat_interleave(8 * 128)[:, None]
+        for i, flags in enumerate(dd["bucket_flags"]):
+            pteb, te, pp = dd["bucket_pteb"][i], dd["bucket_te"][i], dd["bucket_params"][i]
+            mo, _npp, nbp = pp.shape
+            ct_t = (dd["ct_flat"][dd["bucket_ctile"][i]].permute(1, 2, 0).contiguous()
+                    if flags[2] else None)
+            ew_cov = cov_p[pteb].permute(1, 2, 0).contiguous()
+            ew_ent = entry_w[te].permute(1, 2, 0).contiguous()
+            plane = torch.from_numpy(
+                rng.uniform(0, 1, (4 * 8 * 128, nbp)).astype(np.float32)).to(dev)
+            runs = [("add_backdrop", ew_cov, pp, ct_t, bg_col, True, 1),
+                    ("entry_w", ew_ent, pp, ct_t, bg_col, False, 1),
+                    ("init plane", ew_ent, pp, ct_t, plane, False, 1)]
+            n128 += nbp % 128 == 0
+            blocks = [pp]
+            for _v in range(1, K_REP):
+                q = pp.clone()
+                q[:, _P_PAINT + 10 : _P_PAINT + 18] *= torch.from_numpy(
+                    rng.uniform(0.3, 1.0, (mo, 8, nbp)).astype(np.float32)).to(dev)
+                blocks.append(q)
+            ct3 = (None if ct_t is None else
+                   torch.cat([ct_t * 0.5 ** v for v in range(K_REP)], dim=2))
+            runs.append((f"k_rep={K_REP}", ew_ent, torch.cat(blocks, dim=2), ct3,
+                         bg_col, False, K_REP))
+            for name, ew, pp_r, ct_r, bg_r, ab, kr in runs:
+                got = composite_flat_cuda.composite_bucket_flat_cuda(
+                    ew, pp_r, ct_r, bg_r, tile_w=128, flags=flags, add_backdrop=ab,
+                    k_rep=kr)
+                ref = composite_bucket_torch(ew, pp_r, ct_r, bg_r, tile_w=128,
+                                             flags=flags, add_backdrop=ab, k_rep=kr)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                k7_err = max(k7_err, err)
+                k7_runs[name] = k7_runs.get(name, 0) + 1
+                if not err <= K2_BOUND:
+                    raise AssertionError(f"K7 ({name}) disagrees on {label} bucket {i} "
+                                         f"flags {flags}: {err}")
+            covered_k7.add(tuple(int(f) for f in flags))
+        print(f"[4d] K7 on {len(dd['bucket_flags'])} {label} buckets: runs {k7_runs}; "
+              f"max|K7 - plain| = {k7_err:.3e} (bound {K2_BOUND:.0e})")
+    lanes = np.array(sorted(covered_k7)).any(axis=0)
+    print(f"[4d] K7 lanes (grad,tri,tex,clip,eo,noaa,scissor) covered: "
+          f"{lanes.astype(int).tolist()}; k_rep={K_REP} on {n128} buckets with "
+          f"Nb % 128 == 0 among them")
+    if not lanes.all():
+        raise AssertionError(f"a lane of K7 was never exercised: {lanes}")
+
     # ---- 5. the main path ----------------------------------------------
     zero_counts()
     ctx = vg.createContext(device="cuda")
@@ -753,27 +939,7 @@ def main() -> int:
         if su8 > U8_BOUND:
             raise AssertionError(f"small scene ss={ss} CUDA vs CPU: {su8} u8 levels")
 
-    # ---- 7. the serving paths -------------------------------------------
     paths = {"main ss=1": launches, "main ss=2": launches_ss2}
-
-    def app_frame(c, draw, dispatch=True):
-        vg.begin(c, 0, 1920, 1080, 1.0)
-        draw(c)
-        return vg.end(c, background=BG_APP, dispatch=dispatch)
-
-    def overlay(k):
-        """bench.py's anim / batch_diag frame: the north-star frame plus a
-        rect whose colour is the only delta."""
-        def f(c):
-            demo_ui.draw_benchmark_frame(c, 0.0)
-            vg.beginPath(c)
-            vg.rect(c, 1800, 1000, 60, 40)
-            vg.fillPath(c, vg.color4ub(50 + 17 * k, 120, 200, 180),
-                        vg.FillFlags.ConvexAA)
-        return f
-
-    def layer_frame(k):
-        return lambda c: demo_ui.draw_benchmark_frame(c, 0.3 + 0.05 * k)
 
     def check_path(name, counts, need, pairs, tag="[7]"):
         """A path's launch counts (each kernel in need launched), then its
@@ -795,6 +961,39 @@ def main() -> int:
               f"reference (bound {U8_BOUND}), max|diff| {diff:.3e}")
         if worst > U8_BOUND:
             raise AssertionError(f"{name}: an image is {worst} u8 levels off")
+
+    # ---- 5c. the 1080p frame through K5 or K6 and K7 ----------------------
+    # chunk coverage per pool (K5 pixel-major, or K6 chunk-major), the
+    # chunk -> entry index_add_, + backdrop -> entry_w; per bucket ew_t
+    # gathered by its entry table, K7 (add_backdrop=False); held to phase 5
+    pl5, dv5 = ctx.last_plan, ctx.last_device_arrays
+    cents5 = [torch.from_numpy(np.asarray(c)).to(dev) for _ce, c in pl5.chunk_pools]
+    for cov_k in ("K5", "K6"):
+        zero_counts()
+        fimg = execute_plan_flat(pl5, dv5, cents5, ctx.background, cov_k)
+        counts = read_counts()
+        check_path(f"flat frame via {cov_k}", counts, (cov_k, "K7"), [(fimg, img)],
+                   tag="[5c]")
+
+    # ---- 7. the serving paths -------------------------------------------
+    def app_frame(c, draw, dispatch=True):
+        vg.begin(c, 0, 1920, 1080, 1.0)
+        draw(c)
+        return vg.end(c, background=BG_APP, dispatch=dispatch)
+
+    def overlay(k):
+        """bench.py's anim / batch_diag frame: the north-star frame plus a
+        rect whose colour is the only delta."""
+        def f(c):
+            demo_ui.draw_benchmark_frame(c, 0.0)
+            vg.beginPath(c)
+            vg.rect(c, 1800, 1000, 60, 40)
+            vg.fillPath(c, vg.color4ub(50 + 17 * k, 120, 200, 180),
+                        vg.FillFlags.ConvexAA)
+        return f
+
+    def layer_frame(k):
+        return lambda c: demo_ui.draw_benchmark_frame(c, 0.3 + 0.05 * k)
 
     def bench_frame(c):
         demo_ui.draw_benchmark_frame(c, 0.0)
@@ -1072,14 +1271,23 @@ def main() -> int:
                 print(f"[6] {key:15s} {ms[key]:9.3f} ms  (CUDA events; {card})")
     # device time alone: the event times above include the host's launch
     # gaps (one Python wrapper call per pool and bucket)
-    dev_ms = {}
+    # torch.profiler can drop device events (a run of 12 K4 launches once
+    # recorded 8), so each kernel's launches per call come from its
+    # wrapper's count over the same profiled calls
+    dev_ms, dev_calls, dev_launched = {}, {}, {}
+
+    def profiled(tag, run, frames=10):
+        by, calls, busy, window = device_breakdown(run, frames, zero=zero_counts)
+        dev_ms[tag], dev_calls[tag] = by, calls
+        dev_launched[tag] = {k: n / frames for k, n in read_counts().items()}
+        return by, busy, window
+
     for tag, run in (("ss1", lambda: execute_plan(pl, BG, device_arrays=dv)),
                      ("ss2", lambda: execute_plan(pl2, BG, device_arrays=dv2)),
                      ("layer", lambda: execute_plan(pb, BG_APP, device_arrays=db,
                                                     init_tiles=tiles_b)),
                      ("batch", lambda: vb.render(BG_APP))):
-        by, busy, window = device_breakdown(run)
-        dev_ms[tag] = by
+        by, busy, window = profiled(tag, run)
         print(f"[6] steady {tag}: device busy {busy:.4f} of {window:.4f} ms per "
               f"call ({100 * busy / window:.1f}% busy; torch.profiler, 10 calls; {card})")
         for key, v in sorted(by.items(), key=lambda kv: -kv[1]):
@@ -1153,9 +1361,8 @@ def main() -> int:
     for key in ("K4", "K4_plain"):
         print(f"[6] {key:15s} {ms[key]:9.3f} ms  (median of 12, CUDA events; pools "
               f"{[tuple(ce.shape[:2]) for ce in k4_pools]}; {card})")
-    by, busy, window = device_breakdown(lambda: sharded[1].render(ctx.background),
-                                        frames=3)
-    dev_ms["sharded"] = by
+    by, busy, window = profiled("sharded", lambda: sharded[1].render(ctx.background),
+                                frames=3)
     print(f"[6] sharded n=1: device busy {busy:.4f} of {window:.4f} ms per frame "
           f"({100 * busy / window:.1f}% busy; torch.profiler, 3 frames; {card})")
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
@@ -1167,8 +1374,84 @@ def main() -> int:
           f"{ms['render_sharded']:.3f} ms, {ms['render_sharded'] / K_BATCH:.3f} ms per "
           f"variant (median of 5, CUDA events; {card})")
 
-    # achieved rates and each kernel's bound from this run's shapes
+    # K5-K8 beside their twins at the shapes of the paths that run them: K5
+    # and K6 over the frame's pools (with K4 there too; K1 is timed on them
+    # above), K7 over the [5c] frame's buckets with ew_t and the colour tiles
+    # gathered beforehand, K8 on the cold probe's (256, 128), beside
+    # torch.add(1, x, alpha=2), one PyTorch call of the same function
     npx = 8 * 128
+    ne5 = pl.entry_backdrop.shape[0]
+    entry_w5 = (entry_coverage_from_pools(dv["chunk_edges"], cents5, ne5, 8, 128)
+                + torch.from_numpy(pl.entry_backdrop).to(dev)[:, :, None]).reshape(ne5, -1)
+    bg_col = torch.tensor(BG, device=dev).repeat_interleave(npx)[:, None]
+    k7_in = [(entry_w5[te].permute(1, 2, 0).contiguous(), pp,
+              dv["ct_flat"][ct].permute(1, 2, 0).contiguous() if fl[2] else None, fl)
+             for te, pp, ct, fl in zip(dv["bucket_te"], dv["bucket_params"],
+                                       dv["bucket_ctile"], dv["bucket_flags"])]
+
+    def k7_all(fn):
+        for ew, pp, ct, fl in k7_in:
+            fn(ew, pp, ct, bg_col, tile_w=128, flags=fl, add_backdrop=False)
+
+    x8 = torch.from_numpy(np.random.default_rng(SEED).normal(
+        0, 1e3, cold_probe.SHAPE).astype(np.float32)).to(dev)
+    one8 = torch.ones_like(x8)
+    y8 = probe_cuda.probe_affine_cuda(x8)
+    k8_err = float((y8 - cold_probe.probe_affine_torch(x8)).abs().max())
+    lib_err = float((y8 - torch.add(one8, x8, alpha=2.0)).abs().max())
+    print(f"[6] K8 on {tuple(x8.shape)}: max|K8 - plain| = {k8_err:.3e}, "
+          f"max|K8 - torch.add| = {lib_err:.3e} (exact)")
+    if k8_err != 0.0:
+        raise AssertionError(f"K8 disagrees with its plain twin: {k8_err}")
+    fpools = dv["chunk_edges"]
+    ms.update({
+        "K5": time_ms(lambda: [coverage_t_flat_cuda.coverage_chunks_t_flat_cuda(
+            ce, 8, 128) for ce in fpools]),
+        "K5_plain": time_ms(lambda: [coverage_chunks_t_torch(ce, 8, 128) for ce in fpools]),
+        "K4 frame pools": time_ms(lambda: [coverage_t_cuda.coverage_chunks_t_cuda(
+            ce, 8, 128) for ce in fpools]),
+        "K6": time_ms(lambda: [coverage_slots_cuda.coverage_chunks_slots_cuda(
+            ce, 8, 128) for ce in fpools]),
+        "K6_plain": time_ms(lambda: [coverage_chunks_torch(ce, 8, 128) for ce in fpools]),
+        "K7": time_ms(lambda: k7_all(composite_flat_cuda.composite_bucket_flat_cuda)),
+        "K7_plain": time_ms(lambda: k7_all(composite_bucket_torch)),
+        "K8": time_ms(lambda: probe_cuda.probe_affine_cuda(x8)),
+        "K8_plain": time_ms(lambda: cold_probe.probe_affine_torch(x8)),
+        "K8_library": time_ms(lambda: torch.add(one8, x8, alpha=2.0)),
+        "flat_frame_K5": time_ms(lambda: execute_plan_flat(pl, dv, cents5, BG, "K5")),
+        "flat_frame_K6": time_ms(lambda: execute_plan_flat(pl, dv, cents5, BG, "K6")),
+    })
+    for key in ("K5", "K5_plain", "K4 frame pools", "K6", "K6_plain", "K1", "K7",
+                "K7_plain", "K8", "K8_plain", "K8_library", "flat_frame_K5",
+                "flat_frame_K6", "frame"):
+        print(f"[6] {key:15s} {ms[key]:9.3f} ms  (median of 12, CUDA events; {card})")
+    for tag, run in (("flat K5", lambda: execute_plan_flat(pl, dv, cents5, BG, "K5")),
+                     ("flat K6", lambda: execute_plan_flat(pl, dv, cents5, BG, "K6")),
+                     ("K8", lambda: probe_cuda.probe_affine_cuda(x8)),
+                     ("K8 library", lambda: torch.add(one8, x8, alpha=2.0))):
+        by, busy, window = profiled(tag, run)
+        print(f"[6] {tag}: device busy {busy:.4f} of {window:.4f} ms per call "
+              f"({100 * busy / window:.1f}% busy; torch.profiler, 10 calls; {card})")
+        for key, v in sorted(by.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"[6]    {key:48s} {v:.4f} ms/call")
+
+    # ---- 9. cold start ----------------------------------------------------
+    # each phase a fresh process with jax blocked; phase 2's builds left the
+    # kernel cache warm, as the TPU probe ran with its compile cache warm
+    cold = {name: cold_probe.run_phase(name) for name in cold_probe.PHASES}
+    for name, r in cold.items():
+        print(f"[9] cold {name}: {json.dumps(r)} ({card})")
+    if cold["K8"]["max_abs_err"] != 0.0 or cold["K8"]["launches"] < 1:
+        raise AssertionError(f"[9] the cold K8 phase: {cold['K8']}")
+    fr9 = cold["frame"]
+    if fr9["shape"] != [1080, 1920, 4] or not fr9["finite"] or min(
+            fr9["launches"].values()) < 1:
+        raise AssertionError(f"[9] the cold frame: {fr9}")
+    # the K8 phase's process started with every count at 0
+    paths["cold probe K8"] = {**dict.fromkeys(read_counts(), 0),
+                              "K8": cold["K8"]["launches"]}
+
+    # achieved rates and each kernel's bound from this run's shapes
     k1_flop = sum(int(ce.shape[0]) * int(ce.shape[1]) for ce in dv["chunk_edges"]) \
         * npx * 25                       # ~25 float ops per edge and pixel
     k1_bytes = sum(ce.numel() * 4 + int(ce.shape[0]) * npx * 4
@@ -1205,6 +1488,13 @@ def main() -> int:
                    for live, ce in zip(sharded[1].meta["chunk_slots_live"], k4_pools)),
                sum(live * int(ce.shape[1]) * npx * 25
                    for live, ce in zip(sharded[1].meta["chunk_slots_live"], k4_pools))),
+        # K5 and K6: K1's function over the same pools
+        "K5": (k1_bytes, k1_flop),
+        "K6": (k1_bytes, k1_flop),
+        "K7": k7_work([(*b[:3], ids) for b, ids in zip(k7_in, dv["bucket_ids"])],
+                      npx, nt),
+        # K8: x read, out written, a multiply and an add per element
+        "K8": (2 * x8.numel() * 4, 2 * x8.numel()),
     }
     for key, (nb, ops) in work.items():
         bms, by_ = bound(nb, ops)
@@ -1227,49 +1517,94 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"chip_smoke imported {leaked}")
 
-    def entry(name, key, source, replaces, err, t, t_plain, dev_t, **extra):
+    def entry(name, key, source, replaces, err, t, t_plain, tag, dev_keys,
+              **extra):
         """One kernel's record: launches summed over the main paths' runs
-        (phases 5, 5b, 7 and 8), the bound from this run's shapes, its device
-        ms per call of the run that times it (torch.profiler)."""
+        (phases 5, 5b, 5c, 7, 8 and 9), the bound from this run's shapes,
+        its launches per call of the run `tag` that times it (the wrapper's
+        count), its device ms per call (torch.profiler's ms per recorded
+        event under dev_keys x those launches), and the main paths' excess
+        over the bound: launches x (device ms - bound ms) per launch."""
         by_path = {p: c[key] for p, c in paths.items() if c[key]}
         bms, by_ = bound(*work[key.split()[-1].strip("()")])
+        n = sum(by_path.values())
+        dev_t, per_call, events = dev_per_call(tag, key, dev_keys)
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": sum(by_path.values()),
+                "replaces": replaces, "launches": n,
                 "launches_by_path": by_path, "max_abs_err": err, "ms": t,
                 "plain_ms": t_plain, "bound_ms": bms, "bound_by": by_,
-                "library_ms": None, "device_ms": dev_t, **extra}
+                "library_ms": None, "device_ms": dev_t, "per_call": per_call,
+                "events_per_call": events, "excess_ms": n * (dev_t - bms) / per_call,
+                **extra}
+
+    def dev_per_call(tag, key, dev_keys):
+        """(device ms per call, launches per call, recorded events per call)
+        of kernel `key` in the profiled run `tag`."""
+        events = sum(dev_calls[tag].get(k, 0.0) for k in dev_keys)
+        per_call = dev_launched[tag][key]
+        if not events or not per_call:
+            raise AssertionError(f"[6] {key} in the {tag} run: {per_call} launches, "
+                                 f"{events} recorded events per call")
+        dev_t = sum(dev_ms[tag].get(k, 0.0) for k in dev_keys) / events * per_call
+        return dev_t, per_call, events
 
     k2src = "vgtpu_torch/csrc/composite.cu"
     k2rep = "vgtpu/ops/composite_pallas.py:181"
-
-    def dms(tag, *keys):
-        return sum(dev_ms[tag].get(k, 0.0) for k in keys)
-
-    print(json.dumps({"kernels": [
+    k2 = ("K2 (a)/(d)",)
+    records = [
         entry("K1 chunk coverage", "K1", "vgtpu_torch/csrc/coverage.cu",
               "vgtpu/ops/coverage_pallas.py:254", k1_err, ms["K1"], ms["K1_plain"],
-              dms("ss1", "K1"), ms_ss2=ms["K1_ss2"], plain_ms_ss2=ms["K1_ss2_plain"],
-              device_ms_ss2=dms("ss2", "K1")),
+              "ss1", ("K1",), ms_ss2=ms["K1_ss2"], plain_ms_ss2=ms["K1_ss2_plain"],
+              device_ms_ss2=dev_per_call("ss2", "K1", ("K1",))[0]),
         entry("K2 (a) painter composite, ss=1", "K2 (a)", k2src, k2rep,
-              k2_form_err["a"], ms["K2"], ms["K2_plain"], dms("ss1", "K2 (a)/(d)")),
+              k2_form_err["a"], ms["K2"], ms["K2_plain"], "ss1", k2),
         entry("K2 (b) per-tile init planes (layer memo)", "K2 (b)", k2src,
               f"{k2rep} (form :577)", k2_form_err["b"], ms["K2b_layer"],
-              ms["K2b_layer_plain"], dms("layer", "K2 (a)/(d)")),
+              ms["K2b_layer_plain"], "layer", k2),
         entry("K2 (c) k_rep variant blocks (VariantBatch)", "K2 (c)", k2src,
               f"{k2rep} (form :550)", k2_form_err["c"], ms["K2c_batch"],
-              ms["K2c_batch_plain"], dms("batch", "K2 (a)/(d)")),
+              ms["K2c_batch_plain"], "batch", k2),
         entry("K2 (d) sub-row coverage, ss>1", "K2 (d)", k2src, k2rep,
-              k2_form_err["d"], ms["K2d_ss2"], ms["K2d_ss2_plain"],
-              dms("ss2", "K2 (a)/(d)")),
+              k2_form_err["d"], ms["K2d_ss2"], ms["K2d_ss2_plain"], "ss2", k2),
         entry("K2 (e) final coverage + rbd, ss>1", "K2 (e)", k2src, k2rep,
-              k2_form_err["e"], ms["K2e_ss2"], ms["K2e_ss2_plain"], dms("ss2", "K2 (e)")),
+              k2_form_err["e"], ms["K2e_ss2"], ms["K2e_ss2_plain"], "ss2", ("K2 (e)",)),
         entry("K3 resolved chunk coverage", "K3", "vgtpu_torch/csrc/coverage_resolve.cu",
               "vgtpu/ops/coverage_resolve.py:204", k3_err, ms["K3_ss2"],
-              ms["K3_ss2_plain"], dms("ss2", "K3", "K3 rows")),
+              ms["K3_ss2_plain"], "ss2", ("K3", "K3 rows")),
         entry("K4 pixel-major chunk coverage", "K4", "vgtpu_torch/csrc/coverage_t.cu",
               "vgtpu/ops/coverage_pallas.py:158", k4_err, ms["K4"], ms["K4_plain"],
-              dms("sharded", "K4")),
-    ]}))
+              "sharded", ("K4",)),
+        entry("K5 pixel-major chunk coverage, flat form", "K5",
+              "vgtpu_torch/csrc/coverage_t_flat.cu", "vgtpu/ops/coverage_pallas.py:132",
+              k5_err, ms["K5"], ms["K5_plain"], "flat K5", ("K5",),
+              k4_ms_same_pools=ms["K4 frame pools"]),
+        entry("K6 chunk coverage, edge slot by slot", "K6",
+              "vgtpu_torch/csrc/coverage_slots.cu", "vgtpu/ops/coverage_pallas.py:25",
+              k6_err, ms["K6"], ms["K6_plain"], "flat K6", ("K6",)),
+        entry("K7 flat painter composite, ss=1", "K7", "vgtpu_torch/csrc/composite_flat.cu",
+              "vgtpu/ops/composite_pallas.py:384", k7_err, ms["K7"], ms["K7_plain"],
+              "flat K5", ("K7",)),
+        entry("K8 cold-dispatch probe x*2+1", "K8", "vgtpu_torch/csrc/probe.cu",
+              "tools/probe_cold_tax.py:58", k8_err, ms["K8"], ms["K8_plain"],
+              "K8", ("K8",), library_ms=ms["K8_library"],
+              library_device_ms=sum(dev_ms["K8 library"].values())),
+    ]
+    # the order for the kernels' speed work: first a kernel slower than one
+    # PyTorch call of its function (CUDA events), then by the main paths'
+    # excess over the bound; one within 2x its bound is left alone
+    for r in sorted(records, key=lambda r: (r["library_ms"] is None
+                                            or r["ms"] <= r["library_ms"],
+                                            -r["excess_ms"])):
+        note = ("within 2x its bound" if r["device_ms"] <= 2 * r["bound_ms"] else
+                f"{r['device_ms'] / r['bound_ms']:.1f}x its bound")
+        if r["library_ms"] is not None:
+            note += (f"; {r['ms']:.4f} ms against one PyTorch call's "
+                     f"{r['library_ms']:.4f} (CUDA events)")
+        print(f"[6] speed order: {r['name']}: {r['launches']} launches x "
+              f"({r['device_ms']:.4f} - {r['bound_ms']:.4f}) ms / {r['per_call']:g} "
+              f"launches per call ({r['events_per_call']:g} recorded by torch.profiler) "
+              f"= {r['excess_ms']:.3f} ms; {note} ({card})")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

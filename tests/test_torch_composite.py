@@ -513,3 +513,163 @@ def test_composite_bucketed_body_matches_vgtpu(ss, init):
         init_tiles=None if init_tiles is None else torch.from_numpy(init_tiles), **kw)
     assert got.shape == ref.shape == (nt, th // ss, tw, 4)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=0)
+
+
+# ---- K7: the flat composite over dense slot-major winding --------------------
+
+def _entry_w(plan):
+    """Entry winding with the backdrop, (NE, TH*TW): what vgtpu's
+    composite_bucketed_pallas_body gathers by each bucket's entry table."""
+    from vgtpu_torch.ops.coverage import entry_coverage_from_pools
+
+    ne = plan.entry_backdrop.shape[0]
+    ew = entry_coverage_from_pools(
+        [torch.from_numpy(ce) for ce, _ in plan.chunk_pools],
+        [torch.from_numpy(c) for _, c in plan.chunk_pools], ne, plan.tile_h,
+        plan.tile_w)
+    return (ew + torch.from_numpy(plan.entry_backdrop)[:, :, None]).reshape(ne, -1).numpy()
+
+
+def test_pallas_flat_and_rows_kernels_agree(feature_plan):
+    """vgtpu's flat (_kernel) and rows (_kernel_rows) composites give the
+    same fb_t bit for bit at ss=1 on every bucket: the premise that lets
+    composite_bucket_torch stand for K2 and K7 alike (the twin is held to
+    the flat kernel without the backdrop rows below)."""
+    plan, host = feature_plan
+    cov = _cov_all(plan, host)
+    npx = plan.tile_h * plan.tile_w
+    bg_vec = jnp.asarray(np.repeat(np.asarray(BG, np.float32), npx)[:, None])
+    for (te_b, _ids, _fl), pteb, flags in zip(
+            plan.tile_buckets, host["bucket_pteb"], host["bucket_flags"]):
+        pp, ct_t = build_bucket_aux(plan, te_b, need_ct=flags[2])
+        args = (jnp.asarray(np.ascontiguousarray(cov[pteb].transpose(1, 2, 0))),
+                jnp.asarray(pp), None if ct_t is None else jnp.asarray(ct_t), bg_vec)
+        kw = dict(npx=npx, tile_w=plan.tile_w, flags=flags, add_backdrop=True,
+                  interpret=True)
+        flat = np.asarray(composite_bucket_pallas(*args, **kw, variant="flat"))
+        np.testing.assert_array_equal(flat, composite_bucket_pallas(*args, **kw))
+
+
+@pytest.mark.parametrize("add_backdrop", [True, False])
+@pytest.mark.parametrize("all_lanes", [False, True])
+def test_composite_bucket_flat_matches_pallas(feature_plan, all_lanes, add_backdrop):
+    """composite_bucket_flat (K7's entry point) vs composite_bucket_pallas(
+    variant="flat") on every bucket, with its own lanes and all seven forced
+    on: over chunk coverage gathered by pteb with the backdrop rows added
+    (add_backdrop), or over entry winding gathered by the bucket's entry
+    table, backdrop included (vgtpu's composite_bucketed_pallas_body)."""
+    from vgtpu_torch.ops.composite import composite_bucket_flat
+
+    plan, host = feature_plan
+    cov = _cov_all(plan, host) if add_backdrop else _entry_w(plan)
+    npx = plan.tile_h * plan.tile_w
+    bg_vec = np.repeat(np.asarray(BG, np.float32), npx)[:, None]
+    for (te_b, _ids, _fl), pteb, te, flags in zip(
+            plan.tile_buckets, host["bucket_pteb"], host["bucket_te"],
+            host["bucket_flags"]):
+        flags = (True,) * 7 if all_lanes else flags
+        pp, ct_t = build_bucket_aux(plan, te_b, need_ct=flags[2])
+        ew_t = np.ascontiguousarray(cov[pteb if add_backdrop else te].transpose(1, 2, 0))
+        ref = np.asarray(composite_bucket_pallas(
+            jnp.asarray(ew_t), jnp.asarray(pp),
+            None if ct_t is None else jnp.asarray(ct_t), jnp.asarray(bg_vec),
+            npx=npx, tile_w=plan.tile_w, flags=flags, add_backdrop=add_backdrop,
+            interpret=True, variant="flat"))
+        got = composite_bucket_flat(
+            torch.from_numpy(ew_t), torch.from_numpy(pp),
+            None if ct_t is None else torch.from_numpy(ct_t),
+            torch.from_numpy(bg_vec), tile_w=plan.tile_w, flags=flags,
+            add_backdrop=add_backdrop)
+        assert got.shape == ref.shape == (4 * npx, pteb.shape[0])
+        np.testing.assert_allclose(got.numpy(), ref, atol=2e-6, rtol=0)
+
+
+def _both_flat(ew_t, pp, bg_vec, k_rep=1, tw=16):
+    from vgtpu_torch.ops.composite import composite_bucket_flat
+
+    ref = np.asarray(composite_bucket_pallas(
+        jnp.asarray(ew_t), jnp.asarray(pp), None, jnp.asarray(bg_vec),
+        npx=ew_t.shape[1], tile_w=tw, flags=_FLAGS_BC, add_backdrop=True,
+        interpret=True, variant="flat", k_rep=k_rep))
+    got = composite_bucket_flat(
+        torch.from_numpy(ew_t), torch.from_numpy(pp), None,
+        torch.from_numpy(bg_vec), tile_w=tw, flags=_FLAGS_BC, add_backdrop=True,
+        k_rep=k_rep).numpy()
+    return got, ref
+
+
+@pytest.mark.parametrize("k_rep", [1, 2])
+def test_composite_bucket_flat_init_plane_and_k_rep_match_pallas(k_rep):
+    """K7's entry point from a random per-tile init plane, and with k_rep=2
+    variant blocks over one block of ew_t (Nb = 128, 8x16 tiles, MO 4), as
+    the rows kernel's form (b) and (c) tests build them."""
+    rng = np.random.default_rng(31 + k_rep)
+    ew_t, pp, _th = _synthetic_bucket(rng, ss=1, k_rep=k_rep)
+    plane = rng.uniform(0, 1, (4 * 8 * 16, pp.shape[2])).astype(np.float32)
+    got, ref = _both_flat(ew_t, pp, plane, k_rep=k_rep)
+    assert got.shape == ref.shape == plane.shape
+    np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+
+
+def test_composite_bucket_flat_refuses_k_rep_without_128_lanes():
+    from vgtpu_torch.ops.composite import composite_bucket_flat
+
+    with pytest.raises(ValueError, match="128-multiple lanes"):
+        composite_bucket_flat(torch.zeros((4, 128, 96)), torch.zeros((4, 40, 192)),
+                              None, torch.zeros((512, 1)), tile_w=16,
+                              flags=(False,) * 7, k_rep=2)
+
+
+def test_k7_wrapper_refuses_cpu_tensors_and_other_devices():
+    """The CUDA wrapper never runs the plain twin: a CPU tensor raises
+    before any build or launch; the dispatcher refuses devices other than
+    CUDA and the CPU."""
+    from vgtpu_torch.ops.composite import composite_bucket_flat
+    from vgtpu_torch.ops.composite_flat_cuda import K7, composite_bucket_flat_cuda
+
+    args = (torch.zeros((4, 128, 8)), torch.zeros((4, 40, 8)), None,
+            torch.zeros((512, 1)))
+    before = K7.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        composite_bucket_flat_cuda(*args, tile_w=16, flags=(False,) * 7)
+    assert K7.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        composite_bucket_flat(*(a if a is None else a.to("meta") for a in args),
+                              tile_w=16, flags=(False,) * 7)
+
+
+@pytest.mark.parametrize("coverage", ["K5", "K6"])
+def test_flat_frame_matches_vgtpu(feature_plan, coverage):
+    """The slice as a whole: execute_plan_flat (chip_smoke.py's [5c] frame),
+    assembled through coverage_chunks_t(variant="flat") (K5) or
+    coverage_chunks (K6), the chunk->entry index_add_, the backdrop, and
+    composite_bucket_flat (K7) per bucket, against vgtpu's
+    composite_bucketed_pallas_body over its own
+    entry_coverage_from_pools."""
+    from vgtpu.ops.composite_pallas import composite_bucketed_pallas_body
+    from vgtpu.ops.coverage import entry_coverage_from_pools as entry_cov_j
+    from vgtpu_torch.raster.frame import _put, execute_plan_flat
+
+    plan, host = feature_plan
+    th, tw = plan.tile_h, plan.tile_w
+    ne, nt = plan.entry_backdrop.shape[0], plan.ntx * plan.nty
+    ew_j = (entry_cov_j([(jnp.asarray(ce), jnp.asarray(c)) for ce, c in plan.chunk_pools],
+                        ne, th, tw) + jnp.asarray(plan.entry_backdrop)[:, :, None])
+    params, cts = [], []
+    for te_b, _ids, flags in plan.tile_buckets:
+        pp, ct = build_bucket_aux(plan, te_b, need_ct=bool(flags[2]))
+        params.append(jnp.asarray(pp))
+        cts.append(None if ct is None else jnp.asarray(ct))
+    ref = np.asarray(composite_bucketed_pallas_body(
+        ew_j, [(jnp.asarray(te), jnp.asarray(ids)) for te, ids, _fl in plan.tile_buckets],
+        tuple(params), tuple(cts), jnp.asarray(np.asarray(BG, np.float32)),
+        tile_h=th, tile_w=tw, num_tiles=nt, bucket_flags=host["bucket_flags"],
+        interpret=True))
+    d = _put({k: v for k, v in host.items() if k != "bucket_flags"}, "cpu")
+    d["bucket_flags"] = host["bucket_flags"]
+    img = execute_plan_flat(plan, d, [torch.from_numpy(c) for _, c in plan.chunk_pools],
+                            BG, coverage)
+    ref_img = ref.reshape(plan.nty, plan.ntx, th, tw, 4).transpose(0, 2, 1, 3, 4)
+    ref_img = ref_img.reshape(plan.nty * th, plan.ntx * tw, 4)[:plan.height, :plan.width]
+    assert img.shape == ref_img.shape == (H, W, 4)
+    np.testing.assert_allclose(img.numpy(), ref_img, atol=2e-6, rtol=0)

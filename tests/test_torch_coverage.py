@@ -1,8 +1,10 @@
 """The port's chunk coverage (vgtpu_torch/ops/coverage.py) against vgtpu's:
 the plain twin vs the XLA body and the Pallas TPU kernel in interpret mode
-(K1's reference), the extras fold vs vgtpu's cov_all_resolved, and the
+(K1's reference), the extras fold vs vgtpu's cov_all_resolved, the
 pixel-major twin (K4's) and the entry segment-sum of the sharded paths vs
-vgtpu's _kernel_t2 and entry_coverage_from_pools.
+vgtpu's _kernel_t2 and entry_coverage_from_pools, and the entry points of
+K6 (coverage_chunks vs coverage_chunks_pallas) and K5
+(coverage_chunks_t(variant="flat") vs _kernel_t).
 
 Tolerance atol=1e-5: both sides evaluate the same float32 expressions in the
 same order, with the two FMAs XLA contracts written out in the twin; what is
@@ -233,3 +235,94 @@ def test_k4_wrapper_refuses_cpu_tensors_and_other_devices():
     assert K4.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         coverage_chunks_t(torch.zeros((4, 2, 4), device="meta"), TH, TW)
+
+
+# ---- K6: chunk coverage, edge slot by edge slot --------------------------------
+
+@pytest.mark.parametrize("ch", [2, 6, 24])
+def test_coverage_chunks_matches_pallas_kernel(ch):
+    """K6's TPU kernel (_kernel, coverage_chunks_pallas) in interpret mode:
+    its grid accumulates the output slot by slot, the order of the twin."""
+    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas
+
+    from vgtpu_torch.ops.coverage import coverage_chunks
+
+    edges = random_chunks(300 + ch, 128, ch)
+    ref = np.asarray(coverage_chunks_pallas(jnp.asarray(edges), TH, TW,
+                                            interpret=True))
+    got = coverage_chunks(torch.from_numpy(edges), TH, TW)
+    assert got.shape == ref.shape == (128, TH, TW)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+# ---- K5: pixel-major coverage, the flat form -------------------------------------
+
+@pytest.mark.parametrize("ch", [2, 6, 24])
+def test_coverage_chunks_t_flat_matches_pallas_kernel(ch):
+    """K5's TPU kernel (_kernel_t, variant "flat") in interpret mode at
+    unroll=1.  It equals K4's (_kernel_t2) bit for bit, so K4's twin is
+    K5's, within K4's tolerance (measured 1.4e-6 on these adversarial
+    chunks, the same against either kernel)."""
+    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t_raw
+
+    from vgtpu_torch.ops.coverage import coverage_chunks_t, coverage_chunks_t_torch
+
+    edges = random_chunks(400 + ch, 128, ch)
+    ref = np.asarray(coverage_chunks_pallas_t_raw(
+        jnp.asarray(edges), TH, TW, interpret=True, unroll=1, variant="flat"))
+    ref_row = np.asarray(coverage_chunks_pallas_t_raw(
+        jnp.asarray(edges), TH, TW, interpret=True, unroll=1, variant="row"))
+    np.testing.assert_array_equal(ref, ref_row)
+    got = coverage_chunks_t(torch.from_numpy(edges), TH, TW, variant="flat")
+    assert got.shape == ref.shape == (TH * TW, 128)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+    assert torch.equal(got, coverage_chunks_t_torch(torch.from_numpy(edges), TH, TW))
+
+
+def test_coverage_t_flat_pools_match_pallas_default_unroll():
+    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t_raw
+
+    from vgtpu_torch.ops.coverage import coverage_chunks_t
+
+    for ce, _cent in _small_scene_plan().chunk_pools:
+        n = len(ce)
+        npad = -(-n // 128) * 128
+        edges = np.zeros((npad,) + ce.shape[1:], np.float32)
+        edges[:n] = ce
+        ref = np.asarray(coverage_chunks_pallas_t_raw(
+            jnp.asarray(edges), TH, TW, interpret=True, variant="flat"))
+        got = coverage_chunks_t(torch.from_numpy(edges), TH, TW, variant="flat",
+                                unroll=0)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_coverage_chunks_t_refuses_unknown_variant():
+    from vgtpu_torch.ops.coverage import coverage_chunks_t
+
+    with pytest.raises(ValueError, match="unknown variant 'rows'"):
+        coverage_chunks_t(torch.zeros((4, 2, 4)), TH, TW, variant="rows")
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_k5_k6_wrappers_refuse_cpu_tensors_and_other_devices(kernel):
+    """The CUDA wrappers never run the plain twin: a CPU tensor raises
+    before any build or launch; the dispatchers refuse devices other than
+    CUDA and the CPU."""
+    from vgtpu_torch.ops import coverage, coverage_slots_cuda, coverage_t_flat_cuda
+
+    if kernel == "K5":
+        k, wrapper = coverage_t_flat_cuda.K5, coverage_t_flat_cuda.coverage_chunks_t_flat_cuda
+
+        def dispatch(e):
+            return coverage.coverage_chunks_t(e, TH, TW, variant="flat")
+    else:
+        k, wrapper = coverage_slots_cuda.K6, coverage_slots_cuda.coverage_chunks_slots_cuda
+
+        def dispatch(e):
+            return coverage.coverage_chunks(e, TH, TW)
+    before = k.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        wrapper(torch.zeros((4, 2, 4)), TH, TW)
+    assert k.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        dispatch(torch.zeros((4, 2, 4), device="meta"))

@@ -121,6 +121,18 @@ def test_port_imports_and_renders_with_jax_blocked():
         "assert float((vb.render_sharded(mesh) - imgs).abs().max()) < 1e-5\n"
         "img = render_frame_sharded(ctx.last_plan, mesh, ctx.background)\n"
         "assert img.shape == (128, 256, 4) and bool(torch.isfinite(img).all())\n"
+        "from vgtpu_torch.ops.composite import composite_bucket_flat\n"
+        "from vgtpu_torch.ops.coverage import coverage_chunks, coverage_chunks_t\n"
+        "from vgtpu_torch.ops import composite_flat_cuda, coverage_slots_cuda\n"
+        "from vgtpu_torch.ops import coverage_t_flat_cuda, probe_cuda\n"
+        "from vgtpu_torch.utils.cold_probe import probe_affine\n"
+        "e = torch.zeros((4, 2, 4)); e[:, 0] = torch.tensor([1.0, -1.0, 5.0, 9.0])\n"
+        "cov = coverage_chunks(e, 8, 128)\n"
+        "assert torch.equal(coverage_chunks_t(e, 8, 128, variant='flat'), cov.reshape(4, -1).t())\n"
+        "fb = composite_bucket_flat(cov.reshape(1, 1024, 4), torch.zeros((1, 40, 4)), None,\n"
+        "                           torch.ones((4096, 1)), tile_w=128, flags=(False,) * 7)\n"
+        "assert fb.shape == (4096, 4)\n"
+        "assert torch.equal(probe_affine(torch.ones(3)), torch.full((3,), 3.0))\n"
         "bad = [m for m in sys.modules if m == 'vgtpu' or m.startswith('vgtpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

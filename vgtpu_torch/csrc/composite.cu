@@ -77,84 +77,21 @@
 // library is built with -fmad=false; the gradient's paint-space
 // coordinates take one explicit __fmaf_rn each, as the plain twin does, so
 // kernel and twin round the same operations the same way.  1/ss is a power
-// of two, so oy*(1/ss) and the coverage average are exact products.
+// of two, so oy*(1/ss) and the coverage average are exact products.  The
+// fill rule, the clip step and the shading and blending live in
+// composite_common.cuh, shared with K7 (csrc/composite_flat.cu).
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "composite_common.cuh"
 
 namespace {
 
-// params rows (vgtpu/ops/composite_pallas.py _P_*)
-constexpr int P_VALID = 0, P_KIND = 1, P_RULE = 2, P_AA = 3, P_PK = 4;
-constexpr int P_SC = 5, P_CTILE = 9, P_OX = 10, P_OY = 11, P_PAINT = 12;
-constexpr int P_BD = 32;
-// op and paint kinds (vgtpu/raster/binning.py)
-constexpr float K_DRAW = 0.f, K_CLIP_ADD = 1.f, K_CLIP_COMMIT = 2.f;
-constexpr float K_CLIP_RESET = 3.f;
-constexpr float PK_GRADIENT = 1.f, PK_IMAGE = 2.f, PK_TEXTURE = 3.f;
-constexpr float PK_TRI = 4.f;
+using namespace vg;
+
 constexpr int kPix = 4;       // output pixels per thread
 constexpr int kThreads = 256; // TH_OUT*TW/kPix for 8x128 output tiles
-
-// Shade one output pixel and blend coverage c over (fr, fg, fb, fa).  pp
-// points at this (slot, tile)'s params column (row stride nbp).
-template <bool kGrad, bool kTri, bool kTex>
-__device__ __forceinline__ void shade_blend(const float* pp, int nbp,
-                                            float pk, bool use_ct,
-                                            const float* ctp, int p,
-                                            int npx_out, float pxc, float pyc,
-                                            float c, float& fr, float& fg,
-                                            float& fbl, float& fa) {
-  auto P = [&](int row) { return __ldg(pp + static_cast<size_t>(row) * nbp); };
-  const float inner_r = P(P_PAINT + 10), inner_g = P(P_PAINT + 11);
-  const float inner_b = P(P_PAINT + 12), inner_a = P(P_PAINT + 13);
-  float col_r = inner_r, col_g = inner_g, col_b = inner_b, col_a = inner_a;
-  if (kGrad && pk == PK_GRADIENT) {
-    // the one FMA per coordinate the reference XLA contracts: u is ~1e5 for
-    // linear gradients, where an ulp moves d by ~3e-5
-    const float ux = __fmaf_rn(P(P_PAINT + 0), pxc, P(P_PAINT + 2) * pyc) + P(P_PAINT + 4);
-    const float uy = __fmaf_rn(P(P_PAINT + 1), pxc, P(P_PAINT + 3) * pyc) + P(P_PAINT + 5);
-    const float ex = P(P_PAINT + 6), ey = P(P_PAINT + 7);
-    const float rad = P(P_PAINT + 8);
-    const float feather = fmaxf(P(P_PAINT + 9), 1e-6f);
-    const float dx = fabsf(ux) - (ex - rad);
-    const float dy = fabsf(uy) - (ey - rad);
-    const float mx = fmaxf(dx, 0.f), my = fmaxf(dy, 0.f);
-    const float sd = fminf(fmaxf(dx, dy), 0.f) + sqrtf(mx * mx + my * my) - rad;
-    const float d = fminf(fmaxf((sd + feather * 0.5f) / feather, 0.f), 1.f);
-    col_r = inner_r * (1.f - d) + P(P_PAINT + 14) * d;
-    col_g = inner_g * (1.f - d) + P(P_PAINT + 15) * d;
-    col_b = inner_b * (1.f - d) + P(P_PAINT + 16) * d;
-    col_a = inner_a * (1.f - d) + P(P_PAINT + 17) * d;
-  }
-  if (kTri && pk == PK_TRI) {
-    col_r = P(P_PAINT + 0) * pxc + P(P_PAINT + 4) * pyc + P(P_PAINT + 8);
-    col_g = P(P_PAINT + 1) * pxc + P(P_PAINT + 5) * pyc + P(P_PAINT + 9);
-    col_b = P(P_PAINT + 2) * pxc + P(P_PAINT + 6) * pyc + P(P_PAINT + 10);
-    col_a = P(P_PAINT + 3) * pxc + P(P_PAINT + 7) * pyc + P(P_PAINT + 11);
-  }
-
-  float src_r, src_g, src_b, src_a;
-  if (kTex && use_ct) {
-    src_r = ctp[p];
-    src_g = ctp[npx_out + p];
-    src_b = ctp[2 * npx_out + p];
-    src_a = ctp[3 * npx_out + p];
-  } else {
-    src_r = col_r * col_a;
-    src_g = col_g * col_a;
-    src_b = col_b * col_a;
-    src_a = col_a;
-  }
-
-  const float a = src_a * c;
-  const float one_minus_a = 1.f - a;
-  fr = src_r * c + fr * one_minus_a;
-  fg = src_g * c + fg * one_minus_a;
-  fbl = src_b * c + fbl * one_minus_a;
-  fa = a + fa * one_minus_a;
-}
 
 // The thread's 4 starting pixels: the broadcast background, or (form (b))
 // the tile's own framebuffer row, except on pad tiles (row == scratch).
@@ -214,7 +151,7 @@ composite_bucket_kernel(const float* __restrict__ cov,
 
   for (int slot = 0; slot < mo; ++slot) {
     const float* pp = params + static_cast<size_t>(slot) * npp * nbp + t;
-    auto P = [&](int row) { return __ldg(pp + static_cast<size_t>(row) * nbp); };
+    auto P = [&](int row) { return param(pp, nbp, row); };
     const float valid = P(P_VALID), kind = P(P_KIND), rule = P(P_RULE);
     const float aa = P(P_AA), pk = P(P_PK);
     const float ox = P(P_OX), oy = P(P_OY);
@@ -243,30 +180,14 @@ composite_bucket_kernel(const float* __restrict__ cov,
         const float pxl = static_cast<float>(col) + 0.5f;
         const float pyl = static_cast<float>(r) + 0.5f;
         const float w = cw[ps] + P(P_BD + r);
-        float cv = fminf(fabsf(w), 1.f);
-        if (kEo) {
-          const float md = w - 2.f * floorf(w * 0.5f);  // floored, as jnp.mod
-          const float cov_eo = 1.f - fabsf(md - 1.f);
-          cv = rule == 0.f ? cv : cov_eo;
-        }
-        if (kNoAa) cv = aa != 0.f ? cv : (cv >= 0.5f ? 1.f : 0.f);
-        if (kTex) cv = is_quad_tex ? 1.f : cv;
-        if (kScissor) {
-          const bool inside_y = (pyl >= P(P_SC + 1) - oy) && (pyl < P(P_SC + 3) - oy);
-          const bool inside = (pxl >= P(P_SC) - ox) && inside_y &&
-                              (pxl < P(P_SC + 2) - ox);
-          cv = cv * (inside ? 1.f : 0.f);
-        }
-
+        const float cv = fill_coverage(kEo, kNoAa, kTex, kScissor, pp, nbp, w,
+                                       rule, aa, is_quad_tex, pxl, pyl, ox, oy);
         float c;
         if (kClip) {
-          const float m = smask[ps];
-          c = (is_draw ? cv : 0.f) * m;
-          const float acc = is_cadd ? saccum[ps] + cv : saccum[ps];
-          const float inside_f = acc > 0.5f ? 1.f : 0.f;
-          const float committed = rule == 0.f ? inside_f : 1.f - inside_f;
-          smask[ps] = is_creset ? 1.f : (is_ccommit ? committed : m);
-          saccum[ps] = is_ccommit ? 0.f : acc;
+          float m = smask[ps], acc = saccum[ps];
+          c = clip_step(cv, rule, is_draw, is_cadd, is_ccommit, is_creset, m, acc);
+          smask[ps] = m;
+          saccum[ps] = acc;
         } else {
           c = valid > 0.f ? cv : 0.f;
         }
@@ -281,9 +202,8 @@ composite_bucket_kernel(const float* __restrict__ cov,
       const float pxl = static_cast<float>(p - ro * tile_w) + 0.5f;
       // paints are pixel-space: output rows sit at oy/ss (oy counts sub-rows)
       const float pyc = oy * inv_ss + (static_cast<float>(ro) + 0.5f);
-      shade_blend<kGrad, kTri, kTex>(pp, nbp, pk, use_ct, ctp, p, npx_out,
-                                     pxl + ox, pyc, c_sum[k] * inv_ss, fr[k],
-                                     fg[k], fbl[k], fa[k]);
+      shade_blend(kGrad, kTri, kTex, pp, nbp, pk, use_ct, ctp, 1, p, npx_out,
+                  pxl + ox, pyc, c_sum[k] * inv_ss, fr[k], fg[k], fbl[k], fa[k]);
     }
   }
 
@@ -318,7 +238,7 @@ composite_final_kernel(const float* __restrict__ cov,
 
   for (int slot = 0; slot < mo; ++slot) {
     const float* pp = params + static_cast<size_t>(slot) * npp * nbp + t;
-    auto P = [&](int row) { return __ldg(pp + static_cast<size_t>(row) * nbp); };
+    auto P = [&](int row) { return param(pp, nbp, row); };
     const float valid = P(P_VALID), pk = P(P_PK);
     const float ox = P(P_OX), oy = P(P_OY);
     const bool use_ct =
@@ -343,9 +263,8 @@ composite_final_kernel(const float* __restrict__ cov,
       }
       c = valid > 0.f ? c : 0.f;
       const float pyc = oy * inv_ss + (static_cast<float>(ro) + 0.5f);
-      shade_blend<kGrad, kTri, kTex>(pp, nbp, pk, use_ct, ctp, p, npx_out,
-                                     pxl + ox, pyc, c, fr[k], fg[k], fbl[k],
-                                     fa[k]);
+      shade_blend(kGrad, kTri, kTex, pp, nbp, pk, use_ct, ctp, 1, p, npx_out,
+                  pxl + ox, pyc, c, fr[k], fg[k], fbl[k], fa[k]);
     }
   }
 

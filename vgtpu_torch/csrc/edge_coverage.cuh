@@ -1,8 +1,9 @@
-// The per-edge arithmetic of K1 (csrc/coverage.cu) and K3
-// (csrc/coverage_resolve.cu): one place, so the two kernels accumulate the
-// same winding with the same roundings.  See coverage.cu for the G-form and
-// why the two a*b+c sites are explicit __fmaf_rn (the library is built with
-// -fmad=false).
+// The per-edge arithmetic of K1 (csrc/coverage.cu), K3
+// (csrc/coverage_resolve.cu), K4 (csrc/coverage_t.cu), K5
+// (csrc/coverage_t_flat.cu) and K6 (csrc/coverage_slots.cu): one place, so
+// the kernels accumulate the same winding with the same roundings.  See
+// coverage.cu for the G-form and why the two a*b+c sites are explicit
+// __fmaf_rn (the library is built with -fmad=false).
 #pragma once
 
 namespace vg {

@@ -11,7 +11,10 @@ layer the tiles start from, instead of the broadcast background) and (c)
 k_rep variant blocks that share one block of coverage rows (raster/
 batch.py).  On a CUDA tensor `composite_bucket` launches kernel K2
 (csrc/composite.cu, via ops/composite_cuda.py); on a CPU tensor it runs the
-plain torch twin.  Any other device raises.
+plain torch twin.  `composite_bucket_flat`, the counterpart of vgtpu's flat
+kernel over caller-gathered winding, launches kernel K7
+(csrc/composite_flat.cu, via ops/composite_flat_cuda.py) on CUDA and the
+same twin on the CPU.  Any other device raises.
 
 composite_tiles_body / composite_bucketed_body are the plain torch twins
 of vgtpu's XLA oracle composite, which its sharded paths run; they are no
@@ -141,18 +144,22 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
                            *, tile_w: int, flags: tuple, ss: int = 1,
                            cov_final: bool = False,
                            rbd_t: torch.Tensor | None = None,
-                           k_rep: int = 1) -> torch.Tensor:
+                           k_rep: int = 1,
+                           add_backdrop: bool = True) -> torch.Tensor:
     """One bucket's painter scan -> fb_t (4*NPX_OUT, k_rep*Nb),
-    channel-major: the plain twin of vgtpu's composite_bucket_pallas with the
-    rows kernel, and of kernel K2.  Expressions follow _kernel_rows per
-    pixel, in its order.
+    channel-major: the plain twin of vgtpu's composite_bucket_pallas and of
+    kernels K2 and, at ss=1, K7.  Expressions follow _kernel_rows per pixel,
+    in its order; vgtpu's flat kernel (_kernel) gives the same fb_t bit for
+    bit (tests/test_torch_composite.py), so the twin stands for both.
 
-    Form (a)/(d), cov_final=False (add_backdrop=True): ew_t (MO, NPX, Nb) is
-    raw SUB-row winding (NPX = TH*TW, TH = ss * output rows).  Backdrop,
-    fill rule, AA, texture force, scissor and clip work per sub-row; the
-    masked coverage of each group of ss sub-rows is summed in order and
-    multiplied by 1/ss; shading and blending run once per output pixel.
-    At ss=1 this is form (a).
+    Form (a)/(d), cov_final=False: ew_t (MO, NPX, Nb) is raw SUB-row winding
+    (NPX = TH*TW, TH = ss * output rows); add_backdrop adds the entry's
+    per-sub-row backdrop rows (params rows _P_BD..), as the fused frame
+    does; without it ew_t already holds entry winding with the backdrop
+    (vgtpu's composite_bucketed_pallas_body).  Fill rule, AA, texture force,
+    scissor and clip work per sub-row; the masked coverage of each group of
+    ss sub-rows is summed in order and multiplied by 1/ss; shading and
+    blending run once per output pixel.  At ss=1 this is form (a).
 
     Form (e), cov_final=True: ew_t (MO, NPX_OUT, Nb) is FINAL output-domain
     coverage (ops/coverage_resolve.py); chunkless slots add their resolved
@@ -227,7 +234,9 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
             c_out = torch.where(valid > 0, c_out, 0.0)
         else:
             # per-sub-pixel backdrop row: sub-pixel p sits on sub-row p // tile_w
-            w = ew_t[j] + pp[_P_BD : _P_BD + th].repeat_interleave(tile_w, dim=0)
+            w = ew_t[j]
+            if add_backdrop:
+                w = w + pp[_P_BD : _P_BD + th].repeat_interleave(tile_w, dim=0)
             cov = torch.clamp_max(torch.abs(w), 1.0)
             if has_eo:
                 cov_eo = 1.0 - torch.abs(torch.remainder(w, 2.0) - 1.0)
@@ -318,6 +327,38 @@ def composite_bucket_torch(ew_t: torch.Tensor, params_t: torch.Tensor,
         fb_ = src_b * c_out + fb_ * one_minus_a
         fa = a + fa * one_minus_a
     return torch.cat([t.expand(npx_out, nb) for t in (fr, fg, fb_, fa)], dim=0)
+
+
+def composite_bucket_flat(ew_t: torch.Tensor, params_t: torch.Tensor,
+                          ct_t: torch.Tensor | None, bg_vec: torch.Tensor, *,
+                          tile_w: int, flags: tuple, add_backdrop: bool = False,
+                          k_rep: int = 1) -> torch.Tensor:
+    """One bucket's painter scan over the flat (NPX, Nb) block -> fb_t
+    (4*NPX, k_rep*Nb) channel-major: the counterpart of vgtpu's
+    composite_bucket_pallas(variant="flat"), which has neither sub-rows nor
+    final coverage, so ss is 1.  Kernel K7 on CUDA, the plain twin
+    composite_bucket_torch on the CPU; any other device raises.
+
+    ew_t (MO, NPX, Nb) winding, gathered by the caller; params_t (MO, NPP,
+    k_rep*Nb); ct_t (MO, 4*NPX, k_rep*Nb) or None without the texture lane;
+    bg_vec (4*NPX, 1) the background column or (4*NPX, k_rep*Nb) a per-tile
+    init plane.  k_rep > 1 variant blocks share ew_t's one block and, as in
+    vgtpu, need Nb % 128 == 0."""
+    nb = ew_t.shape[2]
+    if k_rep > 1 and nb % 128:
+        raise ValueError(f"k_rep>1 requires 128-multiple lanes, got {nb}")
+    dev = ew_t.device
+    if dev.type == "cuda":
+        from vgtpu_torch.ops.composite_flat_cuda import composite_bucket_flat_cuda
+
+        return composite_bucket_flat_cuda(ew_t, params_t, ct_t, bg_vec,
+                                          tile_w=tile_w, flags=tuple(flags),
+                                          add_backdrop=add_backdrop, k_rep=k_rep)
+    if dev.type == "cpu":
+        return composite_bucket_torch(ew_t, params_t, ct_t, bg_vec,
+                                      tile_w=tile_w, flags=tuple(flags),
+                                      add_backdrop=add_backdrop, k_rep=k_rep)
+    raise ValueError(f"composite_bucket_flat: unsupported device {dev}")
 
 
 def composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile, ids,

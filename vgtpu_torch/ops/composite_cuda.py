@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from vgtpu_torch.ops.composite import _P_BD
-from vgtpu_torch.utils.cuda_build import CudaKernel, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, stream_ptr
 
 MAX_THREADS = 256   # the kernel's launch bound: TH_OUT*TW/4 output pixels
 
@@ -33,17 +33,6 @@ K2 = CudaKernel("composite", {"vg_composite_bucket": [
     _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
 ]})
 FORM_LAUNCHES = dict.fromkeys("abcde", 0)
-
-
-def _check(name, t, dtype, shape, dev):
-    if t.device != dev:
-        raise ValueError(f"composite_bucket_cuda: {name} on {t.device}, "
-                         f"framebuffer on {dev}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"composite_bucket_cuda: {name} must be {dtype} "
-                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"composite_bucket_cuda: {name} must be contiguous")
 
 
 def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
@@ -59,6 +48,7 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
     (c)): pteb holds one variant block of NbP1 rows and params, ctile and
     ids k_rep * NbP1 (not with rbd).  background: the 4 premultiplied RGBA
     floats (host values, no sync)."""
+    who = "composite_bucket_cuda"
     dev = fb.device
     if not fb.is_cuda:
         raise ValueError(f"composite_bucket_cuda: framebuffer on {dev}")
@@ -80,16 +70,16 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
     if k_rep < 1 or (k_rep > 1 and rbd is not None):
         raise ValueError(f"composite_bucket_cuda: k_rep={k_rep}; k_rep > 1 "
                          f"takes raw sub-row coverage (no rbd)")
-    _check("fb", fb, torch.float32, (nt1, th_out, tw, 4), dev)
-    _check("pteb", pteb, torch.int32, (nbp1, mo), dev)
-    _check("params", params, torch.float32, (mo, npp, nbp), dev)
-    _check("ids", ids, torch.int32, (nbp,), dev)
+    check_tensor(who, "fb", fb, torch.float32, (nt1, th_out, tw, 4), dev)
+    check_tensor(who, "pteb", pteb, torch.int32, (nbp1, mo), dev)
+    check_tensor(who, "params", params, torch.float32, (mo, npp, nbp), dev)
+    check_tensor(who, "ids", ids, torch.int32, (nbp,), dev)
     rbd_ptr, rbr = None, 0
     if rbd is None:
         if npp < _P_BD + th:
             raise ValueError(f"composite_bucket_cuda: params rows {npp} < "
                              f"{_P_BD + th} ({th} sub-rows)")
-        _check("cov", cov, torch.float32, (cov.shape[0], th * tw), dev)
+        check_tensor(who, "cov", cov, torch.float32, (cov.shape[0], th * tw), dev)
     else:
         if flags[3]:
             raise ValueError("composite_bucket_cuda: final coverage (rbd) "
@@ -97,14 +87,14 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
         rbr = rbd.shape[1]
         if rbr < th_out:
             raise ValueError(f"composite_bucket_cuda: rbd rows {rbr} < {th_out}")
-        _check("cov", cov, torch.float32, (cov.shape[0], npx_out), dev)
-        _check("rbd", rbd, torch.float32, (mo, rbr, nbp), dev)
+        check_tensor(who, "cov", cov, torch.float32, (cov.shape[0], npx_out), dev)
+        check_tensor(who, "rbd", rbd, torch.float32, (mo, rbr, nbp), dev)
         rbd_ptr = rbd.data_ptr()
     ct_ptr = ctile_ptr = None
     if flags[2]:
-        _check("ct_flat", ct_flat, torch.float32,
+        check_tensor(who, "ct_flat", ct_flat, torch.float32,
                (ct_flat.shape[0], 4 * npx_out), dev)
-        _check("ctile", ctile, torch.int32, (nbp, mo), dev)
+        check_tensor(who, "ctile", ctile, torch.int32, (nbp, mo), dev)
         ct_ptr, ctile_ptr = ct_flat.data_ptr(), ctile.data_ptr()
     bits = sum(1 << i for i, on in enumerate(flags) if on)
     bg = [float(v) for v in background]

@@ -9,9 +9,13 @@ Input layout (from vgtpu_torch.raster.binning):
   chunk_edges: (NC, CHUNK, 4) f32 — edge segments, tile-origin-relative
 
 On a CUDA tensor `cov_all` launches kernel K1 (csrc/coverage.cu, via
-ops/coverage_cuda.py) and `coverage_chunks_t` kernel K4 (csrc/coverage_t.cu,
-via ops/coverage_t_cuda.py); on a CPU tensor they run the plain torch twins
-`cov_all_torch` and `coverage_chunks_t_torch`.  Any other device raises.
+ops/coverage_cuda.py), `coverage_chunks` kernel K6 (csrc/coverage_slots.cu,
+via ops/coverage_slots_cuda.py) and `coverage_chunks_t` kernel K4
+(csrc/coverage_t.cu, via ops/coverage_t_cuda.py) or, with variant="flat",
+K5 (csrc/coverage_t_flat.cu, via ops/coverage_t_flat_cuda.py); on a CPU
+tensor they run the plain torch twins `cov_all_torch`,
+`coverage_chunks_torch` and `coverage_chunks_t_torch`.  Any other device
+raises.
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ def _edge_contribution(px, py, x0, y0, x1, y1):
 def coverage_chunks_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
                           tile_w: int = 128) -> torch.Tensor:
     """(NC, CH, 4) edges -> (NC, TH, TW) summed winding contributions: the
-    plain twin of vgtpu's coverage_chunks_body and of kernel K1.  Edges are
-    summed in slot order, as the scan does."""
+    plain twin of vgtpu's coverage_chunks_body and of kernels K1 and K6.
+    Edges are summed in slot order, as the scan does."""
     nc, ch, _ = chunk_edges.shape
     dev = chunk_edges.device
     px = torch.arange(tile_w, dtype=torch.float32, device=dev).expand(tile_h, tile_w)
@@ -80,10 +84,11 @@ def coverage_chunks_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
 def coverage_chunks_t_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
                             tile_w: int = 128) -> torch.Tensor:
     """(NC, CH, 4) edges -> (TH*TW, NC) pixel-major coverage: the plain twin
-    of kernel K4 and of vgtpu's coverage_chunks_pallas_t_raw (_kernel_t2).
-    The same arithmetic as coverage_chunks_torch, in edge order: the TPU
-    kernel's (g0 - g1) * b_gen + a_vert * c0 always has one exact-zero term,
-    so it equals the select form of _edge_contribution bit for bit."""
+    of kernels K4 and K5 and of vgtpu's coverage_chunks_pallas_t_raw
+    (_kernel_t2 and _kernel_t).  The same arithmetic as
+    coverage_chunks_torch, in edge order: _kernel_t2's
+    (g0 - g1) * b_gen + a_vert * c0 always has one exact-zero term, so it
+    equals the select form of _edge_contribution bit for bit."""
     nc, ch, _ = chunk_edges.shape
     dev = chunk_edges.device
     flat = torch.arange(tile_h * tile_w, device=dev)
@@ -96,12 +101,40 @@ def coverage_chunks_t_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
     return acc
 
 
-def coverage_chunks_t(chunk_edges: torch.Tensor, tile_h: int,
-                      tile_w: int) -> torch.Tensor:
-    """(TH*TW, NC) pixel-major chunk coverage: kernel K4 on CUDA, the plain
-    twin on the CPU."""
+def coverage_chunks(chunk_edges: torch.Tensor, tile_h: int = 8,
+                    tile_w: int = 128) -> torch.Tensor:
+    """(NC, TH, TW) chunk coverage: the counterpart of vgtpu's
+    coverage_chunks_pallas, kernel K6 on CUDA, the plain twin on the CPU.
+    Both sum the edges in slot order."""
     dev = chunk_edges.device
     if dev.type == "cuda":
+        from vgtpu_torch.ops.coverage_slots_cuda import coverage_chunks_slots_cuda
+
+        return coverage_chunks_slots_cuda(chunk_edges, tile_h, tile_w)
+    if dev.type == "cpu":
+        return coverage_chunks_torch(chunk_edges, tile_h, tile_w)
+    raise ValueError(f"coverage_chunks: unsupported device {dev}")
+
+
+def coverage_chunks_t(chunk_edges: torch.Tensor, tile_h: int, tile_w: int,
+                      variant: str = "row", unroll: int = 0) -> torch.Tensor:
+    """(TH*TW, NC) pixel-major chunk coverage: the counterpart of vgtpu's
+    coverage_chunks_pallas_t_raw.  On CUDA variant "row" launches kernel K4
+    (the TPU kernel _kernel_t2) and "flat" kernel K5 (_kernel_t); on the
+    CPU both take the plain twin.  Every route sums the edges in edge order:
+    `unroll` is accepted for vgtpu's signature, and its grouping of edges
+    (a reassociation of the TPU kernel's sum) is ignored, as K1 and K4
+    ignore it."""
+    if variant not in ("row", "flat"):
+        raise ValueError(f"coverage_chunks_t: unknown variant {variant!r}")
+    dev = chunk_edges.device
+    if dev.type == "cuda":
+        if variant == "flat":
+            from vgtpu_torch.ops.coverage_t_flat_cuda import (
+                coverage_chunks_t_flat_cuda,
+            )
+
+            return coverage_chunks_t_flat_cuda(chunk_edges, tile_h, tile_w)
         from vgtpu_torch.ops.coverage_t_cuda import coverage_chunks_t_cuda
 
         return coverage_chunks_t_cuda(chunk_edges, tile_h, tile_w)

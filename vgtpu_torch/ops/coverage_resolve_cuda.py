@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from vgtpu_torch.ops.coverage_resolve import rp_rows
-from vgtpu_torch.utils.cuda_build import CudaKernel, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, stream_ptr
 
 MAX_CH = 32    # edges per chunk the kernel's shared staging holds
 MAX_TH = 64    # sub-rows per tile the kernel's shared rparams hold
@@ -25,16 +25,6 @@ K3 = CudaKernel("coverage_resolve", {
     "vg_coverage_chunks_res": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     "vg_resolve_rows": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
 })
-
-
-def _check(fn, name, t, dtype, shape, dev):
-    if t.device != dev:
-        raise ValueError(f"{fn}: {name} on {t.device}, expected {dev}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{fn}: {name} must be {dtype} {tuple(shape)}, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def _check_tile(fn, tile_h, ss):
@@ -56,9 +46,9 @@ def coverage_chunks_res_cuda(edges: torch.Tensor, rparams: torch.Tensor,
     nc, ch = int(edges.shape[0]), int(edges.shape[1])
     if not 1 <= ch <= MAX_CH:
         raise ValueError(f"{fn}: CH={ch} outside 1..{MAX_CH}")
-    _check(fn, "edges", edges, torch.float32, (nc, ch, 4), dev)
-    _check(fn, "rparams", rparams, torch.float32, (rp_rows(tile_h), nc), dev)
-    _check(fn, "out", out, torch.float32, (nc, (tile_h // ss) * tile_w), dev)
+    check_tensor(fn, "edges", edges, torch.float32, (nc, ch, 4), dev)
+    check_tensor(fn, "rparams", rparams, torch.float32, (rp_rows(tile_h), nc), dev)
+    check_tensor(fn, "out", out, torch.float32, (nc, (tile_h // ss) * tile_w), dev)
     with torch.cuda.device(dev):
         K3.launch("vg_coverage_chunks_res", _vp(edges.data_ptr()),
                   _vp(rparams.data_ptr()), _vp(out.data_ptr()), nc, ch,
@@ -78,11 +68,11 @@ def resolve_rows_cuda(cov_sub: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"{fn}: cov_sub on {dev}")
     _check_tile(fn, tile_h, ss)
     n = int(ids.shape[0])
-    _check(fn, "cov_sub", cov_sub, torch.float32,
+    check_tensor(fn, "cov_sub", cov_sub, torch.float32,
            (cov_sub.shape[0], tile_h * tile_w), dev)
-    _check(fn, "ids", ids, torch.int32, (n,), dev)
-    _check(fn, "rparams", rparams, torch.float32, (rp_rows(tile_h), n), dev)
-    _check(fn, "out", out, torch.float32, (n, (tile_h // ss) * tile_w), dev)
+    check_tensor(fn, "ids", ids, torch.int32, (n,), dev)
+    check_tensor(fn, "rparams", rparams, torch.float32, (rp_rows(tile_h), n), dev)
+    check_tensor(fn, "out", out, torch.float32, (n, (tile_h // ss) * tile_w), dev)
     with torch.cuda.device(dev):
         K3.launch("vg_resolve_rows", _vp(cov_sub.data_ptr()),
                   _vp(ids.data_ptr()), _vp(rparams.data_ptr()),

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, stream_ptr
 
 MAX_CH = 32    # edges per chunk the kernel's shared staging holds
 
@@ -27,17 +27,7 @@ def coverage_chunks_t_cuda(chunk_edges: torch.Tensor, tile_h: int,
     """(NC, CH, 4) edges -> (TH*TW, NC) pixel-major coverage: one K4 launch
     on the edges' own device and its current stream."""
     ce = chunk_edges
-    if not ce.is_cuda:
-        raise ValueError(f"coverage_chunks_t_cuda: edges on {ce.device}, "
-                         f"not a CUDA device")
-    if ce.dtype != torch.float32 or ce.dim() != 3 or ce.shape[2] != 4:
-        raise ValueError(f"coverage_chunks_t_cuda: edges must be (NC, CH, 4) "
-                         f"float32, got {tuple(ce.shape)} {ce.dtype}")
-    if not ce.is_contiguous():
-        raise ValueError("coverage_chunks_t_cuda: edges must be contiguous")
-    nc, ch = int(ce.shape[0]), int(ce.shape[1])
-    if not 1 <= ch <= MAX_CH:
-        raise ValueError(f"coverage_chunks_t_cuda: CH={ch} outside 1..{MAX_CH}")
+    nc, ch = check_chunk_edges("coverage_chunks_t_cuda", ce, MAX_CH)
     npx = tile_h * tile_w
     dev = ce.device
     out = torch.empty((npx, nc), dtype=torch.float32, device=dev)

@@ -27,6 +27,7 @@ from vgtpu_torch.ops.composite import (
     build_bucket_aux,
     build_bucket_pteb,
     composite_bucket,
+    composite_bucket_flat,
     composite_bucket_into_torch,
     frame_fb,
     tiles_to_image,
@@ -35,6 +36,8 @@ from vgtpu_torch.ops.coverage import (
     build_cov_gather_map,
     cov_all_resolved,
     cov_all_resolved_torch,
+    coverage_chunks,
+    coverage_chunks_t,
 )
 from vgtpu_torch.ops.coverage_resolve import (
     cov_split_resolved,
@@ -304,6 +307,47 @@ def execute_plan_tiles(plan: FramePlan, background=(1.0, 1.0, 1.0, 1.0),
     as init_tiles."""
     d = _arrays(plan, device_arrays, device, "execute_plan_tiles")
     return _render(plan, d, background, plain=False, tiles=True)
+
+
+def execute_plan_flat(plan: FramePlan, device_arrays: dict, chunk_entry,
+                      background=(1.0, 1.0, 1.0, 1.0),
+                      coverage: str = "K5") -> torch.Tensor:
+    """An ss=1 plan rendered through the entry points of kernels K5 or K6
+    and K7, a second route to execute_plan's image: per pool chunk coverage
+    through coverage_chunks_t(variant="flat") (K5) or coverage_chunks (K6),
+    the chunk -> entry index_add_, + backdrop -> entry_w (NE, NPX); per
+    bucket ew_t = entry_w gathered by the bucket's entry table, then
+    composite_bucket_flat (K7, add_backdrop=False); the tiles scattered into
+    the framebuffer, then tiles_to_image.  device_arrays: plan_to_device's;
+    chunk_entry: each pool's chunk -> entry ids on the same device."""
+    if plan.supersample != 1 or coverage not in ("K5", "K6"):
+        raise ValueError(f"execute_plan_flat: ss={plan.supersample}, "
+                         f"coverage={coverage!r} (ss=1, 'K5' or 'K6')")
+    d = device_arrays
+    th, tw = plan.tile_h, plan.tile_w
+    npx, nt = th * tw, plan.ntx * plan.nty
+    dev = d["ct_flat"].device
+    bd = torch.as_tensor(plan.entry_backdrop, device=dev)
+    entry_w = torch.zeros((bd.shape[0], npx), dtype=torch.float32, device=dev)
+    for ce, cent in zip(d["chunk_edges"], chunk_entry, strict=True):
+        if coverage == "K5":
+            cov = coverage_chunks_t(ce, th, tw, variant="flat").t()
+        else:
+            cov = coverage_chunks(ce, th, tw).reshape(-1, npx)
+        entry_w.index_add_(0, cent, cov)
+    entry_w += bd.repeat_interleave(tw, dim=1)
+    bg = torch.tensor(background, dtype=torch.float32, device=dev)
+    fb = bg.expand(nt + 1, th, tw, 4).clone()
+    bg_vec = bg.repeat_interleave(npx)[:, None]
+    for te, ids, pp, ctile, flags in zip(d["bucket_te"], d["bucket_ids"],
+                                         d["bucket_params"], d["bucket_ctile"],
+                                         d["bucket_flags"]):
+        ew_t = entry_w[te].permute(1, 2, 0).contiguous()
+        ct_t = d["ct_flat"][ctile].permute(1, 2, 0).contiguous() if flags[2] else None
+        fb_t = composite_bucket_flat(ew_t, pp, ct_t, bg_vec, tile_w=tw, flags=flags)
+        fb[ids] = fb_t.reshape(4, th, tw, -1).permute(3, 1, 2, 0)
+    return tiles_to_image(fb[:nt], ntx=plan.ntx, nty=plan.nty, tile_h=th,
+                          tile_w=tw, width=plan.width, height=plan.height)
 
 
 def image_to_u8(img) -> np.ndarray:

@@ -10,7 +10,8 @@ A CudaKernel wraps a file's entry points (most files export one).  Every
 entry point returns cudaGetLastError() after its launch; a non-zero code
 raises here.  The kernel's `launches` counter is incremented only by the
 wrappers that launch it (ops/*_cuda.py), so a run can show its main path
-went through the kernel.
+went through the kernel.  check_tensor and check_chunk_edges are the
+wrappers' shared argument checks.
 """
 
 from __future__ import annotations
@@ -117,3 +118,37 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_tensor(who: str, name: str, t, dtype, shape, dev) -> None:
+    """Raise ValueError unless t is a contiguous `dtype` tensor of `shape`
+    on `dev` (who: the calling wrapper, name: the argument)."""
+    if t is None:
+        raise ValueError(f"{who}: {name} missing")
+    if t.device != dev:
+        raise ValueError(f"{who}: {name} on {t.device}, expected {dev}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} must be {dtype} "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def check_chunk_edges(who: str, ce, max_ch: int | None = None) -> tuple[int, int]:
+    """(NC, CH) of the chunk edges a coverage kernel (K4, K5, K6) takes:
+    (NC, CH, 4) float32 on a CUDA device, contiguous and 16-byte aligned
+    (K5 and K6 load each edge as one float4), 1 <= CH <= max_ch; raises
+    ValueError otherwise."""
+    import torch
+
+    if not ce.is_cuda:
+        raise ValueError(f"{who}: edges on {ce.device}, not a CUDA device")
+    if ce.dtype != torch.float32 or ce.dim() != 3 or ce.shape[2] != 4:
+        raise ValueError(f"{who}: edges must be (NC, CH, 4) float32, got "
+                         f"{tuple(ce.shape)} {ce.dtype}")
+    if not ce.is_contiguous() or ce.data_ptr() % 16:
+        raise ValueError(f"{who}: edges must be contiguous and 16-byte aligned")
+    nc, ch = int(ce.shape[0]), int(ce.shape[1])
+    if ch < 1 or (max_ch is not None and ch > max_ch):
+        raise ValueError(f"{who}: CH={ch} outside 1..{max_ch}")
+    return nc, ch
