@@ -47,6 +47,10 @@ Phases (any failure raises and the process exits non-zero):
      bucket's entry table, from a random init plane, and k_rep=3 (on every
      bucket: the kernel takes any Nb, the entry point as vgtpu only
      Nb % 128 == 0); every lane must be covered.
+  4e. Tile shapes beyond 8x128 (runs after 5b): the small scene through
+     end() at ContextConfig(tile_w=256) and (tile_h=16), each at ss = 1, 2
+     and 8 (up to 128 sub-rows per tile), through K1, K3 and K2 with their
+     launch counts > 0, 0 u8 levels from the plain twins on the same plan.
   5. The main path: createContext(device="cuda"), begin 1920x1080,
      scenes.demo_ui.draw_benchmark_frame, end().  Both kernels' launch
      counts must be > 0; the image must match the same plan through the
@@ -93,7 +97,15 @@ Phases (any failure raises and the process exits non-zero):
      events, median of 12, from resident shards), K4 beside its twin and
      its device time in the n = 1 sharded frame, render_sharded per
      variant; K5, K6, K7 and K8 beside their twins (K8 also beside
-     torch.add(1, x, alpha=2)), the [5c] frames beside the steady frame.
+     torch.add(1, x, alpha=2)), the [5c] frames beside the steady frame;
+     the launch route (utils/launch_route.py): host us per call of K8's
+     wrapper and of torch.add over 2,000 back-to-back calls and of each
+     step of the route (launch_route.ROUTE_STEPS), the steady ss=1
+     frame's host ms from call to return, and torch.profiler's CPU trace
+     of 5 steady frames
+     (ss=1, ss=2 and the layer frame), which must hold no host-side wait
+     (a stream or device synchronise, a synchronous cudaMemcpy, a scalar
+     read back).
      Phase 6 runs after phases 7 and 8, whose contexts it times.
   9. Cold start (vgtpu_torch.utils.cold_probe): torch's context and first
      cuBLAS call, K8's load and first launch, and the first 1080p frame,
@@ -102,7 +114,8 @@ Phases (any failure raises and the process exits non-zero):
 
 The last two lines are the kernels' JSON record (K1, K2's forms (a)-(e),
 K3-K8: launches on the main paths, error against the twin, times, and the
-bound from this run's shapes) and the contract line
+bound from this run's shapes; K2's pipeline depth and shared bytes) and
+the contract line
 {"ok": true, "device": {...}}.  Imports neither jax nor vgtpu.
 """
 
@@ -336,6 +349,40 @@ def device_breakdown(run, frames: int = 10, zero=None):
     return by, calls, busy, window
 
 
+# runtime calls on which the host waits for the card
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+              "aten::_local_scalar_dense", "aten::item")
+
+
+def host_waits(run, frames: int = 5) -> dict:
+    """torch.profiler's CPU trace of `frames` calls of run() (warmed up,
+    no synchronise inside the window): the host-side waits it holds
+    (HOST_WAITS: a stream, device or event synchronise, a synchronous
+    cudaMemcpy, a scalar read back) before the last kernel launch, and the
+    count of every CUDA runtime call by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            run()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    launches = [e.time_range.end for e in ev if "Launch" in e.name]
+    last = max(launches) if launches else float("inf")
+    waits, runtime = {}, {}
+    for e in ev:
+        if e.name.startswith("cu"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+        if e.name in HOST_WAITS and e.time_range.start < last:
+            waits[e.name] = waits.get(e.name, 0) + 1
+    torch.cuda.synchronize()
+    return {"waits": waits, "runtime": runtime, "launch_events": len(launches)}
+
+
 def ptxas_summary(log: str) -> str:
     """Registers per thread and spill stores over a library's kernels."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -425,7 +472,7 @@ def main() -> int:
         draw_resolve_scene,
         draw_small_scene,
     )
-    from vgtpu_torch.utils import cold_probe
+    from vgtpu_torch.utils import cold_probe, launch_route
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -923,8 +970,8 @@ def main() -> int:
     if u8_2 > U8_BOUND:
         raise AssertionError(f"ss=2 main-path frame is {u8_2} u8 levels from the "
                              f"plain path")
-    # the same code at ss=4 and 8 (K2's clip state then needs 32 and 64 KB
-    # of shared memory per block)
+    # the same code at ss=4 and 8 (K2's coverage ring and clip state then
+    # take 37-123 KB of shared memory per block: composite_cuda.k2_geometry)
     for ss in (2, 4, 8):
         imgs = []
         for device in ("cuda", "cpu"):
@@ -961,6 +1008,44 @@ def main() -> int:
               f"reference (bound {U8_BOUND}), max|diff| {diff:.3e}")
         if worst > U8_BOUND:
             raise AssertionError(f"{name}: an image is {worst} u8 levels off")
+
+    # ---- 4e. tile shapes beyond 8x128 ------------------------------------
+    # the small scene through end() at tile_w=256 and at tile_h=16, ss = 1,
+    # 2, 8 (up to 128 sub-rows: K2's pixel groups, K3's launch-sized rparams
+    # staging), held to the plain twins on the same plan, 0 u8 levels
+    for cfg in ({"tile_w": 256}, {"tile_h": 16}):
+        for ss in (1, 2, 8):
+            name = f"tile {cfg} ss={ss}"
+            c4 = vg.createContext(vg.ContextConfig(coverage_supersample=ss, **cfg),
+                                  device="cuda")
+            zero_counts()
+            vg.begin(c4, 0, WIDTH, HEIGHT, 1.0)
+            draw_small_scene(c4)
+            img4 = vg.end(c4)
+            counts = read_counts()
+            paths[name] = counts
+            need = ("K1", "K2") + (("K3", "K2 (e)") if ss > 1 else ("K2 (a)",))
+            missing = [k for k in need if counts[k] <= 0]
+            p4 = c4.last_plan
+            geo = composite_cuda.k2_geometry(p4.tile_h // ss, p4.tile_w, ss,
+                                             clip=True, tex=True)
+            print(f"[4e] {name}: plan tiles {p4.tile_h}x{p4.tile_w} (sub-rows x "
+                  f"width), {len(c4.last_device_arrays['bucket_flags'])} buckets; "
+                  f"K2 {geo['threads']} threads x {geo['groups']} pixel groups per "
+                  f"tile, <= {geo['smem_bytes']} shared bytes; launches {counts}")
+            if missing:
+                raise AssertionError(f"[4e] {name} launched no {missing}: {counts}")
+            ref4 = execute_plan_torch(p4, c4.background,
+                                      device_arrays=c4.last_device_arrays)
+            if tuple(img4.shape) != (HEIGHT, WIDTH, 4) or not bool(
+                    torch.isfinite(img4).all()):
+                raise AssertionError(f"[4e] {name}: {tuple(img4.shape)} image or "
+                                     f"non-finite pixels")
+            lv = u8_levels(img4, ref4)
+            print(f"[4e] {name}: vs the plain twins on the card: max|diff| "
+                  f"{float((img4 - ref4).abs().max()):.3e}, {lv} u8 levels (bound 0)")
+            if lv:
+                raise AssertionError(f"[4e] {name}: {lv} u8 levels from the twins")
 
     # ---- 5c. the 1080p frame through K5 or K6 and K7 ----------------------
     # chunk coverage per pool (K5 pixel-major, or K6 chunk-major), the
@@ -1435,6 +1520,42 @@ def main() -> int:
         for key, v in sorted(by.items(), key=lambda kv: -kv[1])[:8]:
             print(f"[6]    {key:48s} {v:.4f} ms/call")
 
+    # the launch route: host us per call of K8's wrapper and of torch.add,
+    # and of each step of the route (utils/launch_route.py); the steady
+    # ss=1 frame's host ms from call to return; and its CPU trace, which must
+    # hold no host-side wait
+    route = launch_route.measure(x8)
+    print(f"[6] launch route: probe_affine_cuda {route['wrapper']:.3f} us/call, "
+          f"torch.add {route['torch_add']:.3f} us/call "
+          f"({route['wrapper_over_torch_add']:.3f}x; host clock, mean of "
+          f"{route['calls']} back-to-back calls, median of {route['repeats']}; "
+          f"{card})")
+    print(f"[6] launch route steps (host us/call): " + json.dumps(
+        {k: round(v, 4) for k, v in route.items() if isinstance(v, float)}))
+    host_ret = []
+    for _ in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        execute_plan(pl, BG, device_arrays=dv)
+        host_ret.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    ms["frame_host_return"] = statistics.median(host_ret[5:])
+    print(f"[6] steady ss=1 frame: {ms['frame_host_return']:.3f} ms host from call "
+          f"to return, before the synchronise (median of 20; {card})")
+    for tag, run in (("ss=1", lambda: execute_plan(pl, BG, device_arrays=dv)),
+                     ("ss=2", lambda: execute_plan(pl2, BG, device_arrays=dv2)),
+                     ("layer", lambda: execute_plan(pb, BG_APP, device_arrays=db,
+                                                    init_tiles=tiles_b))):
+        waits = host_waits(run)
+        print(f"[6] steady {tag} frame, CPU trace of 5 frames: host-side waits "
+              f"{waits['waits']}, runtime calls {waits['runtime']}")
+        if waits["waits"]:
+            raise AssertionError(f"[6] the steady {tag} frame waits on the host: "
+                                 f"{waits}")
+    if ms["K8"] > 1.1 * ms["K8_library"]:
+        print(f"[6] note: K8 {ms['K8']:.4f} ms is over 1.1x torch.add's "
+              f"{ms['K8_library']:.4f} ms (CUDA events)")
+
     # ---- 9. cold start ----------------------------------------------------
     # each phase a fresh process with jax blocked; phase 2's builds left the
     # kernel cache warm, as the TPU probe ran with its compile cache warm
@@ -1551,23 +1672,39 @@ def main() -> int:
     k2src = "vgtpu_torch/csrc/composite.cu"
     k2rep = "vgtpu/ops/composite_pallas.py:181"
     k2 = ("K2 (a)/(d)",)
+
+    def k2_shared(flags_list, ss, final=False, clip_only=None):
+        """K2's pipeline depth, threads and the dynamic shared bytes of each
+        launch of a form over the buckets with these lane flags (clip_only:
+        only the clip (True) or non-clip (False) buckets)."""
+        geos = [composite_cuda.k2_geometry(8, 128, ss, final=final, clip=bool(f[3]),
+                                           tex=bool(f[2]))
+                for f in flags_list if clip_only is None or bool(f[3]) == clip_only]
+        return {"stages": composite_cuda.STAGES,
+                "threads": sorted({g["threads"] for g in geos}),
+                "smem_bytes": sorted({g["smem_bytes"] for g in geos})}
+
     records = [
         entry("K1 chunk coverage", "K1", "vgtpu_torch/csrc/coverage.cu",
               "vgtpu/ops/coverage_pallas.py:254", k1_err, ms["K1"], ms["K1_plain"],
               "ss1", ("K1",), ms_ss2=ms["K1_ss2"], plain_ms_ss2=ms["K1_ss2_plain"],
               device_ms_ss2=dev_per_call("ss2", "K1", ("K1",))[0]),
         entry("K2 (a) painter composite, ss=1", "K2 (a)", k2src, k2rep,
-              k2_form_err["a"], ms["K2"], ms["K2_plain"], "ss1", k2),
+              k2_form_err["a"], ms["K2"], ms["K2_plain"], "ss1", k2,
+              **k2_shared(dv["bucket_flags"], 1)),
         entry("K2 (b) per-tile init planes (layer memo)", "K2 (b)", k2src,
               f"{k2rep} (form :577)", k2_form_err["b"], ms["K2b_layer"],
-              ms["K2b_layer_plain"], "layer", k2),
+              ms["K2b_layer_plain"], "layer", k2, **k2_shared(db["bucket_flags"], 1)),
         entry("K2 (c) k_rep variant blocks (VariantBatch)", "K2 (c)", k2src,
               f"{k2rep} (form :550)", k2_form_err["c"], ms["K2c_batch"],
-              ms["K2c_batch_plain"], "batch", k2),
+              ms["K2c_batch_plain"], "batch", k2,
+              **k2_shared(vb._d["bucket_flags"], 1)),
         entry("K2 (d) sub-row coverage, ss>1", "K2 (d)", k2src, k2rep,
-              k2_form_err["d"], ms["K2d_ss2"], ms["K2d_ss2_plain"], "ss2", k2),
+              k2_form_err["d"], ms["K2d_ss2"], ms["K2d_ss2_plain"], "ss2", k2,
+              **k2_shared(dv2["bucket_flags"], 2, clip_only=True)),
         entry("K2 (e) final coverage + rbd, ss>1", "K2 (e)", k2src, k2rep,
-              k2_form_err["e"], ms["K2e_ss2"], ms["K2e_ss2_plain"], "ss2", ("K2 (e)",)),
+              k2_form_err["e"], ms["K2e_ss2"], ms["K2e_ss2_plain"], "ss2", ("K2 (e)",),
+              **k2_shared(dv2["bucket_flags"], 2, final=True, clip_only=False)),
         entry("K3 resolved chunk coverage", "K3", "vgtpu_torch/csrc/coverage_resolve.cu",
               "vgtpu/ops/coverage_resolve.py:204", k3_err, ms["K3_ss2"],
               ms["K3_ss2_plain"], "ss2", ("K3", "K3 rows")),

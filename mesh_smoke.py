@@ -8,9 +8,13 @@ chip_smoke.py drives the same paths (its phase 8) on whatever the machine
 has, repeating cuda:0 on a one-card machine, where no shard's tensors or
 launches leave that card.  This script needs several cards and makes each
 mesh with make_mesh(n), one shard per card, so every shard's uploads, kernel
-launches (K1, K2, K4 under torch.cuda.device of its card) and the copy of
-its framebuffer to cuda:0 cross cards.  For n = 1, 2, 4 (as far as the cards
-go), with the launch counts zeroed before each run and read after:
+launches and the copy of its framebuffer to cuda:0 cross cards.  K1, K2 and
+K4 take their card's index at the entry point, which switches the calling
+thread's device for the launch and restores it (csrc/common.cuh::
+DeviceScope), on that card's current stream: a launch that landed on another
+card would fail on the stream, and the thread's device must still be cuda:0
+after every path.  For n = 1, 2, 4 (as far as the cards go), with the launch
+counts zeroed before each run and read after:
 
   - render_frame_sharded (K4 + the oracle composite) against the 1080p
     tiger + demo-UI frame's end() image on cuda:0;
@@ -19,7 +23,8 @@ go), with the launch counts zeroed before each run and read after:
   - VariantBatch.render_sharded of bench.py's K=6 overlay variants against
     each variant's full-path render;
 
-every image within 1 u8 level, each shard's tensors on its own card; then
+every image within 1 u8 level, each shard's tensors on its own card, the
+thread's current device cuda:0; then
 each path's time per n (CUDA events on cuda:0, where the shards' images
 land; median of 12, of 5 for render_sharded) beside the same shards
 repeated on cuda:0, and the copy of one frame's framebuffer from each other
@@ -116,6 +121,9 @@ def main() -> int:
         print(f"[8] {name}: launches {got}")
         if any(got[k] <= 0 for k in need):
             raise AssertionError(f"{name} launched no {need}: {got}")
+        if torch.cuda.current_device() != 0:
+            raise AssertionError(f"{name} left the thread on cuda:"
+                                 f"{torch.cuda.current_device()}")
         if sf is not None:
             for s, dev in zip(sf.shards, sf.mesh.devices):
                 placed = {t.device for t in tensors(s)}

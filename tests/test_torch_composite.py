@@ -147,6 +147,67 @@ def test_k2_wrapper_refuses_cpu_tensors():
     assert K2.launches == before
 
 
+@pytest.mark.parametrize("ss", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile_h", [8, 16, 24, 32])
+@pytest.mark.parametrize("tile_w", [128, 256])
+def test_k2_geometry_admits_every_tile_shape(tile_w, tile_h, ss):
+    """K2's launch geometry for every tile shape vgtpu admits (tile_w 128 or
+    256, tile_h a multiple of 8, ss 1/2/4/8), every form and lane set that
+    sizes its shared memory, and buckets of 1 to 256 slots (the depth cap):
+    admitted, within the 227 KB a block may use, the pixel groups covering
+    the tile exactly once, the slot windows covering every slot."""
+    from vgtpu_torch.ops.composite_cuda import (
+        PIX, SMEM_LIMIT, STAGES, WINDOW, k2_geometry)
+
+    npx_out = tile_h * tile_w
+    for final, clip, tex in [(False, False, False), (False, True, False),
+                             (False, False, True), (False, True, True),
+                             (True, False, False), (True, False, True)]:
+        for mo in (1, 31, 64, 65, 256):
+            g = k2_geometry(tile_h, tile_w, ss, mo=mo, final=final, clip=clip,
+                            tex=tex)
+            assert g["smem_bytes"] <= SMEM_LIMIT == 232_448
+            group = g["threads"] * PIX
+            assert g["threads"] in (128, 256) and group % tile_w in (0, group)
+            assert (g["groups"] - 1) * group < npx_out <= g["groups"] * group
+            assert g["group_rows"] == min(tile_h, max(1, group // tile_w))
+            assert (g["windows"] - 1) * WINDOW < mo <= g["windows"] * WINDOW
+            # the ring and clip pieces are the larger part: ss per thread
+            # and stage (one in form (e)), 4 colour planes, 2*ss clip
+            chunks = 1 if final else ss
+            ring = 16 * g["threads"] * STAGES * (chunks + 4 * tex)
+            assert ring + 16 * g["threads"] * 2 * ss * clip < g["smem_bytes"]
+
+
+def test_k2_geometry_refusals():
+    """Shapes K2 cannot take raise ValueError naming the limit."""
+    from vgtpu_torch.ops.composite_cuda import k2_geometry
+
+    # the 1080p frame's ss=1 buckets without texture: csrc/composite.cu's note
+    assert k2_geometry(8, 128, 1)["smem_bytes"] == 22_800
+    with pytest.raises(ValueError, match="multiple of 4"):
+        k2_geometry(8, 130, 1)
+    with pytest.raises(ValueError, match="clip lane"):
+        k2_geometry(8, 128, 2, final=True, clip=True)
+    with pytest.raises(ValueError, match="over the card's 232448"):
+        k2_geometry(8, 128, 64, clip=True, tex=True)
+
+
+def test_background_tensor_is_uploaded_once():
+    """frame_fb's background lives on the device once per (device,
+    background): the same tensor for the same floats, a new one for new
+    floats, and a bounded cache."""
+    from vgtpu_torch.ops import composite
+
+    a = composite.background_tensor((0.1, 0.2, 0.3, 1.0), "cpu")
+    assert a is composite.background_tensor([0.1, 0.2, 0.3, 1], torch.device("cpu"))
+    assert torch.equal(a, torch.tensor((0.1, 0.2, 0.3, 1.0)))
+    for k in range(2 * composite._BACKGROUNDS_MAX):
+        composite.background_tensor((k, 0, 0, 1), "cpu")
+    assert len(composite._BACKGROUNDS) <= composite._BACKGROUNDS_MAX
+    assert composite.background_tensor((0.1, 0.2, 0.3, 1.0), "cpu") is not a
+
+
 _SS_FIELDS = {}
 
 

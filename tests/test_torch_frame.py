@@ -227,13 +227,15 @@ def _clip_everything(ctx, vg, font_data):
     vg.resetClip(ctx)
 
 
-def _end_both(draw, ss, w=256, h=128):
+def _end_both(draw, ss, w=256, h=128, **cfg):
+    """The scene through vgtpu's end() and the port's on the CPU, both
+    with ContextConfig(coverage_supersample=ss, **cfg)."""
     ctx_j = vgj.createContext(vgj.ContextConfig(device_sampling=False,
-                                                coverage_supersample=ss))
+                                                coverage_supersample=ss, **cfg))
     vgj.begin(ctx_j, 0, w, h, 1.0)
     draw(ctx_j, vgj, FONT_DATA)
     ref = np.asarray(vgj.end(ctx_j, background=BG))
-    ctx = vgt.createContext(vgt.ContextConfig(coverage_supersample=ss),
+    ctx = vgt.createContext(vgt.ContextConfig(coverage_supersample=ss, **cfg),
                             device="cpu")
     vgt.begin(ctx, 0, w, h, 1.0)
     draw(ctx, vgt, FONT_DATA)
@@ -272,6 +274,29 @@ def test_end_supersampled_ss8():
     """ss=8: 64 sub-rows per tile, within K3's and K2's limits."""
     ctx = _end_both(_ss_scene, 8, w=128, h=64)
     assert ctx.last_plan.tile_h == 64
+
+
+@pytest.mark.parametrize("cfg,ss,w,h", [
+    ({"tile_w": 256}, 1, 256, 128),
+    ({"tile_w": 256}, 2, 256, 128),
+    ({"tile_h": 16}, 1, 256, 128),
+    ({"tile_h": 16}, 2, 256, 128),
+    ({"tile_h": 16}, 8, 128, 64),
+], ids=["tile_w256-ss1", "tile_w256-ss2", "tile_h16-ss1", "tile_h16-ss2",
+        "tile_h16-ss8"])
+def test_end_matches_vgtpu_tile_shapes(cfg, ss, w, h):
+    """Tile shapes beyond 8x128 that vgtpu admits: 256-wide tiles, and
+    16-row tiles up to 128 sub-rows at ss=8.  The port's kernels take them
+    on the card (K2 loops over pixel groups, K3 sizes its rparams staging
+    at launch: ops/composite_cuda.k2_geometry, ops/coverage_resolve_cuda.
+    k3_geometry); here the twins of the same path are held to vgtpu."""
+    ctx = _end_both(_ss_scene, ss, w=w, h=h, **cfg)
+    plan = ctx.last_plan
+    assert plan.tile_w == cfg.get("tile_w", 128)
+    assert plan.tile_h == cfg.get("tile_h", 8) * ss
+    d = ctx.last_device_arrays
+    assert (d["res"] is not None) == (ss > 1)
+    assert d["bucket_flags"]
 
 
 def _rounded_rect(ctx, vg, _font_data):

@@ -49,6 +49,86 @@ def test_k8_wrapper_refuses_cpu_tensors_and_other_devices():
         cold_probe.probe_affine(torch.zeros(cold_probe.SHAPE, device="meta"))
 
 
+def _wrapper_calls():
+    """The nine CUDA wrapper entry points: (kernel, call on tensors x)."""
+    from vgtpu_torch.ops import (
+        composite_cuda,
+        composite_flat_cuda,
+        coverage_cuda,
+        coverage_resolve_cuda,
+        coverage_slots_cuda,
+        coverage_t_cuda,
+        coverage_t_flat_cuda,
+        probe_cuda,
+    )
+
+    flags = (False,) * 7
+    return {
+        "K1 cov_all_cuda": (coverage_cuda.K1, lambda x: coverage_cuda.cov_all_cuda(
+            [x], 8, 128)),
+        "K2 composite_bucket_cuda": (composite_cuda.K2, lambda x: (
+            composite_cuda.composite_bucket_cuda(x, x, x, x, x, None, x, (1, 1, 1, 1),
+                                                 tile_w=128, flags=flags))),
+        "K3 coverage_chunks_res_cuda": (coverage_resolve_cuda.K3, lambda x: (
+            coverage_resolve_cuda.coverage_chunks_res_cuda(x, x, x, 16, 128, 2))),
+        "K3 resolve_rows_cuda": (coverage_resolve_cuda.K3, lambda x: (
+            coverage_resolve_cuda.resolve_rows_cuda(x, x, x, x, 16, 128, 2))),
+        "K4 coverage_chunks_t_cuda": (coverage_t_cuda.K4, lambda x: (
+            coverage_t_cuda.coverage_chunks_t_cuda(x, 8, 128))),
+        "K5 coverage_chunks_t_flat_cuda": (coverage_t_flat_cuda.K5, lambda x: (
+            coverage_t_flat_cuda.coverage_chunks_t_flat_cuda(x, 8, 128))),
+        "K6 coverage_chunks_slots_cuda": (coverage_slots_cuda.K6, lambda x: (
+            coverage_slots_cuda.coverage_chunks_slots_cuda(x, 8, 128))),
+        "K7 composite_bucket_flat_cuda": (composite_flat_cuda.K7, lambda x: (
+            composite_flat_cuda.composite_bucket_flat_cuda(x, x, None, x, tile_w=128,
+                                                           flags=flags))),
+        "K8 probe_affine_cuda": (probe_cuda.K8, probe_cuda.probe_affine_cuda),
+    }
+
+
+_WRAPPERS = ["K1 cov_all_cuda", "K2 composite_bucket_cuda",
+             "K3 coverage_chunks_res_cuda", "K3 resolve_rows_cuda",
+             "K4 coverage_chunks_t_cuda", "K5 coverage_chunks_t_flat_cuda",
+             "K6 coverage_chunks_slots_cuda", "K7 composite_bucket_flat_cuda",
+             "K8 probe_affine_cuda"]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("wrapper", _WRAPPERS)
+def test_cuda_wrappers_refuse_tensors_off_the_card(wrapper, device):
+    """Every CUDA wrapper refuses a tensor that is not on a CUDA device (the
+    CPU, or another device type) before any build or launch: no wrapper
+    falls back to its plain twin."""
+    calls = _wrapper_calls()
+    assert sorted(calls) == sorted(_WRAPPERS)
+    kernel, call = calls[wrapper]
+    x = torch.zeros((4, 2, 4), device=device)
+    before = kernel.launches
+    with pytest.raises(ValueError, match=f"on {device}|{device}, not a CUDA|got {device}"):
+        call(x)
+    assert kernel.launches == before and kernel._fns is None
+
+
+def test_check_tensor_names_each_refusal():
+    """The wrappers' shared check: the fast path accepts, and each refusal
+    (missing, another device, dtype or shape, layout, alignment) names
+    itself."""
+    from vgtpu_torch.utils.cuda_build import check_tensor
+
+    t = torch.zeros((2, 8))
+    check_tensor("w", "t", t, torch.float32, (2, 8), -1)        # the CPU's index
+    check_tensor("w", "t", t, torch.float32, torch.Size((2, 8)), -1, 16)
+    for args, msg in [((None, torch.float32, (2, 8), -1), "t missing"),
+                      ((t, torch.float32, (2, 8), 0), "on cpu, expected cuda:0"),
+                      ((t, torch.int32, (2, 8), -1), "must be torch.int32"),
+                      ((t, torch.float32, (8, 2), -1), r"\(8, 2\), got"),
+                      ((t.t(), torch.float32, (8, 2), -1), "contiguous")]:
+        with pytest.raises(ValueError, match=msg):
+            check_tensor("w", "t", *args)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_tensor("w", "t", t.view(-1)[1:], torch.float32, (15,), -1, 16)
+
+
 @pytest.mark.parametrize("name", sorted(cold_probe.PHASES))
 def test_cold_probe_phase_programs_compile(name):
     code = cold_probe.phase_code(name)

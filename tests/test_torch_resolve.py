@@ -176,3 +176,31 @@ def test_k3_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="cov_sub on cpu"):
         resolve_rows_cuda(x, x, x, x, 16, 128, 2)
     assert K3.launches == before
+
+
+@pytest.mark.parametrize("ss", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile_h", [8, 16, 24, 32])
+def test_k3_geometry_admits_every_tile_height(tile_h, ss):
+    """K3 sizes its per-chunk rparams staging from the tile's sub-rows:
+    every tile height vgtpu admits at every ss is admitted, within the
+    227 KB a block may use, staging at least RP_BD + TH floats per chunk,
+    statically up to 64 sub-rows and in dynamic shared memory above."""
+    from vgtpu_torch.ops.coverage_resolve import RP_BD
+    from vgtpu_torch.ops.coverage_resolve_cuda import SMEM_LIMIT, k3_geometry
+
+    th = tile_h * ss                      # sub-rows
+    g = k3_geometry(th, ss)
+    assert g["staged_rows"] == RP_BD + max(th, 64)
+    staging = 4 * g["chunks_per_block"] * g["staged_rows"]
+    assert g["smem_bytes"] == (0 if th <= 64 else staging)
+    assert staging < g["shared_bytes"] <= SMEM_LIMIT == 232_448
+    with pytest.raises(ValueError, match="need ss"):
+        k3_geometry(th + 1, ss) if ss > 1 else k3_geometry(0, 1)
+
+
+def test_k3_geometry_refuses_what_the_card_cannot_hold():
+    from vgtpu_torch.ops.coverage_resolve_cuda import k3_geometry
+
+    assert k3_geometry(14_000, 8)["shared_bytes"] <= 232_448
+    with pytest.raises(ValueError, match="over the card's 232448"):
+        k3_geometry(16_000, 8)

@@ -8,3 +8,56 @@
 extern "C" const char* vg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+namespace vg {
+
+// Every entry point takes the device of its tensors and launches under this
+// scope: it makes that device current only when the calling thread's current
+// device is another (a multi-GPU caller launching on a second card) and
+// restores the caller's device when the entry point returns.  The common
+// case costs one cudaGetDevice, a thread-local read; the Python wrappers
+// enter no torch.cuda.device context of their own.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    if (cudaGetDevice(&prev_) == cudaSuccess && prev_ != device) {
+      switched_ = cudaSetDevice(device) == cudaSuccess;
+    }
+  }
+  ~DeviceScope() {
+    if (switched_) cudaSetDevice(prev_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+
+ private:
+  int prev_ = -1;
+  bool switched_ = false;
+};
+
+// A launch that needs more than the default 48 KB of dynamic shared memory
+// first raises `kernel`'s limit to all the current device offers a block
+// (227 KB on an H100, less the kernel's static shared memory).  `done` is a
+// per-kernel bit mask of the devices already raised, so the attribute is set
+// once per kernel and device, not per launch.
+template <class Kernel>
+inline void allow_dynamic_smem(Kernel kernel, unsigned* done) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return;
+  const unsigned bit = 1u << (dev & 31);
+  if (*done & bit) return;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) {
+    return;
+  }
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin - static_cast<int>(fa.sharedSizeBytes)) ==
+      cudaSuccess) {
+    *done |= bit;
+  }
+}
+
+}  // namespace vg

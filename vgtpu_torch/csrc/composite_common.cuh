@@ -4,8 +4,11 @@
 // params column, the fill rule, the clip state machine, and the shading and
 // blending of one output pixel.  The lane switches (gradient, tri, texture,
 // even-odd, non-AA, scissor) are arguments: K2 passes its template bits,
-// which fold away in the inlined call, K7 its runtime flags.  Rounding: see
-// composite.cu (-fmad=false, the gradient's two explicit __fmaf_rn).
+// which fold away in the inlined call, K7 its runtime flags.  The params
+// column is an accessor: K7 reads it from device memory (GlobalColumn), K2
+// from the block's staged slot table in shared memory (SharedColumn); the
+// arithmetic is the same.  Rounding: see composite.cu (-fmad=false, the
+// gradient's two explicit __fmaf_rn).
 #pragma once
 
 namespace vg {
@@ -25,16 +28,31 @@ __device__ __forceinline__ float param(const float* pp, int nbp, int row) {
   return __ldg(pp + static_cast<size_t>(row) * nbp);
 }
 
+// A (slot, tile) params column in device memory, rows `stride` floats apart.
+struct GlobalColumn {
+  const float* p;
+  int stride;
+  __device__ __forceinline__ float operator()(int row) const {
+    return param(p, stride, row);
+  }
+};
+
+// A (slot, tile) params column staged in shared memory, rows adjacent.
+struct SharedColumn {
+  const float* p;
+  __device__ __forceinline__ float operator()(int row) const { return p[row]; }
+};
+
 // Winding w (backdrop included) -> rule-applied coverage of the sample at
 // tile-local centre (pxl, pyl): nonzero min(|w|,1), even-odd 1-|mod(w,2)-1|
 // (floored mod, as jnp.mod), non-AA >= 0.5, textured quads forced to 1, the
 // pixel-centre scissor.
+template <class Col>
 __device__ __forceinline__ float fill_coverage(bool eo, bool noaa, bool tex,
-                                               bool scissor, const float* pp,
-                                               int nbp, float w, float rule,
-                                               float aa, bool is_quad_tex,
-                                               float pxl, float pyl, float ox,
-                                               float oy) {
+                                               bool scissor, const Col& P,
+                                               float w, float rule, float aa,
+                                               bool is_quad_tex, float pxl,
+                                               float pyl, float ox, float oy) {
   float cv = fminf(fabsf(w), 1.f);
   if (eo) {
     const float md = w - 2.f * floorf(w * 0.5f);  // floored, as jnp.mod
@@ -44,10 +62,9 @@ __device__ __forceinline__ float fill_coverage(bool eo, bool noaa, bool tex,
   if (noaa) cv = aa != 0.f ? cv : (cv >= 0.5f ? 1.f : 0.f);
   if (tex) cv = is_quad_tex ? 1.f : cv;
   if (scissor) {
-    const bool inside_y = (pyl >= param(pp, nbp, P_SC + 1) - oy) &&
-                          (pyl < param(pp, nbp, P_SC + 3) - oy);
-    const bool inside = (pxl >= param(pp, nbp, P_SC) - ox) && inside_y &&
-                        (pxl < param(pp, nbp, P_SC + 2) - ox);
+    const bool inside_y = (pyl >= P(P_SC + 1) - oy) && (pyl < P(P_SC + 3) - oy);
+    const bool inside = (pxl >= P(P_SC) - ox) && inside_y &&
+                        (pxl < P(P_SC + 2) - ox);
     cv = cv * (inside ? 1.f : 0.f);
   }
   return cv;
@@ -71,16 +88,15 @@ __device__ __forceinline__ float clip_step(float cv, float rule, bool is_draw,
 }
 
 // Shade output pixel p at screen centre (pxc, pyc) and blend coverage c
-// over (fr, fg, fbl, fa).  pp is this (slot, tile)'s params column (rows
-// nbp apart); channel k of pixel p of its colour tile is ctp[(k*npx + p)*cs].
+// over (fr, fg, fbl, fa).  P is this (slot, tile)'s params column; channel k
+// of pixel p of its colour tile is ctp[(k*npx + p)*cs].
+template <class Col>
 __device__ __forceinline__ void shade_blend(bool grad, bool tri, bool tex,
-                                            const float* pp, int nbp,
-                                            float pk, bool use_ct,
-                                            const float* ctp, int cs, int p,
-                                            int npx, float pxc, float pyc,
-                                            float c, float& fr, float& fg,
-                                            float& fbl, float& fa) {
-  auto P = [&](int row) { return param(pp, nbp, row); };
+                                            const Col& P, float pk,
+                                            bool use_ct, const float* ctp,
+                                            int cs, int p, int npx, float pxc,
+                                            float pyc, float c, float& fr,
+                                            float& fg, float& fbl, float& fa) {
   const float inner_r = P(P_PAINT + 10), inner_g = P(P_PAINT + 11);
   const float inner_b = P(P_PAINT + 12), inner_a = P(P_PAINT + 13);
   float col_r = inner_r, col_g = inner_g, col_b = inner_b, col_a = inner_a;

@@ -80,8 +80,8 @@ composite_flat_kernel(const float* __restrict__ ew,
   }
 
   for (int slot = 0; slot < mo; ++slot) {
-    const float* pp = params + static_cast<size_t>(slot) * npp * nbo + t;
-    auto P = [&](int row) { return param(pp, nbo, row); };
+    const GlobalColumn P{params + static_cast<size_t>(slot) * npp * nbo + t,
+                         nbo};
     const float valid = P(P_VALID), kind = P(P_KIND), rule = P(P_RULE);
     const float aa = P(P_AA), pk = P(P_PK);
     const float ox = P(P_OX), oy = P(P_OY);
@@ -105,14 +105,14 @@ composite_flat_kernel(const float* __restrict__ ew,
       const float pyl = static_cast<float>(r) + 0.5f;
       float w = __ldg(ew_s + static_cast<size_t>(p) * nb);
       if (add_backdrop) w = w + P(P_BD + r);
-      const float cv = fill_coverage(eo, noaa, tex, scissor, pp, nbo, w, rule,
-                                     aa, is_quad_tex, pxl, pyl, ox, oy);
+      const float cv = fill_coverage(eo, noaa, tex, scissor, P, w, rule, aa,
+                                     is_quad_tex, pxl, pyl, ox, oy);
       const float c =
           clip ? clip_step(cv, rule, is_draw, is_cadd, is_ccommit, is_creset,
                            mask[k], accum[k])
                : (valid > 0.f ? cv : 0.f);
-      shade_blend(grad, tri, tex, pp, nbo, pk, use_ct, ctp, nbo, p, npx,
-                  pxl + ox, oy + pyl, c, fr[k], fg[k], fbl[k], fa[k]);
+      shade_blend(grad, tri, tex, P, pk, use_ct, ctp, nbo, p, npx, pxl + ox,
+                  oy + pyl, c, fr[k], fg[k], fbl[k], fa[k]);
     }
   }
 
@@ -133,19 +133,21 @@ composite_flat_kernel(const float* __restrict__ ew,
 // of nb (k_rep = nbo / nb variant blocks) and npp >= 32 + npx / tile_w when
 // add_backdrop; ct (mo, 4*npx, nbo), or null without the texture lane; bg
 // (4*npx, bg_cols) with bg_cols 1 (background column) or nbo (init plane);
-// out (4*npx, nbo); all f32 contiguous.  flags bit i = lane i of (gradient,
-// tri, texture, clip, even-odd, non-AA, scissor).  Launches on `stream`,
-// does not synchronise; returns cudaGetLastError().
+// out (4*npx, nbo); all f32 contiguous on `device`.  flags bit i = lane i
+// of (gradient, tri, texture, clip, even-odd, non-AA, scissor).  Launches on
+// `stream`, does not synchronise; returns cudaGetLastError().
 extern "C" int vg_composite_flat(const float* ew, const float* params,
                                  const float* ct, const float* bg, float* out,
                                  int nb, int nbo, int mo, int npp, int tile_w,
                                  int npx, int bg_cols, int flags,
-                                 int add_backdrop, cudaStream_t stream) {
+                                 int add_backdrop, int device,
+                                 cudaStream_t stream) {
   if (flags < 0 || flags >= 128 || nb < 1 || nbo % nb || tile_w < 1 ||
       npx % tile_w || (bg_cols != 1 && bg_cols != nbo) ||
       ((flags & 4) && ct == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const vg::DeviceScope scope(device);
   if (nbo > 0 && npx > 0) {
     const int per_block = kRows * kPix;
     const dim3 grid((nbo + kTiles - 1) / kTiles,

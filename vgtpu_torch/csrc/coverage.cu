@@ -78,11 +78,12 @@ coverage_chunks_kernel(const float* __restrict__ edges,
 }  // namespace
 
 // edges: (nc, ch, 4) f32 contiguous; out: (nc, npx) f32 rows (a row range of
-// the caller's (NC_total + 1, npx) cov_all).  Launches on `stream`, does not
-// synchronise; returns cudaGetLastError().
+// the caller's (NC_total + 1, npx) cov_all), both on `device`.  Launches on
+// `stream`, does not synchronise; returns cudaGetLastError().
 extern "C" int vg_coverage_chunks(const float* edges, float* out, int nc,
-                                  int ch, int tile_w, int npx,
+                                  int ch, int tile_w, int npx, int device,
                                   cudaStream_t stream) {
+  const vg::DeviceScope scope(device);
   if (nc > 0) {
     const int blocks = (nc + kChunksPerBlock - 1) / kChunksPerBlock;
     coverage_chunks_kernel<<<blocks, kThreads, 0, stream>>>(edges, out, nc,

@@ -30,9 +30,19 @@
 // axis of edge slots, then transposes; none of that survives.  One block per
 // group of kChunksPerBlock chunks stages each chunk's per-edge scalars and
 // its rparams column (RP_ROWS x NC, a strided column, read once per block)
-// in shared memory.  One thread owns an output pixel (column x of output row
-// ro): it accumulates the winding of its ss sub-pixels over the CH edges in
-// a register, one sub-row after the other, resolves each, sums them and
+// in shared memory.  Tiles of up to kStaticTh = 64 sub-rows (every tile at
+// tile_h 8, the default) stage the rparams in a static array with a
+// compile-time row stride; taller tiles (up to 256 sub-rows: tile_h 32 at
+// ss = 8) take an instantiation whose staging is dynamic shared memory
+// sized at launch, kChunksPerBlock * (RP_BD + TH) floats, so no tile
+// height vgtpu admits is refused (ops/coverage_resolve_cuda.k3_geometry
+// mirrors the sizing).  The static form keeps the source of the kernel as
+// it was before the dynamic one existed: builds that reached the staging
+// through one pointer for both forms compiled to a reordered body whose
+// 1080p ss=2 launches took ~5% more device time (NVIDIA H100 80GB HBM3,
+// 700 W).  One thread owns an output pixel (column x of output row ro):
+// it accumulates the winding of its ss sub-pixels over the CH edges in a
+// register, one sub-row after the other, resolves each, sums them and
 // stores one float — consecutive threads store consecutive pixels, so the
 // store coalesces.  No accumulator round-trips memory.
 //
@@ -51,7 +61,7 @@ constexpr int kMaxCh = 32;
 constexpr int kThreads = 256;
 // rparams rows (vgtpu/ops/coverage_resolve.py RP_*)
 constexpr int RP_EO = 0, RP_NOAA = 1, RP_TEXF = 2, RP_SC = 3, RP_BD = 8;
-constexpr int kMaxTh = 64;  // sub-rows per tile: 8 output rows at ss = 8
+constexpr int kStaticTh = 64;  // sub-rows the static rparams staging holds
 
 struct ResolveParams {
   float eo, noaa, texf, sx0, sy0, sx1, sy1;
@@ -72,12 +82,16 @@ __device__ __forceinline__ float resolve_sub(float w, const ResolveParams& r,
   return cov * (inside ? 1.f : 0.f);
 }
 
+// kRows > 0: each chunk's rparams column is staged in a static array of
+// kRows rows (tiles of up to kRows - RP_BD sub-rows); kRows == 0: in dynamic
+// shared memory of RP_BD + TH rows per chunk, sized at launch.
+template <int kRows>
 __global__ void __launch_bounds__(kThreads)
 coverage_res_kernel(const float* __restrict__ edges,
                     const float* __restrict__ rp, float* __restrict__ out,
                     int nc, int ch, int tile_w, int ss, int th_out) {
   __shared__ float sp[kChunksPerBlock][kMaxCh][vg::kEdgeScalars];
-  __shared__ float srp[kChunksPerBlock][RP_BD + kMaxTh];
+  __shared__ float srp[kChunksPerBlock][kRows > 0 ? kRows : 1];
   const int c0 = blockIdx.x * kChunksPerBlock;
   const int th = th_out * ss;
   const int nrp = RP_BD + th;
@@ -95,7 +109,14 @@ coverage_res_kernel(const float* __restrict__ edges,
     const int k = i / kChunksPerBlock;
     const int lc = i - k * kChunksPerBlock;
     const int c = c0 + lc;
-    if (c < nc) srp[lc][k] = rp[static_cast<size_t>(k) * nc + c];
+    if (c < nc) {
+      if constexpr (kRows > 0) {
+        srp[lc][k] = rp[static_cast<size_t>(k) * nc + c];
+      } else {
+        extern __shared__ float srp_dynamic[];
+        srp_dynamic[lc * nrp + k] = rp[static_cast<size_t>(k) * nc + c];
+      }
+    }
   }
   __syncthreads();
 
@@ -104,7 +125,13 @@ coverage_res_kernel(const float* __restrict__ edges,
   for (int lc = 0; lc < kChunksPerBlock; ++lc) {
     const int c = c0 + lc;
     if (c >= nc) break;
-    const float* q = srp[lc];
+    const float* q;
+    if constexpr (kRows > 0) {
+      q = srp[lc];
+    } else {
+      extern __shared__ float srp_dynamic[];
+      q = srp_dynamic + lc * nrp;
+    }
     const ResolveParams r{q[RP_EO],     q[RP_NOAA],   q[RP_TEXF],   q[RP_SC],
                           q[RP_SC + 1], q[RP_SC + 2], q[RP_SC + 3]};
     float* orow = out + static_cast<size_t>(c) * npx_out;
@@ -157,34 +184,52 @@ resolve_rows_kernel(const float* __restrict__ cov_sub,
 
 // edges: (nc, ch, 4) f32; rp: (RP_BD + th rows padded, nc) f32, row stride
 // nc; out: (nc, th_out*tile_w) f32 rows (a row range of the caller's
-// cov_final).  th = th_out*ss <= 64, ch <= 32 (checked by the Python
-// wrapper).  Launches on `stream`, does not synchronise; returns
-// cudaGetLastError().
+// cov_final); all on `device`.  ch <= 32 (checked by the Python wrapper,
+// which also computes smem_bytes, the launch's dynamic shared memory, with
+// k3_geometry: 0 up to kStaticTh sub-rows, else the staging's bytes; a
+// value other than this file's sizing is refused).  Launches on `stream`,
+// does not synchronise; returns cudaGetLastError().
 extern "C" int vg_coverage_chunks_res(const float* edges, const float* rp,
                                       float* out, int nc, int ch, int tile_w,
-                                      int ss, int th_out,
-                                      cudaStream_t stream) {
-  if (ch < 1 || ch > kMaxCh || ss < 1 || th_out * ss > kMaxTh) {
+                                      int ss, int th_out, int smem_bytes,
+                                      int device, cudaStream_t stream) {
+  const int th = th_out * ss;
+  const size_t smem = th <= kStaticTh ? 0 : sizeof(float) * kChunksPerBlock *
+                                                static_cast<size_t>(RP_BD + th);
+  if (ch < 1 || ch > kMaxCh || ss < 1 || th_out < 1 ||
+      smem != static_cast<size_t>(smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const vg::DeviceScope scope(device);
   if (nc > 0) {
     const int blocks = (nc + kChunksPerBlock - 1) / kChunksPerBlock;
-    coverage_res_kernel<<<blocks, kThreads, 0, stream>>>(
-        edges, rp, out, nc, ch, tile_w, ss, th_out);
+    if (th <= kStaticTh) {
+      coverage_res_kernel<RP_BD + kStaticTh><<<blocks, kThreads, 0, stream>>>(
+          edges, rp, out, nc, ch, tile_w, ss, th_out);
+    } else {
+      static unsigned raised = 0;
+      if (smem > 48 * 1024) {
+        vg::allow_dynamic_smem(coverage_res_kernel<0>, &raised);
+      }
+      coverage_res_kernel<0><<<blocks, kThreads, smem, stream>>>(
+          edges, rp, out, nc, ch, tile_w, ss, th_out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // cov_sub: (R, th_out*ss*tile_w) f32 folded sub-row coverage; ids: (n,) i32
 // rows of cov_sub; rp: (RP_ROWS, n) f32, row stride n; out: (n,
-// th_out*tile_w) f32 rows.  Launches on `stream`, does not synchronise;
-// returns cudaGetLastError().
+// th_out*tile_w) f32 rows; all on `device`.  Launches on `stream`, does not
+// synchronise; returns cudaGetLastError().
 extern "C" int vg_resolve_rows(const float* cov_sub, const int* ids,
                                const float* rp, float* out, int n, int tile_w,
-                               int ss, int th_out, cudaStream_t stream) {
-  if (ss < 1 || th_out * ss > kMaxTh) {
+                               int ss, int th_out, int device,
+                               cudaStream_t stream) {
+  if (ss < 1 || th_out < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const vg::DeviceScope scope(device);
   if (n > 0) {
     resolve_rows_kernel<<<n, kThreads, 0, stream>>>(cov_sub, ids, rp, out, n,
                                                     tile_w, ss, th_out);

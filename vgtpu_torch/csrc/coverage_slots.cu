@@ -60,16 +60,17 @@ coverage_slots_kernel(const float4* __restrict__ edges,
 }  // namespace
 
 // edges: (nc, ch, 4) f32 contiguous, 16-byte aligned; out: (nc, npx) f32
-// contiguous.  Launches on `stream`, does not synchronise; returns
-// cudaGetLastError().
+// contiguous; both on `device`.  Launches on `stream`, does not synchronise;
+// returns cudaGetLastError().
 extern "C" int vg_coverage_slots(const float* edges, float* out, int nc,
-                                 int ch, int tile_w, int npx,
+                                 int ch, int tile_w, int npx, int device,
                                  cudaStream_t stream) {
   const size_t total = static_cast<size_t>(nc) * npx;
   const size_t blocks = (total + kThreads - 1) / kThreads;
   if (nc < 0 || npx < 0 || blocks > 0x7fffffffu) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const vg::DeviceScope scope(device);
   if (blocks > 0) {
     coverage_slots_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
         reinterpret_cast<const float4*>(edges), out, nc, ch, tile_w, npx);

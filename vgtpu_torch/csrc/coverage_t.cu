@@ -88,11 +88,13 @@ coverage_chunks_t_kernel(const float* __restrict__ edges,
 
 }  // namespace
 
-// edges: (nc, ch, 4) f32 contiguous; out: (npx, nc) f32 contiguous.
-// Launches on `stream`, does not synchronise; returns cudaGetLastError().
+// edges: (nc, ch, 4) f32 contiguous; out: (npx, nc) f32 contiguous; both on
+// `device`.  Launches on `stream`, does not synchronise; returns
+// cudaGetLastError().
 extern "C" int vg_coverage_chunks_t(const float* edges, float* out, int nc,
-                                    int ch, int tile_w, int npx,
+                                    int ch, int tile_w, int npx, int device,
                                     cudaStream_t stream) {
+  const vg::DeviceScope scope(device);
   if (nc > 0 && npx > 0) {
     const int per_block = kRows * kPix;
     int ys = (npx + per_block - 1) / per_block;

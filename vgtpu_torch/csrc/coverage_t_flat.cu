@@ -62,11 +62,12 @@ coverage_t_flat_kernel(const float4* __restrict__ edges,
 }  // namespace
 
 // edges: (nc, ch, 4) f32 contiguous, 16-byte aligned; out: (npx, nc) f32
-// contiguous.  Launches on `stream`, does not synchronise; returns
-// cudaGetLastError().
+// contiguous; both on `device`.  Launches on `stream`, does not synchronise;
+// returns cudaGetLastError().
 extern "C" int vg_coverage_t_flat(const float* edges, float* out, int nc,
-                                  int ch, int tile_w, int npx,
+                                  int ch, int tile_w, int npx, int device,
                                   cudaStream_t stream) {
+  const vg::DeviceScope scope(device);
   if (nc > 0 && npx > 0) {
     int ys = (npx + kRows - 1) / kRows;
     if (ys > 65535) ys = 65535;

@@ -30,11 +30,12 @@ probe_affine_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 }  // namespace
 
-// x, out: n contiguous f32.  Launches on `stream`, does not synchronise;
-// returns cudaGetLastError().
-extern "C" int vg_probe_affine(const float* x, float* out, int n,
+// x, out: n contiguous f32 on `device`.  Launches on `stream`, does not
+// synchronise; returns cudaGetLastError().
+extern "C" int vg_probe_affine(const float* x, float* out, int n, int device,
                                cudaStream_t stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const vg::DeviceScope scope(device);
   if (n > 0) {
     probe_affine_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         x, out, n);

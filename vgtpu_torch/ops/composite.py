@@ -130,6 +130,28 @@ def build_bucket_pteb(te_b: np.ndarray, primary: np.ndarray,
                     dead_id).astype(np.int32)
 
 
+_BACKGROUNDS: dict = {}    # (device, background) -> (4,) float32 tensor
+_BACKGROUNDS_MAX = 16
+
+
+def background_tensor(background: tuple, device) -> torch.Tensor:
+    """The 4 background floats as a float32 tensor on `device`, uploaded
+    once per (device, background) and kept (at most _BACKGROUNDS_MAX, the
+    oldest dropped first).  A fresh torch.tensor(..., device=cuda) is a
+    pageable host-to-device copy, which torch completes with a
+    synchronisation of the current stream: uploaded per frame, it would make
+    the host wait for the frame's coverage launches to drain before it
+    could launch the first composite.  The tensor is only ever read."""
+    key = (torch.device(device), tuple(float(v) for v in background))
+    bg = _BACKGROUNDS.get(key)
+    if bg is None:
+        if len(_BACKGROUNDS) >= _BACKGROUNDS_MAX:
+            del _BACKGROUNDS[next(iter(_BACKGROUNDS))]
+        bg = torch.tensor(key[1], dtype=torch.float32, device=key[0])
+        _BACKGROUNDS[key] = bg
+    return bg
+
+
 def _pad_tiles(nb: int) -> int:
     """Bucket row padding (copied from vgtpu/ops/composite_pallas.py, where
     the TPU lane blocks need it): buckets over 128 tiles pad to the next
@@ -447,7 +469,7 @@ def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
     th_out = tile_h // ss
     fb = torch.empty((num_tiles + 1, th_out, tile_w, 4), dtype=torch.float32,
                      device=cov_all.device)
-    bg = torch.tensor(background, dtype=torch.float32, device=fb.device)
+    bg = background_tensor(background, fb.device)
     if init_tiles is None:
         fb.copy_(bg.expand(num_tiles + 1, th_out, tile_w, 4))
     else:

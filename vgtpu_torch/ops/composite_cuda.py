@@ -11,7 +11,8 @@ tensors here and nowhere else.
 
 K2.launches counts every launch; FORM_LAUNCHES counts them per form: each
 launch adds one to its coverage form (a, d or e) and one to b and c when it
-takes them.
+takes them.  k2_geometry is the kernel's launch geometry, a pure function
+of the tile shape and the bucket's lanes.
 """
 
 from __future__ import annotations
@@ -21,18 +22,56 @@ import ctypes
 import torch
 
 from vgtpu_torch.ops.composite import _P_BD
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, current_stream
 
-MAX_THREADS = 256   # the kernel's launch bound: TH_OUT*TW/4 output pixels
+SMEM_LIMIT = 232_448   # shared bytes a block may use on an H100 (227 KB)
+# csrc/composite.cu: output pixels per thread, coverage ring depth (slots in
+# flight), slots staged per window, params rows staged per slot
+PIX, STAGES, WINDOW, META = 4, 3, 64, 30
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 K2 = CudaKernel("composite", {"vg_composite_bucket": [
     _vp, _vp, _vp, _vp, _vp, _vp, _vp, _f, _f, _f, _f, _vp,
-    _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
+    _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
 ]})
 FORM_LAUNCHES = dict.fromkeys("abcde", 0)
+
+
+def k2_geometry(th_out: int, tile_w: int, ss: int, *, mo: int = 1,
+                final: bool = False, clip: bool = False, tex: bool = False) -> dict:
+    """K2's launch geometry for output tiles of th_out x tile_w at ss over
+    a bucket of mo slots, mirroring csrc/composite.cu::geometry(): threads
+    per block (256 at ss <= 2, else 128), each owning PIX consecutive output
+    pixels of a row; pixel groups (blocks) per tile; the output rows a group
+    spans; slot windows; the coverage ring's STAGES; and the dynamic shared
+    bytes: the ring (ss 16-byte pieces per thread and stage, one in form
+    (e)), the colour-tile ring (texture lane), the clip mask and
+    accumulator (2*ss pieces per thread, clip lane), the window's slot
+    tables.  final: form (e); clip, tex: the bucket's lanes.  Raises
+    ValueError for a shape K2 cannot take (tile_w not a multiple of PIX)
+    or the card cannot run (over SMEM_LIMIT)."""
+    if ss < 1 or th_out < 1 or mo < 0 or tile_w < PIX or tile_w % PIX:
+        raise ValueError(f"K2: {th_out}x{tile_w} output tiles at ss={ss}: "
+                         f"K2 takes ss >= 1 and tile_w a multiple of {PIX}")
+    if final and clip:
+        raise ValueError("K2: final coverage (form (e)) with the clip lane")
+    threads = 256 if ss <= 2 else 128
+    group = threads * PIX
+    span = group // tile_w + 2 if group % tile_w else group // tile_w
+    rows = min(th_out, span)
+    chunks = 1 if final else ss
+    smem = (16 * threads * (STAGES * chunks + (4 * STAGES if tex else 0)
+                            + (2 * ss if clip else 0))
+            + 4 * (WINDOW * (META + rows * chunks) + 3 * WINDOW + 4))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K2: {th_out}x{tile_w} output tiles at ss={ss} need "
+                         f"{smem} shared bytes per block, over the card's "
+                         f"{SMEM_LIMIT}")
+    return {"threads": threads, "pixels_per_thread": PIX,
+            "groups": -(-th_out * tile_w // group), "group_rows": rows,
+            "windows": -(-mo // WINDOW), "stages": STAGES, "smem_bytes": smem}
 
 
 def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
@@ -47,63 +86,60 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
     starts from its own fb row instead of the background.  k_rep > 1 (form
     (c)): pteb holds one variant block of NbP1 rows and params, ctile and
     ids k_rep * NbP1 (not with rbd).  background: the 4 premultiplied RGBA
-    floats (host values, no sync)."""
+    floats (host values, no sync).  fb, cov and ct_flat are 16-byte
+    aligned (the kernel moves them as float4)."""
     who = "composite_bucket_cuda"
-    dev = fb.device
     if not fb.is_cuda:
-        raise ValueError(f"composite_bucket_cuda: framebuffer on {dev}")
+        raise ValueError(f"composite_bucket_cuda: framebuffer on {fb.device}")
+    index = fb.get_device()
     nt1, th_out, tw, _c = fb.shape
     npx_out = th_out * tw
     th = th_out * ss                          # sub-rows
     if tw != tile_w:
         raise ValueError(f"composite_bucket_cuda: tile_w {tile_w} != fb {tw}")
-    if ss < 1 or npx_out % 4 or npx_out // 4 > MAX_THREADS:
-        raise ValueError(f"composite_bucket_cuda: {th_out}x{tw} output tiles "
-                         f"at ss={ss}: K2 takes ss >= 1 and at most "
-                         f"{4 * MAX_THREADS} output pixels per tile "
-                         f"(npx_out/4 <= {MAX_THREADS} threads)")
     if len(flags) != 7:
         raise ValueError(f"composite_bucket_cuda: 7 lane flags, got {flags}")
+    geo = k2_geometry(th_out, tw, ss, final=rbd is not None, clip=flags[3],
+                      tex=flags[2])
     nbp1, mo = pteb.shape
     nbp = nbp1 * k_rep
     npp = params.shape[1]
     if k_rep < 1 or (k_rep > 1 and rbd is not None):
         raise ValueError(f"composite_bucket_cuda: k_rep={k_rep}; k_rep > 1 "
                          f"takes raw sub-row coverage (no rbd)")
-    check_tensor(who, "fb", fb, torch.float32, (nt1, th_out, tw, 4), dev)
-    check_tensor(who, "pteb", pteb, torch.int32, (nbp1, mo), dev)
-    check_tensor(who, "params", params, torch.float32, (mo, npp, nbp), dev)
-    check_tensor(who, "ids", ids, torch.int32, (nbp,), dev)
+    check_tensor(who, "fb", fb, torch.float32, (nt1, th_out, tw, 4), index, 16)
+    check_tensor(who, "pteb", pteb, torch.int32, (nbp1, mo), index)
+    check_tensor(who, "params", params, torch.float32, (mo, npp, nbp), index)
+    check_tensor(who, "ids", ids, torch.int32, (nbp,), index)
     rbd_ptr, rbr = None, 0
     if rbd is None:
         if npp < _P_BD + th:
             raise ValueError(f"composite_bucket_cuda: params rows {npp} < "
                              f"{_P_BD + th} ({th} sub-rows)")
-        check_tensor(who, "cov", cov, torch.float32, (cov.shape[0], th * tw), dev)
+        check_tensor(who, "cov", cov, torch.float32, (cov.shape[0], th * tw),
+                     index, 16)
     else:
-        if flags[3]:
-            raise ValueError("composite_bucket_cuda: final coverage (rbd) "
-                             "with the clip lane")
         rbr = rbd.shape[1]
-        if rbr < th_out:
-            raise ValueError(f"composite_bucket_cuda: rbd rows {rbr} < {th_out}")
-        check_tensor(who, "cov", cov, torch.float32, (cov.shape[0], npx_out), dev)
-        check_tensor(who, "rbd", rbd, torch.float32, (mo, rbr, nbp), dev)
+        if rbr < th_out or npp < _P_BD:
+            raise ValueError(f"composite_bucket_cuda: rbd rows {rbr} < {th_out} "
+                             f"or params rows {npp} < {_P_BD}")
+        check_tensor(who, "cov", cov, torch.float32, (cov.shape[0], npx_out),
+                     index, 16)
+        check_tensor(who, "rbd", rbd, torch.float32, (mo, rbr, nbp), index)
         rbd_ptr = rbd.data_ptr()
     ct_ptr = ctile_ptr = None
     if flags[2]:
         check_tensor(who, "ct_flat", ct_flat, torch.float32,
-               (ct_flat.shape[0], 4 * npx_out), dev)
-        check_tensor(who, "ctile", ctile, torch.int32, (nbp, mo), dev)
+                     (ct_flat.shape[0], 4 * npx_out), index, 16)
+        check_tensor(who, "ctile", ctile, torch.int32, (nbp, mo), index)
         ct_ptr, ctile_ptr = ct_flat.data_ptr(), ctile.data_ptr()
     bits = sum(1 << i for i, on in enumerate(flags) if on)
-    bg = [float(v) for v in background]
-    with torch.cuda.device(dev):
-        K2.launch("vg_composite_bucket", _vp(cov.data_ptr()),
-                  _vp(pteb.data_ptr()), _vp(params.data_ptr()), _vp(ct_ptr),
-                  _vp(ctile_ptr), _vp(rbd_ptr), _vp(ids.data_ptr()), *bg,
-                  _vp(fb.data_ptr()), nbp, nbp1, mo, npp, rbr, tw, npx_out,
-                  ss, bits, int(bool(init)), nt1 - 1, stream_ptr(dev))
+    r, g, b, a = (float(v) for v in background)
+    K2.launch("vg_composite_bucket", cov.data_ptr(), pteb.data_ptr(),
+              params.data_ptr(), ct_ptr, ctile_ptr, rbd_ptr, ids.data_ptr(),
+              r, g, b, a, fb.data_ptr(), nbp, nbp1, mo, npp, rbr, tw, npx_out,
+              ss, bits, int(bool(init)), nt1 - 1, geo["smem_bytes"], index,
+              current_stream(index))
     FORM_LAUNCHES["e" if rbd is not None else "d" if ss > 1 else "a"] += 1
     if init:
         FORM_LAUNCHES["b"] += 1

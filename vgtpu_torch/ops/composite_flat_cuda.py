@@ -15,12 +15,12 @@ import ctypes
 import torch
 
 from vgtpu_torch.ops.composite import _P_BD
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, current_stream
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 K7 = CudaKernel("composite_flat", {"vg_composite_flat": [
-    _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
+    _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
 ]})
 
 
@@ -49,22 +49,22 @@ def composite_bucket_flat_cuda(ew_t, params_t, ct_t, bg_vec, *, tile_w: int,
         raise ValueError(f"composite_bucket_flat_cuda: {nb} tiles of {npx} "
                          f"pixels, tile_w {tile_w}, {npp} params rows")
     who = "composite_bucket_flat_cuda"
-    check_tensor(who, "ew_t", ew_t, torch.float32, (mo, npx, nb), dev)
-    check_tensor(who, "params_t", params_t, torch.float32, (mo, npp, nbo), dev)
+    index = ew_t.get_device()
+    check_tensor(who, "ew_t", ew_t, torch.float32, (mo, npx, nb), index)
+    check_tensor(who, "params_t", params_t, torch.float32, (mo, npp, nbo), index)
     bg_cols = bg_vec.shape[1] if bg_vec.dim() == 2 else 0
     if bg_cols not in (1, nbo):
         raise ValueError(f"composite_bucket_flat_cuda: bg_vec "
                          f"{tuple(bg_vec.shape)}, expected (4*NPX, 1 or {nbo})")
-    check_tensor(who, "bg_vec", bg_vec, torch.float32, (4 * npx, bg_cols), dev)
+    check_tensor(who, "bg_vec", bg_vec, torch.float32, (4 * npx, bg_cols), index)
     ct_ptr = None
     if flags[2]:
-        check_tensor(who, "ct_t", ct_t, torch.float32, (mo, 4 * npx, nbo), dev)
+        check_tensor(who, "ct_t", ct_t, torch.float32, (mo, 4 * npx, nbo), index)
         ct_ptr = ct_t.data_ptr()
     bits = sum(1 << i for i, on in enumerate(flags) if on)
     out = torch.empty((4 * npx, nbo), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        K7.launch("vg_composite_flat", _vp(ew_t.data_ptr()),
-                  _vp(params_t.data_ptr()), _vp(ct_ptr), _vp(bg_vec.data_ptr()),
-                  _vp(out.data_ptr()), nb, nbo, mo, npp, tile_w, npx, bg_cols,
-                  bits, int(bool(add_backdrop)), stream_ptr(dev))
+    K7.launch("vg_composite_flat", ew_t.data_ptr(), params_t.data_ptr(), ct_ptr,
+              bg_vec.data_ptr(), out.data_ptr(), nb, nbo, mo, npp, tile_w, npx,
+              bg_cols, bits, int(bool(add_backdrop)), index,
+              current_stream(index))
     return out

@@ -11,13 +11,13 @@ import ctypes
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 MAX_CH = 32    # edges per chunk the kernel's shared staging holds
 
 K1 = CudaKernel("coverage", {"vg_coverage_chunks": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
@@ -28,9 +28,10 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
     if not chunk_edges:
         raise ValueError("cov_all_cuda: no chunk pools")
     dev = chunk_edges[0].device
+    index = chunk_edges[0].get_device()
     npx = tile_h * tile_w
     for ce in chunk_edges:
-        if ce.device != dev or not ce.is_cuda:
+        if ce.get_device() != index or not ce.is_cuda:
             raise ValueError(f"cov_all_cuda: pools must share one CUDA device, "
                              f"got {ce.device} and {dev}")
         if ce.dtype != torch.float32 or ce.dim() != 3 or ce.shape[2] != 4:
@@ -44,14 +45,12 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
     out = torch.empty((total + 1, npx), dtype=torch.float32, device=dev)
     out[total].zero_()
     row = 0
-    with torch.cuda.device(dev):
-        stream = stream_ptr(dev)
-        for ce in chunk_edges:
-            nc, ch = int(ce.shape[0]), int(ce.shape[1])
-            if nc:
-                K1.launch("vg_coverage_chunks",
-                          ctypes.c_void_p(ce.data_ptr()),
-                          ctypes.c_void_p(out.data_ptr() + row * npx * 4),
-                          nc, ch, tile_w, npx, stream)
-            row += nc
+    stream = current_stream(index)
+    base = out.data_ptr()
+    for ce in chunk_edges:
+        nc, ch = int(ce.shape[0]), int(ce.shape[1])
+        if nc:
+            K1.launch("vg_coverage_chunks", ce.data_ptr(), base + row * npx * 4,
+                      nc, ch, tile_w, npx, index, stream)
+        row += nc
     return out

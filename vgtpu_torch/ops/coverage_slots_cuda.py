@@ -12,11 +12,11 @@ import ctypes
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, current_stream
 
 K6 = CudaKernel("coverage_slots", {"vg_coverage_slots": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
@@ -29,8 +29,7 @@ def coverage_chunks_slots_cuda(chunk_edges: torch.Tensor, tile_h: int,
     dev = ce.device
     out = torch.empty((nc, tile_h, tile_w), dtype=torch.float32, device=dev)
     if nc:
-        with torch.cuda.device(dev):
-            K6.launch("vg_coverage_slots", ctypes.c_void_p(ce.data_ptr()),
-                      ctypes.c_void_p(out.data_ptr()), nc, ch, tile_w,
-                      tile_h * tile_w, stream_ptr(dev))
+        index = ce.get_device()
+        K6.launch("vg_coverage_slots", ce.data_ptr(), out.data_ptr(), nc, ch,
+                  tile_w, tile_h * tile_w, index, current_stream(index))
     return out

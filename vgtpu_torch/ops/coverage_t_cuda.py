@@ -12,13 +12,13 @@ import ctypes
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, current_stream
 
 MAX_CH = 32    # edges per chunk the kernel's shared staging holds
 
 K4 = CudaKernel("coverage_t", {"vg_coverage_chunks_t": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
@@ -32,8 +32,7 @@ def coverage_chunks_t_cuda(chunk_edges: torch.Tensor, tile_h: int,
     dev = ce.device
     out = torch.empty((npx, nc), dtype=torch.float32, device=dev)
     if nc:
-        with torch.cuda.device(dev):
-            K4.launch("vg_coverage_chunks_t", ctypes.c_void_p(ce.data_ptr()),
-                      ctypes.c_void_p(out.data_ptr()), nc, ch, tile_w, npx,
-                      stream_ptr(dev))
+        index = ce.get_device()
+        K4.launch("vg_coverage_chunks_t", ce.data_ptr(), out.data_ptr(), nc,
+                  ch, tile_w, npx, index, current_stream(index))
     return out

@@ -13,11 +13,11 @@ import ctypes
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, current_stream
 
 K5 = CudaKernel("coverage_t_flat", {"vg_coverage_t_flat": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
@@ -31,8 +31,7 @@ def coverage_chunks_t_flat_cuda(chunk_edges: torch.Tensor, tile_h: int,
     dev = ce.device
     out = torch.empty((npx, nc), dtype=torch.float32, device=dev)
     if nc:
-        with torch.cuda.device(dev):
-            K5.launch("vg_coverage_t_flat", ctypes.c_void_p(ce.data_ptr()),
-                      ctypes.c_void_p(out.data_ptr()), nc, ch, tile_w, npx,
-                      stream_ptr(dev))
+        index = ce.get_device()
+        K5.launch("vg_coverage_t_flat", ce.data_ptr(), out.data_ptr(), nc, ch,
+                  tile_w, npx, index, current_stream(index))
     return out

@@ -12,10 +12,11 @@ import ctypes
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, stream_ptr
+from vgtpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 K8 = CudaKernel("probe", {"vg_probe_affine": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 ]})
 
 
@@ -24,12 +25,12 @@ def probe_affine_cuda(x: torch.Tensor) -> torch.Tensor:
     launch on its device's current stream."""
     if not x.is_cuda:
         raise ValueError(f"probe_affine_cuda: x on {x.device}, not a CUDA device")
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() >= 2**31:
+    n = x.numel()
+    if x.dtype != torch.float32 or not x.is_contiguous() or n >= 2**31:
         raise ValueError(f"probe_affine_cuda: x must be contiguous float32 with "
                          f"< 2**31 elements, got {x.dtype} {tuple(x.shape)}")
-    dev = x.device
+    index = x.get_device()
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        K8.launch("vg_probe_affine", ctypes.c_void_p(x.data_ptr()),
-                  ctypes.c_void_p(out.data_ptr()), x.numel(), stream_ptr(dev))
+    K8.launch("vg_probe_affine", x.data_ptr(), out.data_ptr(), n, index,
+              current_stream(index))
     return out

@@ -24,6 +24,7 @@ import torch
 from vgtpu_torch.ops.composite import (
     _P_PAINT,
     _pad_tiles,
+    background_tensor,
     build_bucket_aux,
     build_bucket_pteb,
     composite_bucket,
@@ -336,7 +337,7 @@ def execute_plan_flat(plan: FramePlan, device_arrays: dict, chunk_entry,
             cov = coverage_chunks(ce, th, tw).reshape(-1, npx)
         entry_w.index_add_(0, cent, cov)
     entry_w += bd.repeat_interleave(tw, dim=1)
-    bg = torch.tensor(background, dtype=torch.float32, device=dev)
+    bg = background_tensor(background, dev)
     fb = bg.expand(nt + 1, th, tw, 4).clone()
     bg_vec = bg.repeat_interleave(npx)[:, None]
     for te, ids, pp, ctile, flags in zip(d["bucket_te"], d["bucket_ids"],

@@ -12,6 +12,15 @@ raises here.  The kernel's `launches` counter is incremented only by the
 wrappers that launch it (ops/*_cuda.py), so a run can show its main path
 went through the kernel.  check_tensor and check_chunk_edges are the
 wrappers' shared argument checks.
+
+The launch route, per wrapper call, is kept as cheap as one PyTorch op's:
+the entry points are bound once (ctypes argtypes, so pointers, the stream
+and ints pass as plain Python ints); the stream is the raw cudaStream_t of
+the tensors' device (current_stream, no torch.cuda.Stream object); the
+device goes to the entry point as an index (csrc/common.cuh::DeviceScope
+switches only when the calling thread's current device is another), so no
+torch.cuda.device context is entered; and the checks compare shapes and
+device indices without building tuples or torch.device objects.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _CSRC = os.path.join(os.path.dirname(__file__), "..", "csrc")
 _BUILD = os.path.join(os.path.dirname(__file__), "..", "..", "build", "cuda")
@@ -103,35 +114,46 @@ class CudaKernel:
         return self.build_seconds
 
     def launch(self, symbol: str, *args) -> None:
-        """Call entry point `symbol`; raise on a non-zero
-        cudaGetLastError()."""
-        self.build()
-        rc = self._fns[symbol](*args)
-        if rc != 0:
+        """Call entry point `symbol` (built and bound at first use); raise
+        on a non-zero cudaGetLastError().  Pointers and the stream are
+        Python ints."""
+        fns = self._fns
+        if fns is None:
+            self.build()
+            fns = self._fns
+        rc = fns[symbol](*args)
+        if rc:
             msg = self._lib.vg_error_string(rc).decode()
             raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """The current torch CUDA stream of `device` as a ctypes pointer."""
-    import torch
+def current_stream(index: int) -> int:
+    """The raw cudaStream_t of torch's current stream on CUDA device
+    `index`, as an int (the accessor PyTorch's own generated kernels use)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
-
-def check_tensor(who: str, name: str, t, dtype, shape, dev) -> None:
+def check_tensor(who: str, name: str, t, dtype, shape: tuple, index: int,
+                 align: int = 0) -> None:
     """Raise ValueError unless t is a contiguous `dtype` tensor of `shape`
-    on `dev` (who: the calling wrapper, name: the argument)."""
+    on CUDA device `index` (a tensor's get_device(): -1 on the CPU), its
+    data `align`-byte aligned when align > 0 (who: the calling wrapper,
+    name: the argument)."""
+    if (t is not None and t.get_device() == index and t.dtype == dtype
+            and t.shape == shape and t.is_contiguous()
+            and not (align and t.data_ptr() % align)):
+        return
     if t is None:
         raise ValueError(f"{who}: {name} missing")
-    if t.device != dev:
-        raise ValueError(f"{who}: {name} on {t.device}, expected {dev}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+    if t.get_device() != index:
+        raise ValueError(f"{who}: {name} on {t.device}, expected cuda:{index}")
+    if t.dtype != dtype or t.shape != shape:
         raise ValueError(f"{who}: {name} must be {dtype} "
                          f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{who}: {name} must be contiguous")
+    raise ValueError(f"{who}: {name} must be {align}-byte aligned")
 
 
 def check_chunk_edges(who: str, ce, max_ch: int | None = None) -> tuple[int, int]:
@@ -139,8 +161,6 @@ def check_chunk_edges(who: str, ce, max_ch: int | None = None) -> tuple[int, int
     (NC, CH, 4) float32 on a CUDA device, contiguous and 16-byte aligned
     (K5 and K6 load each edge as one float4), 1 <= CH <= max_ch; raises
     ValueError otherwise."""
-    import torch
-
     if not ce.is_cuda:
         raise ValueError(f"{who}: edges on {ce.device}, not a CUDA device")
     if ce.dtype != torch.float32 or ce.dim() != 3 or ce.shape[2] != 4:
