@@ -13,9 +13,13 @@ Phases (any failure raises and the process exits non-zero):
      and ptxas's register and spill report.
   3. K1 against its plain twin coverage_chunks_torch on the card: random
      chunks (horizontal, near-vertical, tiny-dy, zero-length, out-of-tile
-     edges) at CH = 2, 4, 8, 24 and the 1080p frame's pool sizes.
+     edges) at CH = 2, 4, 8, 24, 40, 64 (over the 32 edges K1 once
+     staged) and the 1080p frame's pool sizes, then all of them in one
+     launch (within K1_BOUND; kernel and twin round alike, so 0.0 is what
+     a correct kernel gives).
   3c. K4 (pixel-major chunk coverage) against coverage_chunks_t_torch: the
-     same random chunks at CH = 2, 4, 8, 24 and the 1080p frame's pools.
+     same random chunks at CH = 2, 4, 8, 24, 40, 64 and the 1080p frame's
+     pools.
   3d. K6 (chunk coverage, one thread per chunk and pixel) against
      coverage_chunks_torch and K1: random chunks at CH = 2, 6, 24 and the
      1080p frame's pools.
@@ -23,9 +27,10 @@ Phases (any failure raises and the process exits non-zero):
      and K4: the same random chunks, the 1080p frame's pools and the pools
      of its n = 1 partition.
   3b. K3 against coverage_chunks_res_torch: random chunks at ss = 2, 4 and
-     CH = 2, 4, 6, 12, 24 with random resolve params (even-odd, non-AA,
-     texture, scissor, backdrop), and the RES pools of the 1080p ss=2 plan;
-     K3's vg_resolve_rows against resolve_cov_rows_torch on its XE rows.
+     CH = 2, 4, 6, 12, 24, 40, 64 with random resolve params (even-odd,
+     non-AA, texture, scissor, backdrop), and the RES pools of the 1080p
+     ss=2 plan (one launch); K3's vg_resolve_rows against
+     resolve_cov_rows_torch on its XE rows.
   4. K2 against its plain twin composite_bucket_into_torch on every bucket of
      the 1080p tiger + demo-UI plan and of the two 512x256 scenes of
      vgtpu_torch.scenes.small (an image pattern covers the texture lane,
@@ -51,6 +56,12 @@ Phases (any failure raises and the process exits non-zero):
      end() at ContextConfig(tile_w=256) and (tile_h=16), each at ss = 1, 2
      and 8 (up to 128 sub-rows per tile), through K1, K3 and K2 with their
      launch counts > 0, 0 u8 levels from the plain twins on the same plan.
+  4f. Chunks over 32 edges (runs after 4e): ContextConfig(chunk_pools=(2,
+     8, 48)) through end() at ss = 1 and 2, on the 512x256 deep-chunk scene
+     (scenes.small.draw_deep_chunk_scene: 48-edge chunks in RES and RAW
+     pools; 0 u8 levels from the plain twins on the same plan) and on the
+     1080p frame (within 1 u8 level: the extras fold is atomic), with K1
+     (and K3) launched and a 48-edge pool in the plan.
   5. The main path: createContext(device="cuda"), begin 1920x1080,
      scenes.demo_ui.draw_benchmark_frame, end().  Both kernels' launch
      counts must be > 0; the image must match the same plan through the
@@ -98,6 +109,11 @@ Phases (any failure raises and the process exits non-zero):
      its device time in the n = 1 sharded frame, render_sharded per
      variant; K5, K6, K7 and K8 beside their twins (K8 also beside
      torch.add(1, x, alpha=2)), the [5c] frames beside the steady frame;
+     the coverage work recounted: the (edge, row) pairs live in this run's
+     pools (h > 0, the masks K1 and K3 walk) beside the dense count, both
+     bounds of K1 and K3-K6 (the kernels line's bound_ms is the live one),
+     K1's and K3's ptxas registers and spills, the coverage kernels'
+     device ms and the launches per steady frame;
      the launch route (utils/launch_route.py): host us per call of K8's
      wrapper and of torch.add over 2,000 back-to-back calls and of each
      step of the route (launch_route.ROUTE_STEPS), the steady ss=1
@@ -432,6 +448,7 @@ def main() -> int:
         cov_all_torch,
         coverage_chunks_t_torch,
         coverage_chunks_torch,
+        edge_row_live,
         entry_coverage_from_pools,
         fold_extras,
     )
@@ -468,6 +485,7 @@ def main() -> int:
     from vgtpu_torch.scenes.small import (
         HEIGHT,
         WIDTH,
+        draw_deep_chunk_scene,
         draw_feature_scene,
         draw_resolve_scene,
         draw_small_scene,
@@ -527,7 +545,7 @@ def main() -> int:
     k1_err = 0.0
     rand_edges = []                    # phase 3c holds K4 to the same chunks
     pools_nc = [int(ce.shape[0]) for ce in d["chunk_edges"]]
-    for ch in (2, 4, 8, 24):
+    for ch in (2, 4, 8, 24, 40, 64):
         nc = next((n for n, ce in zip(pools_nc, d["chunk_edges"])
                    if ce.shape[1] == ch), 2048)
         nc = min(max(nc, 2048), 8192)
@@ -542,6 +560,14 @@ def main() -> int:
               f"(bound {K1_BOUND:.0e})")
         if not err <= K1_BOUND:
             raise AssertionError(f"K1 disagrees with its plain twin at CH={ch}: {err}")
+    # the six random pools in one launch (the deepest first), dead row last
+    got = coverage_cuda.cov_all_cuda(rand_edges, 8, 128)
+    err = float((got - cov_all_torch(rand_edges, 8, 128)).abs().max())
+    k1_err = max(k1_err, err)
+    print(f"[3] K1 over the {len(rand_edges)} random pools in one launch: "
+          f"max|K1 - plain| = {err:.3e}")
+    if not err <= K1_BOUND:
+        raise AssertionError(f"K1 disagrees over the random pools: {err}")
     cov = coverage_cuda.cov_all_cuda(d["chunk_edges"], 8, 128)
     cov_ref = cov_all_torch(d["chunk_edges"], 8, 128)
     err = float((cov - cov_ref).abs().max())
@@ -620,14 +646,15 @@ def main() -> int:
     k3_err = 0.0
     for ss in (2, 4):
         th = 8 * ss
-        for ch in (2, 4, 6, 12, 24):
+        for ch in (2, 4, 6, 12, 24, 40, 64):
             nc = 2048
             e = random_chunks(rng, nc, ch)
             e[..., 1::2] *= ss                  # y spans the TH sub-rows
             edges = torch.from_numpy(e).to(dev)
             rp = torch.from_numpy(random_rparams(rng, nc, th, 128)).to(dev)
             got = torch.empty((nc, 8 * 128), device=dev)
-            coverage_resolve_cuda.coverage_chunks_res_cuda(edges, rp, got, th, 128, ss)
+            coverage_resolve_cuda.coverage_chunks_res_cuda([edges], [rp], got, th,
+                                                           128, ss)
             ref = coverage_chunks_res_torch(edges, rp, th, 128, ss)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
@@ -1047,6 +1074,50 @@ def main() -> int:
             if lv:
                 raise AssertionError(f"[4e] {name}: {lv} u8 levels from the twins")
 
+    # ---- 4f. chunks over 32 edges ---------------------------------------
+    # ContextConfig(chunk_pools=(2, 8, 48)) through end(): the deep-chunk
+    # scene (48-edge chunks in RES and RAW pools at ss=2) held to the plain
+    # twins on the same plan at 0 u8 levels, and the 1080p frame (its fold
+    # is atomic: within 1 u8 level, as [5])
+    for label, draw, w, h, lv_bound in (
+            ("deep-chunk scene", draw_deep_chunk_scene, WIDTH, HEIGHT, 0),
+            ("1080p frame", draw_frame, 1920, 1080, U8_BOUND)):
+        for ss in (1, 2):
+            name = f"chunk_pools (2, 8, 48) {label} ss={ss}"
+            c6 = vg.createContext(vg.ContextConfig(coverage_supersample=ss,
+                                                   chunk_pools=(2, 8, 48)),
+                                  device="cuda")
+            zero_counts()
+            vg.begin(c6, 0, w, h, 1.0)
+            draw(c6)
+            img6 = vg.end(c6)
+            counts = read_counts()
+            paths[name] = counts
+            d6 = c6.last_device_arrays
+            k6 = len(d6["res"]["rparams"]) if ss > 1 else 0
+            shapes = [tuple(int(x) for x in ce.shape[:2]) for ce in d6["chunk_edges"]]
+            live48 = [int((ce.abs().sum(dim=(1, 2)) > 0).sum())
+                      for ce in d6["chunk_edges"] if ce.shape[1] == 48]
+            need = ("K1", "K2") + (("K3",) if ss > 1 else ())
+            missing = [k for k in need if counts[k] <= 0]
+            print(f"[4f] {name}: pools {shapes} ({k6} RES first), live 48-edge "
+                  f"chunks {live48}; launches {counts}")
+            if missing or not any(live48):
+                raise AssertionError(f"[4f] {name}: launched no {missing} or no live "
+                                     f"48-edge chunk: {counts}, {live48}")
+            ref6 = execute_plan_torch(c6.last_plan, c6.background, device_arrays=d6)
+            if tuple(img6.shape) != (c6.fb_height, c6.fb_width, 4) or not bool(
+                    torch.isfinite(img6).all()):
+                raise AssertionError(f"[4f] {name}: {tuple(img6.shape)} image or "
+                                     f"non-finite pixels")
+            lv = u8_levels(img6, ref6)
+            print(f"[4f] {name}: vs the plain twins on the card: max|diff| "
+                  f"{float((img6 - ref6).abs().max()):.3e}, {lv} u8 levels "
+                  f"(bound {lv_bound})")
+            if lv > lv_bound:
+                raise AssertionError(f"[4f] {name}: {lv} u8 levels from the twins")
+            del c6, img6, ref6, d6
+
     # ---- 5c. the 1080p frame through K5 or K6 and K7 ----------------------
     # chunk coverage per pool (K5 pixel-major, or K6 chunk-major), the
     # chunk -> entry index_add_, + backdrop -> entry_w; per bucket ew_t
@@ -1260,15 +1331,13 @@ def main() -> int:
     nres2 = fin2.shape[0] - 1 - res2["xe_primary_raw"].shape[0]
 
     def k3_all(cuda):
-        row = 0
-        for ce, rp in zip(dv2["chunk_edges"][:k], res2["rparams"]):
-            n = int(ce.shape[0])
-            if cuda:
-                coverage_resolve_cuda.coverage_chunks_res_cuda(
-                    ce, rp, fin2[row:row + n], 16, 128, 2)
-            else:
-                fin2[row:row + n] = coverage_chunks_res_torch(ce, rp, 16, 128, 2)
-            row += n
+        if cuda:
+            coverage_resolve_cuda.coverage_chunks_res_cuda(
+                dv2["chunk_edges"][:k], res2["rparams"], fin2[:nres2], 16, 128, 2)
+        else:
+            fin2[:nres2] = torch.cat([coverage_chunks_res_torch(ce, rp, 16, 128, 2)
+                                      for ce, rp in zip(dv2["chunk_edges"][:k],
+                                                        res2["rparams"])])
         out = fin2[nres2:nres2 + res2["xe_primary_raw"].shape[0]]
         if cuda:
             coverage_resolve_cuda.resolve_rows_cuda(
@@ -1377,6 +1446,14 @@ def main() -> int:
               f"call ({100 * busy / window:.1f}% busy; torch.profiler, 10 calls; {card})")
         for key, v in sorted(by.items(), key=lambda kv: -kv[1]):
             print(f"[6]    {key:48s} {v:.4f} ms/call")
+    for tag in ("ss1", "ss2"):
+        print(f"[6] steady {tag} coverage: " + ", ".join(
+            f"{key} {dev_ms[tag].get(key, 0.0):.4f} ms in "
+            f"{dev_calls[tag].get(key, 0.0):g} recorded launches"
+            for key in ("K1", "K3", "K3 rows")) + f"; wrapper launches per frame "
+            f"K1 {dev_launched[tag]['K1']:g}, K3 (both entry points) "
+            f"{dev_launched[tag]['K3']:g} "
+            f"(torch.profiler, 10 frames; {card})")
 
     # the serving paths' host time: end() (or renderFrames) to
     # torch.cuda.synchronize(), recording excluded, median of 5
@@ -1548,7 +1625,8 @@ def main() -> int:
                                                     init_tiles=tiles_b))):
         waits = host_waits(run)
         print(f"[6] steady {tag} frame, CPU trace of 5 frames: host-side waits "
-              f"{waits['waits']}, runtime calls {waits['runtime']}")
+              f"{waits['waits']}, runtime calls {waits['runtime']}; "
+              f"{waits['launch_events'] / 5:g} kernel launches per frame")
         if waits["waits"]:
             raise AssertionError(f"[6] the steady {tag} frame waits on the host: "
                                  f"{waits}")
@@ -1617,10 +1695,51 @@ def main() -> int:
         # K8: x read, out written, a multiply and an add per element
         "K8": (2 * x8.numel() * 4, 2 * x8.numel()),
     }
+    # the coverage kernels' live count: K1 and K3 add an edge to a row only
+    # where h > 0 (edge_row_live, their masks' test), so the dense count
+    # above is no bound for them; per live (edge, row) pair ~12 operations
+    # per pixel of the row and ~6 for the row part, and K3's epilogue per
+    # sub-pixel.  K4-K6 compute the same function, so the same least work
+    # bounds them.
+    per_pair = 128 * 12 + 6
+
+    def live_pairs(pools, th):
+        live = [edge_row_live(ce, th) for ce in pools]
+        return (sum(int(m.sum()) for m in live), sum(m.numel() for m in live),
+                sum(int((~m.any(dim=(1, 2))).sum()) for m in live),
+                [round(float(m.float().mean()), 4) if m.numel() else None
+                 for m in live])
+
+    lp = {"ss=1 frame": live_pairs(dv["chunk_edges"], 8),
+          "ss=2 RAW pools": live_pairs(dv2["chunk_edges"][k:], 16),
+          "ss=2 RES pools": live_pairs(dv2["chunk_edges"][:k], 16),
+          "n = 1 shard (K4)": live_pairs(k4_pools, 8)}
+    for name, (n_live, n_all, dead, shares) in lp.items():
+        print(f"[6] live (edge, row) pairs, {name}: {n_live} of {n_all} "
+              f"({100 * n_live / n_all:.1f}%), per pool {shares}; {dead} chunks "
+              f"with no live pair (h > 0, edge_row_live)")
+    nres_chunks = sum(int(ce.shape[0]) for ce in dv2["chunk_edges"][:k])
+    dense_work = {key: work[key] for key in ("K1", "K3", "K4", "K5", "K6")}
+    k1_live = lp["ss=1 frame"][0] * per_pair
+    work.update({
+        "K1": (k1_bytes, k1_live),
+        "K3": (k3_bytes, lp["ss=2 RES pools"][0] * per_pair + nres_chunks * 2 * npx * 15),
+        "K4": (work["K4"][0], lp["n = 1 shard (K4)"][0] * per_pair),
+        "K5": (k1_bytes, k1_live),
+        "K6": (k1_bytes, k1_live),
+    })
     for key, (nb, ops) in work.items():
         bms, by_ = bound(nb, ops)
+        dense = ""
+        if key in dense_work:
+            dms, dby = bound(*dense_work[key])
+            dense = (f"; dense count {dense_work[key][1] / 1e9:.2f} G operations -> "
+                     f"{dms:.4f} ms by {dby}")
         print(f"[6] work {key}: {nb / 1e6:.1f} MB, {ops / 1e9:.2f} G operations -> "
-              f"bound {bms:.4f} ms by {by_} (67 TFLOP/s FP32, 3.35 TB/s HBM)")
+              f"bound {bms:.4f} ms by {by_}{dense} (67 TFLOP/s FP32, 3.35 TB/s HBM)")
+    for key in ("K1", "K3", "K4"):
+        print(f"[6] ptxas {key} ({kernels[key].name}.cu): "
+              f"{ptxas_summary(kernels[key].build_log)}")
     k1_rate = k1_flop / (ms["K1"] * 1e-3) / 1e12
     k2_rate = work["a"][0] / (ms["K2"] * 1e-3) / 1e12
     k3_rate = k3_flop / (ms["K3_ss2"] * 1e-3) / 1e12
@@ -1641,13 +1760,15 @@ def main() -> int:
     def entry(name, key, source, replaces, err, t, t_plain, tag, dev_keys,
               **extra):
         """One kernel's record: launches summed over the main paths' runs
-        (phases 5, 5b, 5c, 7, 8 and 9), the bound from this run's shapes,
-        its launches per call of the run `tag` that times it (the wrapper's
-        count), its device ms per call (torch.profiler's ms per recorded
+        (phases 4e, 4f, 5, 5b, 5c, 7, 8 and 9), the bound from this run's
+        shapes (for the coverage kernels the live count; [6] prints the
+        dense one beside it), its launches per call of the run `tag` that times
+        it (the wrapper's count), its device ms per call (torch.profiler's ms per recorded
         event under dev_keys x those launches), and the main paths' excess
         over the bound: launches x (device ms - bound ms) per launch."""
         by_path = {p: c[key] for p, c in paths.items() if c[key]}
-        bms, by_ = bound(*work[key.split()[-1].strip("()")])
+        wkey = key.split()[-1].strip("()")
+        bms, by_ = bound(*work[wkey])
         n = sum(by_path.values())
         dev_t, per_call, events = dev_per_call(tag, key, dev_keys)
         return {"name": name, "route": "cuda", "source": source,

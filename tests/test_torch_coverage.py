@@ -66,7 +66,7 @@ def test_coverage_chunks_torch_matches_xla_body(ch):
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("ch", [2, 4, 8, 24])
+@pytest.mark.parametrize("ch", [2, 4, 8, 24, 40, 64])
 def test_coverage_chunks_torch_matches_pallas_kernel(ch):
     """K1's TPU kernel (_kernel_t2_rt) in interpret mode, chunk-major.
     unroll=1 sums the edges one slot at a time, the order of the scan, the
@@ -130,6 +130,176 @@ def test_cov_all_rejects_other_devices():
         cov_all(pools, TH, TW)
 
 
+def boundary_chunks(seed: int, nc: int, ch: int, th: int, tw: int) -> np.ndarray:
+    """(nc, ch, 4) edges that probe the row culling of K1 and K3: endpoints
+    on row boundaries (integer y, so h is exactly 0 or 1 at the ends),
+    horizontal edges on and between rows, near-vertical edges with |m|
+    around the 0.01 steep threshold, edges wholly left and wholly right of
+    the tile, edges above and below it, and zero pad edges."""
+    rng = np.random.default_rng(seed)
+    e = np.stack([rng.uniform(-20, tw + 20, (nc, ch)),
+                  rng.integers(-2, th + 3, (nc, ch)).astype(np.float64),
+                  rng.uniform(-20, tw + 20, (nc, ch)),
+                  rng.integers(-2, th + 3, (nc, ch)).astype(np.float64)], axis=-1)
+    kind = rng.integers(0, 9, (nc, ch))
+    x0, y0 = e[..., 0], e[..., 1]
+    frac = rng.uniform(0, 1, (nc, ch))
+    e[..., 3] = np.where(kind == 1, y0 + np.where(frac < 0.5, 0.0, frac), e[..., 3])
+    e[..., 1] = np.where(kind == 1, e[..., 3], e[..., 1])            # horizontal
+    dy = e[..., 3] - e[..., 1]
+    m = rng.choice([-0.0101, -0.01, -0.0099, 0.0099, 0.01, 0.0101], (nc, ch))
+    e[..., 2] = np.where(kind == 2, x0 + m * dy, e[..., 2])          # |m| ~ 0.01
+    e[..., 0] = np.where(kind == 3, -40.0, e[..., 0])                # left of tile
+    e[..., 2] = np.where(kind == 3, -5.0, e[..., 2])
+    e[..., 0] = np.where(kind == 4, tw + 5.0, e[..., 0])             # right of it
+    e[..., 2] = np.where(kind == 4, tw + 30.0, e[..., 2])
+    e[..., 1] = np.where(kind == 5, -7.0, e[..., 1])                 # above it
+    e[..., 3] = np.where(kind == 5, 0.0, e[..., 3])
+    e[..., 1] = np.where(kind == 6, th + 0.0, e[..., 1])             # below it
+    e[..., 3] = np.where(kind == 6, th + 5.5, e[..., 3])
+    e[..., :] = np.where((kind == 7)[..., None], 0.0, e)             # pad edge
+    return e.astype(np.float32)
+
+
+def coverage_live_edges_only(chunk_edges: torch.Tensor, tile_h: int,
+                             tile_w: int) -> torch.Tensor:
+    """coverage_chunks_torch's expressions evaluated as K1 and K3 walk them:
+    the row part (ytop, h, x(ytop)) once per (edge, row), the column part
+    per pixel, and an edge added to a row only where it is live there
+    (edge_row_live, the kernels' masks); elsewhere the accumulator is left
+    as it was."""
+    from vgtpu_torch.ops.coverage import edge_row_live, fma
+
+    nc, ch, _ = chunk_edges.shape
+    live = edge_row_live(chunk_edges, tile_h)               # (NC, CH, TH)
+    px = torch.arange(tile_w, dtype=torch.float32)          # (TW,)
+    py = torch.arange(tile_h, dtype=torch.float32)[:, None]  # (TH, 1)
+    acc = torch.zeros((nc, tile_h, tile_w), dtype=torch.float32)
+    for e in range(ch):
+        x0, y0, x1, y1 = (chunk_edges[:, e, k][:, None, None] for k in range(4))
+        dy = y1 - y0
+        s = torch.sign(dy)
+        m = (x1 - x0) / torch.where(torch.abs(dy) < 1e-6, 1.0, dy)
+        steep = torch.abs(m) < 0.01
+        s_over_m = s / torch.where(steep, 1.0, m)
+        ytop = torch.maximum(torch.minimum(y0, y1), py)      # (NC, TH, 1)
+        h = torch.clamp_min(torch.minimum(torch.maximum(y0, y1), py + 1.0) - ytop, 0.0)
+        xt = fma(m, ytop - y0, x0)                           # the row part
+        u0 = (px + 1.0) - xt
+        u1 = fma(-m, h, u0)
+        c0, c1 = torch.clamp(u0, 0.0, 1.0), torch.clamp(u1, 0.0, 1.0)
+        g = (c0 * (u0 - 0.5 * c0) - c1 * (u1 - 0.5 * c1)) * s_over_m
+        term = torch.where(steep, s * h * c0, g)
+        acc = torch.where(live[:, e, :, None], acc + term, acc)
+    return acc
+
+
+@pytest.mark.parametrize("ch", [2, 8, 24, 40, 64])
+@pytest.mark.parametrize("th,tw", [(8, 128), (16, 128), (8, 256)])
+def test_live_edges_only_equal_the_dense_twin_bit_for_bit(th, tw, ch):
+    """The exactness of K1's row culling: skipping every (edge, row) pair
+    with h == 0 leaves each pixel's edge-order sum bit for bit as the dense
+    twin's (torch.equal), on adversarial chunks (boundary_chunks) and on
+    random_chunks' hard cases."""
+    for edges in (boundary_chunks(ch * th + tw, 96, ch, th, tw),
+                  random_chunks(7 * ch + th, 96, ch)):
+        e = torch.from_numpy(edges)
+        dense = coverage_chunks_torch(e, th, tw)
+        live = coverage_live_edges_only(e, th, tw)
+        assert torch.equal(live, dense)
+    # the culling is not vacuous: dead pairs and live pairs both occur
+    from vgtpu_torch.ops.coverage import edge_row_live
+
+    frac = float(edge_row_live(torch.from_numpy(
+        boundary_chunks(ch * th + tw, 96, ch, th, tw)), th).float().mean())
+    assert 0.05 < frac < 0.8
+
+
+@pytest.mark.parametrize("ch", [1, 2, 8, 24, 32, 33, 40, 48, 64])
+@pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (8, 256), (16, 128),
+                                           (32, 256), (256, 128)])
+def test_k1_geometry_admits_every_ch_and_tile_shape(tile_h, tile_w, ch):
+    """K1 takes every CH up to and over the binner's largest (48 in the
+    chunk_pools=(2, 8, 48) frames) at every tile vgtpu admits (tile_w 128
+    or 256, tile_h a multiple of 8; K1 runs the RAW pools on sub-rows, up
+    to tile_h 32 at ss = 8): per chunk 8 floats an edge and ceil(CH/32)
+    mask words a row of dynamic shared memory, within 227 KB."""
+    from vgtpu_torch.ops.coverage_cuda import SMEM_LIMIT, k1_geometry
+
+    g = k1_geometry(tile_h, tile_w, ch)
+    assert g["smem_bytes"] == g["shared_bytes"] == (
+        4 * g["chunks_per_block"] * (8 * ch + tile_h * -(-ch // 32)))
+    assert g["smem_bytes"] <= SMEM_LIMIT == 232_448
+    assert g["threads"] == 128
+
+
+def test_k1_geometry_refuses_what_the_card_cannot_hold():
+    from vgtpu_torch.ops.coverage_cuda import k1_geometry
+
+    assert k1_geometry(8, 128, 1_700)["smem_bytes"] <= 232_448
+    with pytest.raises(ValueError, match="over the card's 232448"):
+        k1_geometry(8, 128, 1_800)
+    assert k1_geometry(14_000, 128, 2)["smem_bytes"] <= 232_448
+    with pytest.raises(ValueError, match="over the card's 232448"):
+        k1_geometry(15_000, 128, 2)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k1_geometry(8, 192, 8)
+
+
+@pytest.mark.parametrize("ch", [1, 2, 24, 32, 33, 48, 64, 226])
+def test_k4_geometry_admits_every_ch_the_card_holds(ch):
+    """K4 stages 1 KB an edge for its 32 chunks in dynamic shared memory
+    sized at launch, and refuses only a CH over 232,448 shared bytes (227
+    edges fill them)."""
+    from vgtpu_torch.ops.coverage_t_cuda import SMEM_LIMIT, k4_geometry
+
+    g = k4_geometry(ch)
+    assert g["smem_bytes"] == g["shared_bytes"] == ch * 1024
+    assert g["shared_bytes"] <= SMEM_LIMIT
+    assert k4_geometry(227)["smem_bytes"] == SMEM_LIMIT
+    with pytest.raises(ValueError, match="over the card's 232448"):
+        k4_geometry(228)
+
+
+def test_pack_pools_block_prefix_rows_and_order():
+    """One launch over every pool: each descriptor names its pool, the
+    pool's first output row (pools' rows follow one another in pool order)
+    and its first block (the prefix of ceil(NC / 4) blocks, deepest pool
+    first); empty pools get no descriptor; the dead row is a (1, 0) pool."""
+    from vgtpu_torch.ops.coverage_cuda import MAX_POOLS, pack_pools
+
+    shapes = [(16, 2), (8, 4), (0, 8), (5, 24), (1, 0)]
+    (descs,) = pack_pools(shapes)
+    assert descs == [(3, 24, 0), (1, 16, 2), (0, 0, 4), (4, 29, 8)]
+    assert MAX_POOLS == 8
+    assert pack_pools([(0, 2), (0, 8)]) == []
+
+
+def test_pack_pools_splits_a_long_tuple_into_several_launches():
+    """A pool tuple longer than the descriptor array is never refused: it
+    takes several launches, each with its own block prefix from 0, which
+    together cover every pool's rows once."""
+    from vgtpu_torch.ops.coverage_cuda import MAX_POOLS, pack_pools
+
+    shapes = [(4 * i + 1, 2 + i) for i in range(11)] + [(1, 0)]
+    launches = pack_pools(shapes)
+    assert [len(d) for d in launches] == [MAX_POOLS, 4]
+    seen = sorted(d for launch in launches for d in launch)
+    assert [i for i, _r, _b in seen] == list(range(12))
+    rows = np.cumsum([0] + [nc for nc, _ch in shapes])[:-1]
+    assert [r for _i, r, _b in seen] == rows.tolist()
+    for launch in launches:
+        blocks = [b for _i, _r, b in launch]
+        sizes = [-(-shapes[i][0] // 4) for i, _r, _b in launch]
+        assert blocks == np.cumsum([0] + sizes)[:-1].tolist()
+        chs = [shapes[i][1] for i, _r, _b in launch]
+        assert chs == sorted(chs, reverse=True)
+    # the deepest pools take the first launch: pools 10 (41 chunks, 11
+    # blocks), 9 (37, 10 blocks), 8 (33), ...
+    assert launches[0][:3] == [(10, int(rows[10]), 0), (9, int(rows[9]), 11),
+                               (8, int(rows[8]), 21)]
+
+
 def test_k1_wrapper_refuses_cpu_tensors():
     """The CUDA wrapper never runs the plain twin: a CPU tensor raises
     before any build or launch."""
@@ -167,7 +337,7 @@ def test_cov_all_resolved_matches_vgtpu():
 
 # ---- K4: pixel-major coverage and the entry segment-sum ----------------------
 
-@pytest.mark.parametrize("ch", [2, 4, 6, 24])
+@pytest.mark.parametrize("ch", [2, 4, 6, 24, 40, 64])
 def test_coverage_chunks_t_torch_matches_pallas_kernel(ch):
     """K4's TPU kernel (_kernel_t2, variant "row") in interpret mode,
     pixel-major; unroll=1 for the reason given above."""

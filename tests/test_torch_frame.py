@@ -299,6 +299,34 @@ def test_end_matches_vgtpu_tile_shapes(cfg, ss, w, h):
     assert d["bucket_flags"]
 
 
+def _deep_chunks(ctx, vg, font_data):
+    from vgtpu_torch.scenes.small import draw_deep_chunk_scene
+
+    draw_deep_chunk_scene(ctx, font_data, vg=vg)
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_end_matches_vgtpu_chunk_pools_over_32_edges(ss):
+    """ContextConfig(chunk_pools=(2, 8, 48)): the native binner fills
+    48-edge chunks (over the 32 that K1, K3 and K4 once staged) at ss=1 and
+    in the parity mode, whose split puts such chunks in a RES pool (K3) and
+    a RAW pool (K1).  The twins of the path are held to vgtpu."""
+    ctx = _end_both(_deep_chunks, ss, w=WIDTH, h=HEIGHT, chunk_pools=(2, 8, 48))
+    d = ctx.last_device_arrays
+    k = len(d["res"]["rparams"]) if ss > 1 else 0
+    assert (d["res"] is not None) == (ss > 1)
+
+    def live48(pools):
+        return sum(int((ce.abs().sum(dim=(1, 2)) > 0).sum())
+                   for ce in pools if int(ce.shape[1]) == 48)
+
+    if ss == 1:
+        assert live48(d["chunk_edges"]) >= 3
+    else:
+        assert live48(d["chunk_edges"][:k]) >= 1     # RES: K3
+        assert live48(d["chunk_edges"][k:]) >= 2     # RAW: K1
+
+
 def _rounded_rect(ctx, vg, _font_data):
     vg.beginPath(ctx)
     vg.roundedRect(ctx, 10, 10, 150, 90, 18)

@@ -70,7 +70,7 @@ def _wrapper_calls():
             composite_cuda.composite_bucket_cuda(x, x, x, x, x, None, x, (1, 1, 1, 1),
                                                  tile_w=128, flags=flags))),
         "K3 coverage_chunks_res_cuda": (coverage_resolve_cuda.K3, lambda x: (
-            coverage_resolve_cuda.coverage_chunks_res_cuda(x, x, x, 16, 128, 2))),
+            coverage_resolve_cuda.coverage_chunks_res_cuda([x], [x], x, 16, 128, 2))),
         "K3 resolve_rows_cuda": (coverage_resolve_cuda.K3, lambda x: (
             coverage_resolve_cuda.resolve_rows_cuda(x, x, x, x, 16, 128, 2))),
         "K4 coverage_chunks_t_cuda": (coverage_t_cuda.K4, lambda x: (
@@ -145,3 +145,52 @@ def test_cold_probe_needs_a_card(capsys):
     assert capsys.readouterr().out == ""
     with pytest.raises(RuntimeError, match="phase torch failed"):
         cold_probe.run_phase("torch")
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN12_GLOBAL__N_124coverage_chunks_t_kernelEPKfPfiiii",
+     "coverage_chunks_t_kernel"),
+    ("_ZN12_GLOBAL__N_124coverage_chunks_t_kernelILb0EEvPKfPfiiii",
+     "coverage_chunks_t_kernel"),
+    ("_Z12probe_affinePKfPfi", "probe_affine"),
+    ("vg_plain_symbol", "vg_plain_symbol"),
+])
+def test_sass_compare_base_name(mangled, name):
+    from vgtpu_torch.utils.sass_compare import base_name
+
+    assert base_name(mangled) == name
+
+
+def test_sass_compare_parses_cuobjdump_text():
+    """utils/sass_compare reads cuobjdump's listings: per kernel its
+    instructions without addresses or encodings, and its registers."""
+    from vgtpu_torch.utils.sass_compare import parse
+
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _Z1kPf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe20000000800 */
+        /*0010*/                   EXIT ;                          /* 0x000000000000794d */
+\t\tFunction : _Z1jPf
+        /*0000*/                   EXIT ;                          /* 0x000000000000794d */
+"""
+    res = """Resource usage:
+ Common:
+  GLOBAL:0
+ Function _Z1kPf:
+  REG:12 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:360 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+    got = parse(sass, res)
+    assert got == {"_Z1kPf": (["LDC R1, c[0x0][0x28] ;", "EXIT ;"], 12),
+                   "_Z1jPf": (["EXIT ;"], -1)}
+
+
+def test_sass_compare_delta_counts_changed_instructions():
+    from vgtpu_torch.utils.sass_compare import delta
+
+    a = ["LDS R2, [R3] ;", "FADD R4, R2, R5 ;", "EXIT ;"]
+    b = ["LDS R2, [R3+0x400] ;", "FADD R4, R2, R5 ;", "EXIT ;"]
+    assert delta(a, b) == "1 of 3 instructions, opcodes the same"
+    assert delta(a, ["@P0 EXIT ;"] + a) == "1 of 4 instructions, opcodes different"

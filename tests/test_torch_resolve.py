@@ -39,7 +39,8 @@ SS = 2
 W, H = 512, 256
 
 
-@pytest.mark.parametrize("ss,ch", [(2, 4), (2, 6), (4, 8), (2, 24)])
+@pytest.mark.parametrize("ss,ch", [(2, 4), (2, 6), (4, 8), (2, 24), (2, 40),
+                                   (2, 64)])
 def test_k3_twin_matches_pallas_kernel(ss, ch):
     rng = np.random.default_rng(ss * 100 + ch)
     tile_h, tile_w, nc = 8 * ss, 128, 128
@@ -51,6 +52,28 @@ def test_k3_twin_matches_pallas_kernel(ss, ch):
                                     torch.from_numpy(rp), tile_h, tile_w, ss)
     assert got.shape == ref.shape == (nc, 8 * tile_w)
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("ss,ch,tile_w", [(2, 8, 128), (2, 48, 128), (4, 24, 128),
+                                          (2, 40, 256)])
+def test_k3_live_edges_only_equal_the_dense_twin_bit_for_bit(ss, ch, tile_w):
+    """The exactness of K3's sub-row culling: each sub-row's winding summed
+    over its live edges only, then K3's epilogue (backdrop, even-odd,
+    non-AA, texture, scissor, the ss-average), equals the dense twin bit
+    for bit (torch.equal) on adversarial chunks."""
+    from tests.test_torch_coverage import boundary_chunks, coverage_live_edges_only
+
+    rng = np.random.default_rng(ss * 1000 + ch)
+    tile_h, nc = 8 * ss, 96
+    _e, rp = _random_case(rng, nc, ch, tile_h, tile_w)
+    rp = torch.from_numpy(rp)
+    for edges in (boundary_chunks(ss + ch, nc, ch, tile_h, tile_w), _e):
+        e = torch.from_numpy(edges)
+        dense = coverage_chunks_res_torch(e, rp, tile_h, tile_w, ss)
+        live = resolve_cov_rows_torch(
+            coverage_live_edges_only(e, tile_h, tile_w).reshape(nc, -1), rp,
+            tile_h=tile_h, tile_w=tile_w, ss=ss)
+        assert torch.equal(live, dense)
 
 
 @pytest.mark.parametrize("ss", [2, 4])
@@ -172,7 +195,7 @@ def test_k3_wrappers_refuse_cpu_tensors():
     x = torch.zeros((4, 2, 4))
     before = K3.launches
     with pytest.raises(ValueError, match="edges on cpu"):
-        coverage_chunks_res_cuda(x, x, x, 16, 128, 2)
+        coverage_chunks_res_cuda([x], [x], x, 16, 128, 2)
     with pytest.raises(ValueError, match="cov_sub on cpu"):
         resolve_rows_cuda(x, x, x, x, 16, 128, 2)
     assert K3.launches == before
@@ -181,26 +204,40 @@ def test_k3_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("ss", [1, 2, 4, 8])
 @pytest.mark.parametrize("tile_h", [8, 16, 24, 32])
 def test_k3_geometry_admits_every_tile_height(tile_h, ss):
-    """K3 sizes its per-chunk rparams staging from the tile's sub-rows:
-    every tile height vgtpu admits at every ss is admitted, within the
-    227 KB a block may use, staging at least RP_BD + TH floats per chunk,
-    statically up to 64 sub-rows and in dynamic shared memory above."""
+    """K3 sizes its staging from the tile's sub-rows and the pool's CH:
+    every tile height vgtpu admits at every ss, and every CH up to 64 (the
+    native binner's largest pool in the chunk_pools=(2, 8, 48) frames is
+    48), is admitted within the 227 KB a block may use.  Per chunk the
+    edges (8 floats an edge) and sub-row masks (ceil(CH/32) words a
+    sub-row) are dynamic shared memory; the rparams staging, at least
+    RP_BD + TH floats per chunk, is static up to 64 sub-rows and dynamic
+    above."""
+    from vgtpu_torch.ops.coverage_cuda import edge_mask_bytes
     from vgtpu_torch.ops.coverage_resolve import RP_BD
     from vgtpu_torch.ops.coverage_resolve_cuda import SMEM_LIMIT, k3_geometry
 
     th = tile_h * ss                      # sub-rows
-    g = k3_geometry(th, ss)
-    assert g["staged_rows"] == RP_BD + max(th, 64)
-    staging = 4 * g["chunks_per_block"] * g["staged_rows"]
-    assert g["smem_bytes"] == (0 if th <= 64 else staging)
-    assert staging < g["shared_bytes"] <= SMEM_LIMIT == 232_448
+    for ch in (1, 2, 8, 24, 32, 33, 40, 48, 64):
+        g = k3_geometry(th, ss, ch)
+        assert g["staged_rows"] == RP_BD + max(th, 64)
+        staging = 4 * g["chunks_per_block"] * g["staged_rows"]
+        edges = 4 * g["chunks_per_block"] * (8 * ch + th * -(-ch // 32))
+        assert edge_mask_bytes(ch, th) == edges
+        assert g["smem_bytes"] == edges + (0 if th <= 64 else staging)
+        assert g["shared_bytes"] == edges + staging <= SMEM_LIMIT == 232_448
     with pytest.raises(ValueError, match="need ss"):
-        k3_geometry(th + 1, ss) if ss > 1 else k3_geometry(0, 1)
+        k3_geometry(th + 1, ss, 2) if ss > 1 else k3_geometry(0, 1, 2)
 
 
 def test_k3_geometry_refuses_what_the_card_cannot_hold():
+    """Only a block over 232,448 shared bytes is refused: at CH = 2 (one
+    mask word a sub-row) 384 + 32 TH bytes hold 7,248 sub-rows, not 7,256;
+    at 8 rows, 1,700 edges a chunk and not 1,800."""
     from vgtpu_torch.ops.coverage_resolve_cuda import k3_geometry
 
-    assert k3_geometry(14_000, 8)["shared_bytes"] <= 232_448
+    assert k3_geometry(7_248, 8, 2)["shared_bytes"] <= 232_448
     with pytest.raises(ValueError, match="over the card's 232448"):
-        k3_geometry(16_000, 8)
+        k3_geometry(7_256, 8, 2)
+    assert k3_geometry(8, 1, 1_700)["shared_bytes"] <= 232_448
+    with pytest.raises(ValueError, match="over the card's 232448"):
+        k3_geometry(8, 1, 1_800)

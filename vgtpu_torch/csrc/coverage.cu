@@ -10,20 +10,43 @@
 // with near-vertical edges (|m| < 0.01) taking s*h*clamp(u0).
 // The plain twin is vgtpu_torch/ops/coverage.py::coverage_chunks_torch.
 //
-// What bounds it on an H100: arithmetic.  Each (chunk, pixel) pair costs
-// about 25 float ops per edge and reads nothing per pixel; the only device
-// memory traffic is the 16*CH-byte edge list in and 4 KB of coverage out per
-// chunk (8x128 tile), so at the 1080p pool sizes the kernel is far from the
-// 3.35 TB/s bandwidth roof and is limited by FP32 issue rate and occupancy.
+// What bounds it on an H100: the 4 bytes of coverage written per chunk and
+// pixel (4 KB per chunk of an 8x128 tile; the edge lists in are 16*CH bytes
+// a chunk) against ~12 float ops per pixel and *live* (edge, row) pair.
+// Most pairs are dead: an edge spans few of a tile's rows (chip_smoke.py
+// [6] prints the live share of the 1080p frame's pairs, h > 0).
 //
-// Design: one block per group of kChunksPerBlock chunks.  The per-edge
-// scalars (x0, y0, ymin, ymax, s, m, steep, s/m) are computed once per edge
-// and staged in shared memory, where every thread reads them as broadcasts.
-// Each thread owns pixels p = threadIdx.x + k*blockDim.x and accumulates
-// its chunk's CH edges in a register in edge order (the plain version's
-// order), then stores the chunk-major (NC, TH*TW) row — consecutive threads
-// store consecutive pixels, so stores coalesce.  No transpose of the TPU
-// kernel's (8,128)/lane layout survives.
+// Exactness of the skip (csrc/edge_coverage.cuh): an edge with h == 0 on a
+// row adds exactly +0 or -0 to each of its pixels, and adding +-0 to the
+// accumulator, which starts at +0, leaves it unchanged bit for bit.  So
+// walking only the live edges of each row, in edge order, gives the dense
+// edge-order sum of the twin bit for bit (for edges whose slope is finite).
+//
+// Design:
+// - Staging (vg::stage_chunks): a block of kThreads threads owns
+//   kChunksPerBlock chunks.  One warp per (chunk, 32-edge word) stages each
+//   edge's scalars (x0, y0, ymin, ymax, s, m, steep, s/m) in shared memory
+//   and takes one ballot per tile row of the edges with h > 0, computed with
+//   the kernel's own float expressions: a per-(chunk, row) mask, ceil(CH/32)
+//   words.  Any CH: the staging is dynamic shared memory sized at launch,
+//   kChunksPerBlock * (32 CH + 4 TH ceil(CH/32)) bytes for the launch's
+//   deepest pool (ops/coverage_cuda.k1_geometry mirrors it).
+// - Warp <-> (chunk, row, 128-column group), lane <-> 4 adjacent columns.
+//   The warp walks only its row's set bits, in edge order (__ffs): per live
+//   edge it reads the 8 scalars as two broadcast float4 loads, computes
+//   ytop, h and x(ytop) once, then each lane its 4 columns' G-form (or steep
+//   form) with edge_contribution's roundings in its order
+//   (vg::add_edge_row).  The mask is the warp's, so culling costs no
+//   divergence.  Tiles with more rows (or column groups) than warps loop the
+//   warps over them.  Each lane stores one float4: a row of 128 columns is
+//   one 512-byte coalesced store, chunk-major (NC, TH*TW).
+// - One launch over all pools: the pools pass as a by-value array of
+//   descriptors (edges, output row, NC, CH, first block; vg::Pools); a block
+//   finds its pool from the block prefix.  ops/coverage_cuda.pack_pools
+//   orders the deepest pools first (their blocks are the longest) and
+//   splits a tuple of more than kMaxPools pools into several launches.  The
+//   dead row of cov_all is a pool of one chunk with no edges: its block
+//   writes zeros, so no separate fill runs.
 //
 // Rounding: IEEE division is kept (no --use_fast_math), and the library is
 // built with -fmad=false, so nvcc contracts no a*b+c into an FMA on its own.
@@ -39,55 +62,81 @@
 
 namespace {
 
-constexpr int kChunksPerBlock = 4;
-constexpr int kMaxCh = 32;
-constexpr int kThreads = 256;
+// K1's and K3's block (edge_coverage.cuh; ops/coverage_cuda.py mirrors it)
+constexpr int kChunksPerBlock = vg::kPoolChunksPerBlock;
+constexpr int kThreads = vg::kPoolThreads;
+constexpr int kGroupCols = 128;  // a warp's columns: 32 lanes x 4
+
+// Dynamic shared bytes of a block over chunks of ch edges and th rows.
+inline size_t block_smem(int ch, int th) {
+  const size_t nwords = static_cast<size_t>((ch + 31) / 32);
+  return sizeof(float) * kChunksPerBlock * vg::kEdgeScalars * ch +
+         sizeof(unsigned) * kChunksPerBlock * th * nwords;
+}
 
 __global__ void __launch_bounds__(kThreads)
-coverage_chunks_kernel(const float* __restrict__ edges,
-                       float* __restrict__ out, int nc, int ch, int tile_w,
-                       int npx) {
-  // per-edge scalars: x0, y0, ymin, ymax, s, m, steep, s_over_m
-  __shared__ float sp[kChunksPerBlock][kMaxCh][vg::kEdgeScalars];
-  const int c0 = blockIdx.x * kChunksPerBlock;
+coverage_chunks_kernel(const vg::Pools P, int th, int tile_w) {
+  extern __shared__ __align__(16) float smem[];
+  const vg::PoolDesc d = vg::pick_pool(P);
+  const int ch = d.ch;
+  const int nwords = (ch + 31) >> 5;
+  const int c0 = (static_cast<int>(blockIdx.x) - d.block0) * kChunksPerBlock;
+  float* sp = smem;
+  unsigned* masks =
+      reinterpret_cast<unsigned*>(smem + kChunksPerBlock * ch * vg::kEdgeScalars);
+  vg::stage_chunks(d.edges, d.nc, ch, c0, kChunksPerBlock, th, sp, masks);
 
-  for (int i = threadIdx.x; i < kChunksPerBlock * ch; i += blockDim.x) {
-    const int lc = i / ch;
-    const int e = i - lc * ch;
+  const int lane = threadIdx.x & 31;
+  const int groups = tile_w / kGroupCols;
+  const int per_chunk = th * groups;
+  const int npx = th * tile_w;
+  for (int t = threadIdx.x >> 5; t < kChunksPerBlock * per_chunk;
+       t += kThreads / 32) {
+    const int lc = t / per_chunk;
     const int c = c0 + lc;
-    if (c >= nc) continue;
-    vg::stage_edge(edges + (static_cast<size_t>(c) * ch + e) * 4, sp[lc][e]);
-  }
-  __syncthreads();
-
-  for (int lc = 0; lc < kChunksPerBlock; ++lc) {
-    const int c = c0 + lc;
-    if (c >= nc) break;
-    float* orow = out + static_cast<size_t>(c) * npx;
-    for (int p = threadIdx.x; p < npx; p += blockDim.x) {
-      const int row = p / tile_w;
-      const float px = static_cast<float>(p - row * tile_w);
-      const float py = static_cast<float>(row);
-      float acc = 0.f;
-      for (int e = 0; e < ch; ++e) acc += vg::edge_contribution(sp[lc][e], px, py);
-      orow[p] = acc;
-    }
+    if (c >= d.nc) break;  // t rises, so every later task is past nc too
+    const int rg = t - lc * per_chunk;
+    const int r = rg / groups;
+    const int px0 = (rg - r * groups) * kGroupCols + lane * 4;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    vg::add_live_edges<4>(sp + lc * ch * vg::kEdgeScalars,
+                          masks + (lc * th + r) * nwords, nwords,
+                          static_cast<float>(r), px0, acc);
+    *reinterpret_cast<float4*>(d.out + static_cast<size_t>(c) * npx +
+                               r * tile_w + px0) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
 }
 
 }  // namespace
 
-// edges: (nc, ch, 4) f32 contiguous; out: (nc, npx) f32 rows (a row range of
-// the caller's (NC_total + 1, npx) cov_all), both on `device`.  Launches on
-// `stream`, does not synchronise; returns cudaGetLastError().
-extern "C" int vg_coverage_chunks(const float* edges, float* out, int nc,
-                                  int ch, int tile_w, int npx, int device,
+// desc: npools descriptors, vg::kDescWords 64-bit words each (edges, rp
+// (unused), out, nc, ch, block0: ops/coverage_cuda.pack_pools), read on the
+// host; each pool's edges (nc, ch, 4) f32 and its output rows (nc, th *
+// tile_w) f32, 16-byte aligned, all on `device`.  tile_w a multiple of 128.
+// smem_bytes is the launch's dynamic shared memory as the wrapper computed
+// it (ops/coverage_cuda.k1_geometry for the call's deepest pool); less than
+// this file's sizing for the launch's deepest pool, or a malformed
+// descriptor, is refused.  Launches on `stream`, does not synchronise;
+// returns cudaGetLastError().
+extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
+                                  int tile_w, int smem_bytes, int device,
                                   cudaStream_t stream) {
-  const vg::DeviceScope scope(device);
-  if (nc > 0) {
-    const int blocks = (nc + kChunksPerBlock - 1) / kChunksPerBlock;
-    coverage_chunks_kernel<<<blocks, kThreads, 0, stream>>>(edges, out, nc,
-                                                            ch, tile_w, npx);
+  vg::Pools pools;
+  int max_ch = 0;
+  const int blocks =
+      vg::read_pools(desc, npools, kChunksPerBlock, &pools, &max_ch);
+  const size_t smem = block_smem(max_ch, th);
+  if (blocks < 0 || th < 1 || tile_w < kGroupCols || tile_w % kGroupCols ||
+      smem_bytes < 0 || static_cast<size_t>(smem_bytes) < smem) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const vg::DeviceScope scope(device);
+  static unsigned raised = 0;
+  if (smem_bytes > 48 * 1024) {
+    vg::allow_dynamic_smem(coverage_chunks_kernel, &raised);
+  }
+  coverage_chunks_kernel<<<blocks, kThreads, smem_bytes, stream>>>(pools, th,
+                                                                  tile_w);
   return static_cast<int>(cudaGetLastError());
 }

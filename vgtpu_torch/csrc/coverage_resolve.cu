@@ -20,31 +20,45 @@
 // entries, whose total winding exists only after the extras fold); its twin
 // is resolve_cov_rows_torch.  The epilogue is one __device__ function.
 //
-// What bounds it on an H100: arithmetic, as K1.  Per output pixel it costs
-// ss * CH edge evaluations (~25 float ops each) plus ~15 ops of epilogue per
-// sub-pixel, and it writes 1/ss of K1's bytes; the edge lists and params are
-// a few hundred bytes per chunk.  Far from the 3.35 TB/s roof; limited by
-// FP32 issue rate and occupancy.
+// What bounds it on an H100: ~12 float ops per sub-pixel and live (edge,
+// sub-row) pair plus ~15 of epilogue per sub-pixel, against 4 bytes written
+// per output pixel (1/ss of K1's bytes); the edge lists and params are a few
+// hundred bytes per chunk.  Most (edge, sub-row) pairs are dead
+// (chip_smoke.py [6] prints the live share).
+//
+// Exactness of the skip: as K1 (csrc/coverage.cu, csrc/edge_coverage.cuh):
+// an edge with h == 0 on a sub-row adds exactly +-0 to its winding, which
+// leaves the accumulator (started at +0) unchanged bit for bit, so each
+// sub-row's winding, and everything the epilogue makes of it, equals the
+// dense edge-order sum bit for bit.
 //
 // Design: the TPU kernel keeps a (NPX, BC) VMEM accumulator across a grid
-// axis of edge slots, then transposes; none of that survives.  One block per
-// group of kChunksPerBlock chunks stages each chunk's per-edge scalars and
-// its rparams column (RP_ROWS x NC, a strided column, read once per block)
-// in shared memory.  Tiles of up to kStaticTh = 64 sub-rows (every tile at
-// tile_h 8, the default) stage the rparams in a static array with a
-// compile-time row stride; taller tiles (up to 256 sub-rows: tile_h 32 at
-// ss = 8) take an instantiation whose staging is dynamic shared memory
-// sized at launch, kChunksPerBlock * (RP_BD + TH) floats, so no tile
-// height vgtpu admits is refused (ops/coverage_resolve_cuda.k3_geometry
-// mirrors the sizing).  The static form keeps the source of the kernel as
-// it was before the dynamic one existed: builds that reached the staging
-// through one pointer for both forms compiled to a reordered body whose
-// 1080p ss=2 launches took ~5% more device time (NVIDIA H100 80GB HBM3,
-// 700 W).  One thread owns an output pixel (column x of output row ro):
-// it accumulates the winding of its ss sub-pixels over the CH edges in a
-// register, one sub-row after the other, resolves each, sums them and
-// stores one float — consecutive threads store consecutive pixels, so the
-// store coalesces.  No accumulator round-trips memory.
+// axis of edge slots, then transposes; none of that survives.
+// - Staging: a block of kThreads threads owns kChunksPerBlock chunks and
+//   stages, as K1 (vg::stage_chunks), each edge's scalars and a per-(chunk,
+//   sub-row) mask of the edges with h > 0, one ballot per sub-row; the edges
+//   and masks live in dynamic shared memory sized at launch for the
+//   launch's deepest pool, so any CH is taken.  Each chunk's rparams column
+//   (RP_ROWS x NC, a strided column, read once per block) is staged too:
+//   tiles of up to kStaticTh = 64 sub-rows (every tile at tile_h 8, the
+//   default) stage it in a static array with a compile-time row stride,
+//   taller tiles (up to 256 sub-rows: tile_h 32 at ss = 8) after the masks
+//   in the dynamic shared memory, kChunksPerBlock * (RP_BD + TH) floats
+//   (ops/coverage_resolve_cuda.k3_geometry mirrors the sizing).  The static
+//   form keeps the rparams staging's source as it was before the dynamic
+//   form existed: builds that reached it through one pointer for both forms
+//   compiled to a reordered body whose 1080p ss=2 launches took ~5% more
+//   device time (NVIDIA H100 80GB HBM3, 700 W).
+// - Warp <-> (chunk, output row, 128-column group), lane <-> 4 adjacent
+//   columns, as K1.  The warp walks its ss sub-rows one after the other,
+//   each over that sub-row's live edges only, in edge order
+//   (vg::add_live_edges); it resolves each sub-pixel with resolve_sub
+//   (backdrop RP_BD + sr, even-odd, non-AA, texture, scissor), sums the
+//   sub-rows in order k = 0..ss-1, multiplies by 1/ss and stores one float4
+//   per lane: no accumulator round-trips memory.
+// - One launch over all RES pools: by-value pool descriptors (edges,
+//   rparams, output row, NC, CH, first block) as in K1, packed by
+//   ops/coverage_cuda.pack_pools.
 //
 // Rounding: as K1 (the two explicit __fmaf_rn, -fmad=false, IEEE division);
 // 1/ss is a power of two, so the final product is exact.
@@ -56,9 +70,11 @@
 
 namespace {
 
-constexpr int kChunksPerBlock = 4;
-constexpr int kMaxCh = 32;
-constexpr int kThreads = 256;
+// K1's and K3's block (edge_coverage.cuh; ops/coverage_cuda.py mirrors it)
+constexpr int kChunksPerBlock = vg::kPoolChunksPerBlock;
+constexpr int kThreads = vg::kPoolThreads;
+constexpr int kGroupCols = 128;  // a warp's columns: 32 lanes x 4
+constexpr int kRowsThreads = 256;  // vg_resolve_rows: one block per row
 // rparams rows (vgtpu/ops/coverage_resolve.py RP_*)
 constexpr int RP_EO = 0, RP_NOAA = 1, RP_TEXF = 2, RP_SC = 3, RP_BD = 8;
 constexpr int kStaticTh = 64;  // sub-rows the static rparams staging holds
@@ -82,29 +98,38 @@ __device__ __forceinline__ float resolve_sub(float w, const ResolveParams& r,
   return cov * (inside ? 1.f : 0.f);
 }
 
+// Dynamic shared bytes of a block over chunks of ch edges and th sub-rows:
+// the edge scalars and the masks, then (th > kStaticTh) the rparams.
+inline size_t block_smem(int ch, int th) {
+  const size_t nwords = static_cast<size_t>((ch + 31) / 32);
+  return sizeof(float) * kChunksPerBlock * vg::kEdgeScalars * ch +
+         sizeof(unsigned) * kChunksPerBlock * th * nwords +
+         (th <= kStaticTh ? 0 : sizeof(float) * kChunksPerBlock *
+                                    static_cast<size_t>(RP_BD + th));
+}
+
 // kRows > 0: each chunk's rparams column is staged in a static array of
 // kRows rows (tiles of up to kRows - RP_BD sub-rows); kRows == 0: in dynamic
-// shared memory of RP_BD + TH rows per chunk, sized at launch.
+// shared memory of RP_BD + TH rows per chunk, after the edges and masks.
 template <int kRows>
 __global__ void __launch_bounds__(kThreads)
-coverage_res_kernel(const float* __restrict__ edges,
-                    const float* __restrict__ rp, float* __restrict__ out,
-                    int nc, int ch, int tile_w, int ss, int th_out) {
-  __shared__ float sp[kChunksPerBlock][kMaxCh][vg::kEdgeScalars];
+coverage_res_kernel(const vg::Pools P, int tile_w, int ss, int th_out) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ float srp[kChunksPerBlock][kRows > 0 ? kRows : 1];
-  const int c0 = blockIdx.x * kChunksPerBlock;
+  const vg::PoolDesc d = vg::pick_pool(P);
+  const int nc = d.nc, ch = d.ch;
+  const int nwords = (ch + 31) >> 5;
+  const int c0 = (static_cast<int>(blockIdx.x) - d.block0) * kChunksPerBlock;
   const int th = th_out * ss;
   const int nrp = RP_BD + th;
+  float* sp = smem;
+  unsigned* masks =
+      reinterpret_cast<unsigned*>(smem + kChunksPerBlock * ch * vg::kEdgeScalars);
+  float* srp_dynamic = reinterpret_cast<float*>(masks + kChunksPerBlock * th * nwords);
+  const float* rp = d.rp;
 
-  for (int i = threadIdx.x; i < kChunksPerBlock * ch; i += blockDim.x) {
-    const int lc = i / ch;
-    const int e = i - lc * ch;
-    const int c = c0 + lc;
-    if (c >= nc) continue;
-    vg::stage_edge(edges + (static_cast<size_t>(c) * ch + e) * 4, sp[lc][e]);
-  }
   // rparams column of each chunk; neighbouring threads read neighbouring
-  // chunks of one row
+  // chunks of one row (stage_chunks' closing barrier covers these stores)
   for (int i = threadIdx.x; i < kChunksPerBlock * nrp; i += blockDim.x) {
     const int k = i / kChunksPerBlock;
     const int lc = i - k * kChunksPerBlock;
@@ -113,46 +138,58 @@ coverage_res_kernel(const float* __restrict__ edges,
       if constexpr (kRows > 0) {
         srp[lc][k] = rp[static_cast<size_t>(k) * nc + c];
       } else {
-        extern __shared__ float srp_dynamic[];
         srp_dynamic[lc * nrp + k] = rp[static_cast<size_t>(k) * nc + c];
       }
     }
   }
-  __syncthreads();
+  vg::stage_chunks(d.edges, nc, ch, c0, kChunksPerBlock, th, sp, masks);
 
+  const int lane = threadIdx.x & 31;
+  const int groups = tile_w / kGroupCols;
+  const int per_chunk = th_out * groups;
   const int npx_out = th_out * tile_w;
   const float inv_ss = 1.f / static_cast<float>(ss);
-  for (int lc = 0; lc < kChunksPerBlock; ++lc) {
+  for (int t = threadIdx.x >> 5; t < kChunksPerBlock * per_chunk;
+       t += kThreads / 32) {
+    const int lc = t / per_chunk;
     const int c = c0 + lc;
-    if (c >= nc) break;
+    if (c >= nc) break;  // t rises, so every later task is past nc too
+    const int rg = t - lc * per_chunk;
+    const int ro = rg / groups;
+    const int px0 = (rg - ro * groups) * kGroupCols + lane * 4;
     const float* q;
     if constexpr (kRows > 0) {
       q = srp[lc];
     } else {
-      extern __shared__ float srp_dynamic[];
       q = srp_dynamic + lc * nrp;
     }
     const ResolveParams r{q[RP_EO],     q[RP_NOAA],   q[RP_TEXF],   q[RP_SC],
                           q[RP_SC + 1], q[RP_SC + 2], q[RP_SC + 3]};
-    float* orow = out + static_cast<size_t>(c) * npx_out;
-    for (int p = threadIdx.x; p < npx_out; p += blockDim.x) {
-      const int ro = p / tile_w;
-      const float px = static_cast<float>(p - ro * tile_w);
-      float c_sum = 0.f;
-      for (int k = 0; k < ss; ++k) {
-        const int sr = ro * ss + k;
-        const float py = static_cast<float>(sr);
-        float acc = 0.f;
-        for (int e = 0; e < ch; ++e) acc += vg::edge_contribution(sp[lc][e], px, py);
-        const float cv = resolve_sub(acc + q[RP_BD + sr], r, px + 0.5f, py + 0.5f);
-        c_sum = k == 0 ? cv : c_sum + cv;
+    const float* sp_chunk = sp + lc * ch * vg::kEdgeScalars;
+    float c_sum[4];
+    for (int k = 0; k < ss; ++k) {
+      const int sr = ro * ss + k;
+      const float py = static_cast<float>(sr);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      vg::add_live_edges<4>(sp_chunk, masks + (lc * th + sr) * nwords, nwords,
+                            py, px0, acc);
+      const float bd = q[RP_BD + sr];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float cv = resolve_sub(acc[j] + bd, r,
+                                     static_cast<float>(px0 + j) + 0.5f,
+                                     py + 0.5f);
+        c_sum[j] = k == 0 ? cv : c_sum[j] + cv;
       }
-      orow[p] = c_sum * inv_ss;
     }
+    *reinterpret_cast<float4*>(d.out + static_cast<size_t>(c) * npx_out +
+                               ro * tile_w + px0) =
+        make_float4(c_sum[0] * inv_ss, c_sum[1] * inv_ss, c_sum[2] * inv_ss,
+                    c_sum[3] * inv_ss);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowsThreads)
 resolve_rows_kernel(const float* __restrict__ cov_sub,
                     const int* __restrict__ ids, const float* __restrict__ rp,
                     float* __restrict__ out, int n, int tile_w, int ss,
@@ -182,38 +219,46 @@ resolve_rows_kernel(const float* __restrict__ cov_sub,
 
 }  // namespace
 
-// edges: (nc, ch, 4) f32; rp: (RP_BD + th rows padded, nc) f32, row stride
-// nc; out: (nc, th_out*tile_w) f32 rows (a row range of the caller's
-// cov_final); all on `device`.  ch <= 32 (checked by the Python wrapper,
-// which also computes smem_bytes, the launch's dynamic shared memory, with
-// k3_geometry: 0 up to kStaticTh sub-rows, else the staging's bytes; a
-// value other than this file's sizing is refused).  Launches on `stream`,
-// does not synchronise; returns cudaGetLastError().
-extern "C" int vg_coverage_chunks_res(const float* edges, const float* rp,
-                                      float* out, int nc, int ch, int tile_w,
-                                      int ss, int th_out, int smem_bytes,
-                                      int device, cudaStream_t stream) {
+// desc: npools descriptors, vg::kDescWords 64-bit words each (edges, rp,
+// out, nc, ch, block0: ops/coverage_cuda.pack_pools), read on the host;
+// each pool's edges (nc, ch, 4) f32, rparams (RP_BD + th rows padded, nc)
+// f32 (row stride nc) and output rows (nc, th_out * tile_w) f32, 16-byte
+// aligned (a row range of the caller's cov_final), all on `device`.
+// tile_w a multiple of 128.  smem_bytes is the launch's dynamic shared
+// memory as the wrapper computed it (ops/coverage_resolve_cuda.k3_geometry
+// for the call's deepest pool); less than this file's sizing for the
+// launch's deepest pool, or a malformed descriptor, is refused.  Launches
+// on `stream`, does not synchronise; returns cudaGetLastError().
+extern "C" int vg_coverage_chunks_res(const long long* desc, int npools,
+                                      int tile_w, int ss, int th_out,
+                                      int smem_bytes, int device,
+                                      cudaStream_t stream) {
+  vg::Pools pools;
+  int max_ch = 0;
+  const int blocks =
+      vg::read_pools(desc, npools, kChunksPerBlock, &pools, &max_ch);
   const int th = th_out * ss;
-  const size_t smem = th <= kStaticTh ? 0 : sizeof(float) * kChunksPerBlock *
-                                                static_cast<size_t>(RP_BD + th);
-  if (ch < 1 || ch > kMaxCh || ss < 1 || th_out < 1 ||
-      smem != static_cast<size_t>(smem_bytes)) {
+  const size_t smem = block_smem(max_ch, th);
+  if (blocks < 0 || ss < 1 || th_out < 1 ||
+      tile_w < kGroupCols || tile_w % kGroupCols ||
+      smem_bytes < 0 || static_cast<size_t>(smem_bytes) < smem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const vg::DeviceScope scope(device);
-  if (nc > 0) {
-    const int blocks = (nc + kChunksPerBlock - 1) / kChunksPerBlock;
-    if (th <= kStaticTh) {
-      coverage_res_kernel<RP_BD + kStaticTh><<<blocks, kThreads, 0, stream>>>(
-          edges, rp, out, nc, ch, tile_w, ss, th_out);
-    } else {
-      static unsigned raised = 0;
-      if (smem > 48 * 1024) {
-        vg::allow_dynamic_smem(coverage_res_kernel<0>, &raised);
-      }
-      coverage_res_kernel<0><<<blocks, kThreads, smem, stream>>>(
-          edges, rp, out, nc, ch, tile_w, ss, th_out);
+  if (th <= kStaticTh) {
+    static unsigned raised = 0;
+    if (smem_bytes > 48 * 1024) {
+      vg::allow_dynamic_smem(coverage_res_kernel<RP_BD + kStaticTh>, &raised);
     }
+    coverage_res_kernel<RP_BD + kStaticTh>
+        <<<blocks, kThreads, smem_bytes, stream>>>(pools, tile_w, ss, th_out);
+  } else {
+    static unsigned raised = 0;
+    if (smem_bytes > 48 * 1024) {
+      vg::allow_dynamic_smem(coverage_res_kernel<0>, &raised);
+    }
+    coverage_res_kernel<0><<<blocks, kThreads, smem_bytes, stream>>>(
+        pools, tile_w, ss, th_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -231,8 +276,8 @@ extern "C" int vg_resolve_rows(const float* cov_sub, const int* ids,
   }
   const vg::DeviceScope scope(device);
   if (n > 0) {
-    resolve_rows_kernel<<<n, kThreads, 0, stream>>>(cov_sub, ids, rp, out, n,
-                                                    tile_w, ss, th_out);
+    resolve_rows_kernel<<<n, kRowsThreads, 0, stream>>>(cov_sub, ids, rp, out,
+                                                        n, tile_w, ss, th_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,9 @@
 // pixel p, summed in slot order.  The plain twin is
 // vgtpu_torch/ops/coverage.py::coverage_chunks_torch.
 //
-// What bounds it on an H100: arithmetic, as K1 (about 25 float ops per edge
-// and pixel, 16*CH bytes in and 4 bytes out per chunk and pixel), and here
+// What bounds it on an H100: arithmetic (about 25 float ops per edge and
+// pixel: every edge at every pixel, where K1 skips the rows an edge does
+// not span; 16*CH bytes in and 4 bytes out per chunk and pixel), and here
 // every thread also derives the edge's scalars itself, two IEEE divisions
 // per edge and pixel where K1 takes them once per edge.
 //

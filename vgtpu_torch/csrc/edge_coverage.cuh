@@ -1,10 +1,22 @@
-// The per-edge arithmetic of K1 (csrc/coverage.cu), K3
-// (csrc/coverage_resolve.cu), K4 (csrc/coverage_t.cu), K5
-// (csrc/coverage_t_flat.cu) and K6 (csrc/coverage_slots.cu): one place, so
-// the kernels accumulate the same winding with the same roundings.  See
-// coverage.cu for the G-form and why the two a*b+c sites are explicit
-// __fmaf_rn (the library is built with -fmad=false).
+// The per-edge arithmetic of the coverage kernels: one place, so they
+// accumulate the same winding with the same roundings.  See coverage.cu for
+// the G-form and why the two a*b+c sites are explicit __fmaf_rn (the
+// library is built with -fmad=false).
+//
+// Which kernel uses what:
+//   stage_edge          K1 (csrc/coverage.cu), K3 (csrc/coverage_resolve.cu),
+//                       K4 (csrc/coverage_t.cu), K6 (csrc/coverage_slots.cu)
+//                       and K5 (csrc/coverage_t_flat.cu)
+//   edge_contribution   K4, K5, K6: every edge at every pixel
+//   edge_row_h, add_edge_row, stage_chunks, PoolDesc / Pools / pick_pool /
+//   read_pools, kPoolChunksPerBlock, kPoolThreads
+//                       K1 and K3: only the (edge, row) pairs with h > 0,
+//                       over a launch of several chunk pools
+// edge_contribution is kept as it was when the row split was added, so K4's,
+// K5's and K6's code does not move with K1's and K3's.
 #pragma once
+
+#include <cuda_runtime.h>
 
 namespace vg {
 
@@ -41,6 +53,182 @@ __device__ __forceinline__ float edge_contribution(const float* q, float px,
   const float g0 = cl0 * (u0 - 0.5f * cl0);
   const float g1 = cl1 * (u1 - 0.5f * cl1);
   return q[6] != 0.f ? q[4] * h * cl0 : (g0 - g1) * q[7];
+}
+
+// ---- K1 and K3: the (edge, row) split --------------------------------------
+//
+// edge_contribution's ytop, h and x(ytop) depend on the (edge, row) pair
+// alone.  An edge with h == 0 on a row contributes exactly +0 or -0 to every
+// pixel of it (the steep form gives s*0*cl0; in the G-form u1 =
+// fma(-m, 0, u0) == u0, so g0 - g1 == 0), and adding +-0 to an accumulator
+// that starts at +0 leaves it unchanged bit for bit (a round-to-nearest sum
+// is -0 only when both operands are -0).  So K1 and K3 walk, per row, only
+// the edges with h > 0, and equal the dense sum bit for bit for any edges
+// whose slope m is finite (an infinite m needs |x1 - x0| > 3e32).
+
+// h, the part of row py that edge q spans, with edge_contribution's own
+// expressions (so `h > 0` is exact); *ytop gets max(ymin, py).
+__device__ __forceinline__ float edge_row_h(const float* q, float py,
+                                            float* ytop) {
+  *ytop = fmaxf(q[2], py);
+  return fmaxf(fminf(q[3], py + 1.f) - *ytop, 0.f);
+}
+
+// acc[j] += edge_contribution(q, px0 + j, py) for j < kCols: the row part
+// once, then per column the same roundings in the same order.
+template <int kCols>
+__device__ __forceinline__ void add_edge_row(const float* q, float py,
+                                             int px0, float* acc) {
+  float ytop;
+  const float h = edge_row_h(q, py, &ytop);
+  const float xt = __fmaf_rn(q[5], ytop - q[1], q[0]);
+  if (q[6] != 0.f) {
+    const float sh = q[4] * h;  // (s * h) * cl0, edge_contribution's order
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const float u0 = (static_cast<float>(px0 + j) + 1.f) - xt;
+      acc[j] += sh * fminf(fmaxf(u0, 0.f), 1.f);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const float u0 = (static_cast<float>(px0 + j) + 1.f) - xt;
+      const float u1 = __fmaf_rn(-q[5], h, u0);
+      const float cl0 = fminf(fmaxf(u0, 0.f), 1.f);
+      const float cl1 = fminf(fmaxf(u1, 0.f), 1.f);
+      const float g0 = cl0 * (u0 - 0.5f * cl0);
+      const float g1 = cl1 * (u1 - 0.5f * cl1);
+      acc[j] += (g0 - g1) * q[7];
+    }
+  }
+}
+
+// Stages chunks c0 .. c0 + nchunks - 1 (those < nc) of an (nc, ch, 4) edge
+// array: the per-edge scalars into sp[(lc * ch + e) * kEdgeScalars] (16-byte
+// aligned), and for each (chunk, row) the mask of the edges live on the row,
+// h > 0 by edge_row_h, into masks[(lc * th + r) * nwords + w] (bit b <->
+// edge 32 w + b; nwords = ceil(ch / 32)).  One warp per (chunk, 32-edge
+// word): each lane stages one edge in registers and the warp takes one
+// ballot per row.  Ends with __syncthreads().
+__device__ __forceinline__ void stage_chunks(const float* edges, int nc,
+                                             int ch, int c0, int nchunks,
+                                             int th, float* sp,
+                                             unsigned* masks) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int nwords = (ch + 31) >> 5;
+  for (int t = threadIdx.x >> 5; t < nchunks * nwords; t += nwarps) {
+    const int lc = t / nwords;
+    const int w = t - lc * nwords;
+    const int c = c0 + lc;
+    const int e = w * 32 + lane;
+    const bool valid = c < nc && e < ch;
+    float q[kEdgeScalars] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (valid) {
+      stage_edge(edges + (static_cast<size_t>(c) * ch + e) * 4, q);
+      float4* dst = reinterpret_cast<float4*>(sp + (lc * ch + e) * kEdgeScalars);
+      dst[0] = make_float4(q[0], q[1], q[2], q[3]);
+      dst[1] = make_float4(q[4], q[5], q[6], q[7]);
+    }
+    for (int r = 0; r < th; ++r) {
+      float ytop;
+      const bool live =
+          valid && edge_row_h(q, static_cast<float>(r), &ytop) > 0.f;
+      const unsigned bits = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) masks[(lc * th + r) * nwords + w] = bits;
+    }
+  }
+  __syncthreads();
+}
+
+// acc[j] += the contributions to columns px0 .. px0 + kCols - 1 of row py
+// of the live edges in one (chunk, row) mask, in edge order (words in
+// order, bits from the lowest): the sum of every edge, bit for bit.
+template <int kCols>
+__device__ __forceinline__ void add_live_edges(const float* sp_chunk,
+                                               const unsigned* mask,
+                                               int nwords, float py, int px0,
+                                               float* acc) {
+  for (int w = 0; w < nwords; ++w) {
+    unsigned bits = mask[w];
+    while (bits) {
+      const int e = w * 32 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      const float4* src =
+          reinterpret_cast<const float4*>(sp_chunk + e * kEdgeScalars);
+      const float4 a = src[0], b = src[1];
+      const float q[kEdgeScalars] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      add_edge_row<kCols>(q, py, px0, acc);
+    }
+  }
+}
+
+// One launch of K1 or K3 covers up to kMaxPools chunk pools.  The pools'
+// descriptors pass by value; pool i owns blocks [block0_i, block0_{i+1})
+// and writes its nc chunk rows from `out` on.  K3 also reads each pool's
+// (RP_ROWS, nc) rparams, row stride nc.  The host packs them
+// (ops/coverage_cuda.pack_pools) as kDescWords 64-bit words per pool:
+// edges, rp, out, nc, ch, block0.  Both kernels' blocks are kPoolThreads
+// threads over kPoolChunksPerBlock chunks.  ops/coverage_cuda.py mirrors
+// kMaxPools, kPoolChunksPerBlock, kPoolThreads and kEdgeScalars in one
+// block (MAX_POOLS, CHUNKS_PER_BLOCK, THREADS, EDGE_SCALARS); a mirror that
+// drifts is refused, not obeyed: read_pools rejects block prefixes counted
+// with another chunks-per-block, and the entry points a dynamic shared
+// size below their own.
+constexpr int kMaxPools = 8;
+constexpr int kDescWords = 6;
+constexpr int kPoolChunksPerBlock = 4;
+constexpr int kPoolThreads = 128;
+
+struct PoolDesc {
+  const float* edges;  // (nc, ch, 4); unread when ch == 0 (K1's dead row)
+  const float* rp;     // K3: (RP_ROWS, nc); K1: unused
+  float* out;          // the pool's first output row
+  int nc, ch, block0;
+};
+
+struct Pools {
+  PoolDesc p[kMaxPools];
+  int n;
+};
+
+// This block's pool: the last with block0 <= blockIdx.x.  The loop has
+// constant indices, so the descriptors are read from the parameter bank
+// (no local-memory copy of P).
+__device__ __forceinline__ PoolDesc pick_pool(const Pools& P) {
+  PoolDesc d = P.p[0];
+#pragma unroll
+  for (int i = 1; i < kMaxPools; ++i) {
+    if (i < P.n && static_cast<int>(blockIdx.x) >= P.p[i].block0) d = P.p[i];
+  }
+  return d;
+}
+
+// Host: reads npools packed descriptors into *P and checks them: 1 <=
+// npools <= kMaxPools, ch >= 0, nc >= 1, and block0 the running sum of
+// ceil(nc / chunks_per_block) from 0.  Returns the launch's block count,
+// or -1 if a check fails; *max_ch gets the largest ch.
+inline int read_pools(const long long* desc, int npools, int chunks_per_block,
+                      Pools* P, int* max_ch) {
+  if (npools < 1 || npools > kMaxPools) return -1;
+  int blocks = 0;
+  *max_ch = 0;
+  P->n = npools;
+  for (int i = 0; i < npools; ++i) {
+    const long long* w = desc + i * kDescWords;
+    PoolDesc& d = P->p[i];
+    d.edges = reinterpret_cast<const float*>(w[0]);
+    d.rp = reinterpret_cast<const float*>(w[1]);
+    d.out = reinterpret_cast<float*>(w[2]);
+    d.nc = static_cast<int>(w[3]);
+    d.ch = static_cast<int>(w[4]);
+    d.block0 = static_cast<int>(w[5]);
+    if (d.nc < 1 || d.ch < 0 || d.block0 != blocks) return -1;
+    blocks += (d.nc + chunks_per_block - 1) / chunks_per_block;
+    if (d.ch > *max_ch) *max_ch = d.ch;
+  }
+  for (int i = npools; i < kMaxPools; ++i) P->p[i] = P->p[0];
+  return blocks;
 }
 
 }  // namespace vg

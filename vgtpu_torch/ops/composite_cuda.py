@@ -22,9 +22,13 @@ import ctypes
 import torch
 
 from vgtpu_torch.ops.composite import _P_BD
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, current_stream
+from vgtpu_torch.utils.cuda_build import (
+    SMEM_LIMIT,
+    CudaKernel,
+    check_tensor,
+    current_stream,
+)
 
-SMEM_LIMIT = 232_448   # shared bytes a block may use on an H100 (227 KB)
 # csrc/composite.cu: output pixels per thread, coverage ring depth (slots in
 # flight), slots staged per window, params rows staged per slot
 PIX, STAGES, WINDOW, META = 4, 3, 64, 30

@@ -9,8 +9,8 @@ Input layout (from vgtpu_torch.raster.binning):
   chunk_edges: (NC, CHUNK, 4) f32 — edge segments, tile-origin-relative
 
 On a CUDA tensor `cov_all` launches kernel K1 (csrc/coverage.cu, via
-ops/coverage_cuda.py), `coverage_chunks` kernel K6 (csrc/coverage_slots.cu,
-via ops/coverage_slots_cuda.py) and `coverage_chunks_t` kernel K4
+ops/coverage_cuda.py; one launch over every pool), `coverage_chunks`
+kernel K6 (csrc/coverage_slots.cu, via ops/coverage_slots_cuda.py) and `coverage_chunks_t` kernel K4
 (csrc/coverage_t.cu, via ops/coverage_t_cuda.py) or, with variant="flat",
 K5 (csrc/coverage_t_flat.cu, via ops/coverage_t_flat_cuda.py); on a CPU
 tensor they run the plain torch twins `cov_all_torch`,
@@ -63,6 +63,19 @@ def _edge_contribution(px, py, x0, y0, x1, y1):
     general = (g0 - g1) * s_over_m
     vertical = s * h * c0
     return torch.where(steep, vertical, general)
+
+
+def edge_row_live(chunk_edges: torch.Tensor, tile_h: int) -> torch.Tensor:
+    """(NC, CH, TH) bool: edge e of chunk c spans tile row r (h > 0, by
+    _edge_contribution's own expressions).  These are the row masks kernels
+    K1 and K3 walk: an edge with h == 0 on a row adds exactly +0 or -0 to
+    each of its pixels, which leaves the edge-order sum bit for bit as it
+    was."""
+    y0, y1 = chunk_edges[:, :, 1:2], chunk_edges[:, :, 3:4]
+    py = torch.arange(tile_h, dtype=torch.float32, device=chunk_edges.device)
+    ytop = torch.maximum(torch.minimum(y0, y1), py)
+    h = torch.clamp_min(torch.minimum(torch.maximum(y0, y1), py + 1.0) - ytop, 0.0)
+    return h > 0
 
 
 def coverage_chunks_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
@@ -231,9 +244,9 @@ def cov_all_torch(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
 
 
 def cov_all(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
-    """(NC+1, NPX) chunk coverage of every pool: kernel K1 on CUDA (every
-    pool, written in place into one preallocated tensor), the plain twin on
-    the CPU."""
+    """(NC+1, NPX) chunk coverage of every pool: kernel K1 on CUDA (one
+    launch over every pool and the dead row, written in place into one
+    preallocated tensor), the plain twin on the CPU."""
     dev = chunk_edges[0].device
     if dev.type == "cuda":
         from vgtpu_torch.ops.coverage_cuda import cov_all_cuda

@@ -2,34 +2,126 @@
 
 Replaces vgtpu/ops/coverage_pallas.py::_kernel_t2_rt.  The plain twin is
 ops/coverage.py::coverage_chunks_torch; ops/coverage.py::cov_all routes CUDA
-tensors here and nowhere else.
+tensors here and nowhere else.  pack_pools lays out the pool descriptors of
+K1's and K3's launches (csrc/edge_coverage.cuh vg::Pools).
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, current_stream
+from vgtpu_torch.utils.cuda_build import SMEM_LIMIT, CudaKernel, current_stream
 
-MAX_CH = 32    # edges per chunk the kernel's shared staging holds
+# K1's and K3's launch geometry: the one mirror of csrc/edge_coverage.cuh's
+# constants, which both kernels take (coverage_resolve_cuda imports it).  A
+# drift is refused on the card: read_pools rejects a block prefix counted
+# with another CHUNKS_PER_BLOCK, the entry points a smem size below theirs.
+MAX_POOLS = 8          # kMaxPools: pool descriptors a launch holds
+CHUNKS_PER_BLOCK = 4   # kPoolChunksPerBlock
+THREADS = 128          # kPoolThreads
+EDGE_SCALARS = 8       # kEdgeScalars: floats an edge stages
 
 K1 = CudaKernel("coverage", {"vg_coverage_chunks": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
+def edge_mask_bytes(ch: int, tile_h: int) -> int:
+    """Dynamic shared bytes of a K1 or K3 block for chunks of ch edges over
+    tile_h (sub-)rows: each chunk's per-edge scalars (8 floats an edge) and
+    its row masks (ceil(ch/32) 32-bit words a row)."""
+    return 4 * CHUNKS_PER_BLOCK * (EDGE_SCALARS * ch + tile_h * (-(-ch // 32)))
+
+
+def k1_geometry(tile_h: int, tile_w: int, ch: int) -> dict:
+    """vg_coverage_chunks's launch geometry for a pool of ch-edge chunks over
+    tile_h x tile_w tiles, mirroring csrc/coverage.cu: blocks of 128 threads
+    over 4 chunks, a warp per (chunk, row, 128-column group); the staging
+    (edge_mask_bytes) in dynamic shared memory.  A launch over several pools
+    takes its deepest pool's smem_bytes.  Raises ValueError for a
+    tile width that is not a multiple of 128 columns (vgtpu admits 128 and
+    256) or a block over SMEM_LIMIT shared bytes."""
+    if tile_h < 1 or tile_w < 128 or tile_w % 128:
+        raise ValueError(f"K1: tiles of {tile_h}x{tile_w} (need tile_h >= 1 "
+                         f"and tile_w a multiple of 128)")
+    if ch < 0:
+        raise ValueError(f"K1: CH={ch}")
+    smem = edge_mask_bytes(ch, tile_h)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K1: CH={ch} over {tile_h} rows needs {smem} shared "
+                         f"bytes per block, over the card's {SMEM_LIMIT}")
+    return {"threads": THREADS, "chunks_per_block": CHUNKS_PER_BLOCK,
+            "smem_bytes": smem, "shared_bytes": smem}
+
+
+def pack_pools(shapes: list) -> list:
+    """The launches of one K1 or K3 call over pools of shapes [(NC, CH, ...),
+    ...] whose chunk rows follow one another in one output tensor.  Returns a
+    list of launches, each a list of descriptors (pool index, first output
+    row, first block), block0 running from 0 in each launch.  Empty pools
+    get no descriptor.  The deepest pools (largest CH) come first, so their
+    blocks, the longest, start first; a launch holds at most MAX_POOLS
+    descriptors, and further pools take further launches."""
+    rows, row = [], 0
+    for shape in shapes:
+        rows.append(row)
+        row += shape[0]
+    order = sorted((i for i, shape in enumerate(shapes) if shape[0] > 0),
+                   key=lambda i: -shapes[i][1])
+    launches = []
+    for k in range(0, len(order), MAX_POOLS):
+        descs, block = [], 0
+        for i in order[k:k + MAX_POOLS]:
+            descs.append((i, rows[i], block))
+            block += -(-shapes[i][0] // CHUNKS_PER_BLOCK)
+        launches.append(descs)
+    return launches
+
+
+_packed = functools.lru_cache(maxsize=256)(pack_pools)   # keyed by shapes
+
+
+def launch_pools(kernel: CudaKernel, symbol: str, pools: list, rps, out:
+                 torch.Tensor, row_floats: int, smem: int, *args) -> None:
+    """Launch `symbol` of `kernel` over pools (each (NC, CH, 4), or None for
+    a chunk without edges), their rparams (K3; None for K1) and their rows
+    of `out` (row_floats floats a row), as pack_pools lays them out: one
+    launch per MAX_POOLS pools, each with smem dynamic shared bytes (the
+    deepest pool's).  The descriptors go to the entry point as a host array
+    of 64-bit words; args follow their count, then smem, the device and the
+    stream."""
+    shapes = tuple([(1, 0) if ce is None else ce.shape for ce in pools])
+    index = out.get_device()
+    stream = current_stream(index)
+    base = out.data_ptr()
+    row_bytes = row_floats * 4
+    for descs in _packed(shapes):
+        words = []   # csrc/edge_coverage.cuh kDescWords per pool
+        for i, row, block0 in descs:
+            ce = pools[i]
+            words += (0 if ce is None else ce.data_ptr(),
+                      0 if rps is None else rps[i].data_ptr(),
+                      base + row * row_bytes, shapes[i][0], shapes[i][1], block0)
+        desc = array.array("q", words)
+        kernel.launch(symbol, desc.buffer_info()[0], len(descs), *args, smem,
+                      index, stream)
+
+
 def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
-    """(NC_total+1, NPX) coverage of every pool: one K1 launch per non-empty
-    pool, each writing its own row range of one torch.empty tensor; the last
-    (dead-chunk) row is zeroed, so no concat pass runs."""
+    """(NC_total+1, NPX) coverage of every pool in one K1 launch (one per
+    MAX_POOLS pools), each pool writing its own row range of one torch.empty
+    tensor; the last (dead-chunk) row is a pool of one chunk without edges,
+    which K1 writes as zeros in the same launch."""
     if not chunk_edges:
         raise ValueError("cov_all_cuda: no chunk pools")
     dev = chunk_edges[0].device
     index = chunk_edges[0].get_device()
-    npx = tile_h * tile_w
+    total = max_ch = 0
     for ce in chunk_edges:
         if ce.get_device() != index or not ce.is_cuda:
             raise ValueError(f"cov_all_cuda: pools must share one CUDA device, "
@@ -39,18 +131,13 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
                              f"got {tuple(ce.shape)} {ce.dtype}")
         if not ce.is_contiguous():
             raise ValueError("cov_all_cuda: pool must be contiguous")
-        if not 1 <= ce.shape[1] <= MAX_CH:
-            raise ValueError(f"cov_all_cuda: CH={ce.shape[1]} outside 1..{MAX_CH}")
-    total = sum(int(ce.shape[0]) for ce in chunk_edges)
+        if ce.shape[1] < 1:
+            raise ValueError(f"cov_all_cuda: CH={ce.shape[1]}")
+        total += ce.shape[0]
+        max_ch = max(max_ch, ce.shape[1])
+    smem = k1_geometry(tile_h, tile_w, max_ch)["smem_bytes"]
+    npx = tile_h * tile_w
     out = torch.empty((total + 1, npx), dtype=torch.float32, device=dev)
-    out[total].zero_()
-    row = 0
-    stream = current_stream(index)
-    base = out.data_ptr()
-    for ce in chunk_edges:
-        nc, ch = int(ce.shape[0]), int(ce.shape[1])
-        if nc:
-            K1.launch("vg_coverage_chunks", ce.data_ptr(), base + row * npx * 4,
-                      nc, ch, tile_w, npx, index, stream)
-        row += nc
+    launch_pools(K1, "vg_coverage_chunks", [*chunk_edges, None], None, out, npx,
+                 smem, tile_h, tile_w)
     return out

@@ -22,9 +22,10 @@ sub-rows of an output row summed in order k = 0..ss-1 and multiplied by 1/ss.
 Bucket-lane gating is baked into the per-chunk params on the host.
 
 On a CUDA tensor `cov_split_resolved` launches kernel K3
-(csrc/coverage_resolve.cu, via ops/coverage_resolve_cuda.py) for the RES
-pools and the XE rows and K1 for the RAW pools; on a CPU tensor it runs the
-plain twins.  Any other device raises.
+(csrc/coverage_resolve.cu, via ops/coverage_resolve_cuda.py) once over all
+RES pools and once (vg_resolve_rows) over the XE rows, and K1 once over
+the RAW pools; on a CPU tensor it runs the plain twins.  Any other device
+raises.
 """
 
 from __future__ import annotations
@@ -128,8 +129,14 @@ def coverage_chunks_res_torch(chunk_edges: torch.Tensor, rparams: torch.Tensor,
 
 
 def _plain_backend():
-    def res_fn(ce, rp, out, tile_h, tile_w, ss):
-        out.copy_(coverage_chunks_res_torch(ce, rp, tile_h, tile_w, ss))
+    def res_fn(pools, rps, out, tile_h, tile_w, ss):
+        row = 0
+        for ce, rp in zip(pools, rps):
+            n = int(ce.shape[0])
+            if n:
+                out[row : row + n] = coverage_chunks_res_torch(ce, rp, tile_h,
+                                                               tile_w, ss)
+            row += n
 
     def rows_fn(cov_sub, ids, rp, out, tile_h, tile_w, ss):
         out.copy_(resolve_cov_rows_torch(cov_sub[ids], rp, tile_h=tile_h,
@@ -166,12 +173,8 @@ def _cov_split(chunk_edges: list, res: dict, tile_h: int, tile_w: int,
     cov_final = torch.empty((nr + nxe + 1, npx_out), dtype=torch.float32,
                             device=dev)
     cov_final[nr + nxe].zero_()             # the dead row
-    row = 0
-    for ce, rp in zip(res_pools, res["rparams"]):
-        n = int(ce.shape[0])
-        if n:
-            res_fn(ce, rp, cov_final[row : row + n], tile_h, tile_w, ss)
-        row += n
+    if res_pools:
+        res_fn(res_pools, res["rparams"], cov_final[:nr], tile_h, tile_w, ss)
     rows_fn(cov_sub, res["xe_primary_raw"], res["xe_rparams"],
             cov_final[nr : nr + nxe], tile_h, tile_w, ss)
     return cov_final, cov_sub

@@ -13,67 +13,87 @@ import ctypes
 
 import torch
 
+from vgtpu_torch.ops.coverage_cuda import (
+    CHUNKS_PER_BLOCK,
+    THREADS,
+    edge_mask_bytes,
+    launch_pools,
+)
 from vgtpu_torch.ops.coverage_resolve import RP_BD, rp_rows
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_tensor, current_stream
+from vgtpu_torch.utils.cuda_build import (
+    SMEM_LIMIT,
+    CudaKernel,
+    check_tensor,
+    current_stream,
+)
 
-MAX_CH = 32    # edges per chunk the kernel's shared staging holds
-SMEM_LIMIT = 232_448   # shared bytes a block may use on an H100 (227 KB)
-_CHUNKS_PER_BLOCK = 4  # csrc/coverage_resolve.cu kChunksPerBlock
 _STATIC_TH = 64        # csrc/coverage_resolve.cu kStaticTh
-_EDGE_SCALARS = 8      # csrc/edge_coverage.cuh kEdgeScalars
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 K3 = CudaKernel("coverage_resolve", {
-    "vg_coverage_chunks_res": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp],
+    "vg_coverage_chunks_res": [_vp, _i, _i, _i, _i, _i, _i, _vp],
     "vg_resolve_rows": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
 })
 
 
-def k3_geometry(tile_h: int, ss: int) -> dict:
-    """vg_coverage_chunks_res's launch geometry for tiles of tile_h
-    sub-rows at ss, mirroring csrc/coverage_resolve.cu: 256 threads per
-    block of 4 chunks; the per-edge scalars in static shared memory (4 *
-    MAX_CH * 8 floats) and each chunk's rparams column: RP_BD + 64 rows in
-    static shared memory up to 64 sub-rows, else RP_BD + tile_h rows in
-    dynamic shared memory (smem_bytes, 0 in the static form).  Raises
-    ValueError for a shape the card cannot run (over SMEM_LIMIT shared
-    bytes per block)."""
+def k3_geometry(tile_h: int, ss: int, ch: int) -> dict:
+    """vg_coverage_chunks_res's launch geometry for a pool of ch-edge chunks
+    over tiles of tile_h sub-rows at ss, mirroring csrc/coverage_resolve.cu:
+    128 threads per block of 4 chunks; in dynamic shared memory each chunk's
+    per-edge scalars and sub-row masks (coverage_cuda.edge_mask_bytes); each
+    chunk's rparams column, RP_BD + 64 rows in static shared memory up to
+    64 sub-rows, else RP_BD + tile_h rows after the masks in the dynamic
+    shared memory (smem_bytes).  A launch over several pools takes its
+    deepest pool's smem_bytes.  Raises ValueError for a shape the
+    card cannot run (over SMEM_LIMIT shared bytes per block)."""
     if ss < 1 or tile_h < ss or tile_h % ss:
         raise ValueError(f"K3: tile_h={tile_h} sub-rows with ss={ss} "
                          f"(need ss | tile_h)")
+    if ch < 0:
+        raise ValueError(f"K3: CH={ch}")
     rows = RP_BD + max(tile_h, _STATIC_TH)
-    staging = 4 * _CHUNKS_PER_BLOCK * rows
-    shared = 4 * _CHUNKS_PER_BLOCK * MAX_CH * _EDGE_SCALARS + staging
+    staging = 4 * CHUNKS_PER_BLOCK * rows
+    smem = edge_mask_bytes(ch, tile_h) + (0 if tile_h <= _STATIC_TH else staging)
+    shared = smem + (staging if tile_h <= _STATIC_TH else 0)
     if shared > SMEM_LIMIT:
-        raise ValueError(f"K3: tile_h={tile_h} sub-rows need {shared} "
-                         f"shared bytes per block, over the card's "
+        raise ValueError(f"K3: CH={ch} over tile_h={tile_h} sub-rows needs "
+                         f"{shared} shared bytes per block, over the card's "
                          f"{SMEM_LIMIT}")
-    return {"threads": 256, "chunks_per_block": _CHUNKS_PER_BLOCK,
-            "staged_rows": rows,
-            "smem_bytes": 0 if tile_h <= _STATIC_TH else staging,
-            "shared_bytes": shared}
+    return {"threads": THREADS, "chunks_per_block": CHUNKS_PER_BLOCK,
+            "staged_rows": rows, "smem_bytes": smem, "shared_bytes": shared}
 
 
-def coverage_chunks_res_cuda(edges: torch.Tensor, rparams: torch.Tensor,
-                             out: torch.Tensor, tile_h: int, tile_w: int,
-                             ss: int) -> None:
-    """Launch K3 on one pool: (NC, CH, 4) edges + (RP_ROWS, NC) params ->
-    out (NC, TH//ss*TW), written in place (a row range of cov_final)."""
+def coverage_chunks_res_cuda(pools: list, rparams: list, out: torch.Tensor,
+                             tile_h: int, tile_w: int, ss: int) -> None:
+    """Launch K3 once over the RES pools (one launch per
+    coverage_cuda.MAX_POOLS pools): pools[i] (NC_i, CH_i, 4) edges +
+    rparams[i] (RP_ROWS, NC_i) params -> out (sum NC_i, TH//ss*TW), pool
+    i's rows after pool i-1's, written in place (the RES rows of
+    cov_final)."""
     fn = "coverage_chunks_res_cuda"
-    if not edges.is_cuda:
-        raise ValueError(f"{fn}: edges on {edges.device}")
-    smem = k3_geometry(tile_h, ss)["smem_bytes"]
-    nc, ch = int(edges.shape[0]), int(edges.shape[1])
-    if not 1 <= ch <= MAX_CH:
-        raise ValueError(f"{fn}: CH={ch} outside 1..{MAX_CH}")
-    index = edges.get_device()
-    check_tensor(fn, "edges", edges, torch.float32, (nc, ch, 4), index)
-    check_tensor(fn, "rparams", rparams, torch.float32, (rp_rows(tile_h), nc), index)
-    check_tensor(fn, "out", out, torch.float32, (nc, (tile_h // ss) * tile_w), index)
-    K3.launch("vg_coverage_chunks_res", edges.data_ptr(), rparams.data_ptr(),
-              out.data_ptr(), nc, ch, tile_w, ss, tile_h // ss, smem, index,
-              current_stream(index))
+    if not pools or len(pools) != len(rparams):
+        raise ValueError(f"{fn}: {len(pools)} pools, {len(rparams)} rparams")
+    if tile_w < 128 or tile_w % 128:
+        raise ValueError(f"{fn}: tile_w={tile_w} (need a multiple of 128)")
+    index = out.get_device()
+    rows = rp_rows(tile_h)
+    total = max_ch = 0
+    for ce, rp in zip(pools, rparams):
+        if not ce.is_cuda:
+            raise ValueError(f"{fn}: edges on {ce.device}")
+        nc, ch = ce.shape[0], ce.shape[1]
+        if ch < 1:
+            raise ValueError(f"{fn}: CH={ch}")
+        check_tensor(fn, "edges", ce, torch.float32, (nc, ch, 4), index)
+        check_tensor(fn, "rparams", rp, torch.float32, (rows, nc), index)
+        total += nc
+        max_ch = max(max_ch, ch)
+    smem = k3_geometry(tile_h, ss, max_ch)["smem_bytes"]
+    npx_out = (tile_h // ss) * tile_w
+    check_tensor(fn, "out", out, torch.float32, (total, npx_out), index, 16)
+    launch_pools(K3, "vg_coverage_chunks_res", pools, rparams, out, npx_out,
+                 smem, tile_w, ss, tile_h // ss)
 
 
 def resolve_rows_cuda(cov_sub: torch.Tensor, ids: torch.Tensor,
@@ -86,7 +106,8 @@ def resolve_rows_cuda(cov_sub: torch.Tensor, ids: torch.Tensor,
     fn = "resolve_rows_cuda"
     if not cov_sub.is_cuda:
         raise ValueError(f"{fn}: cov_sub on {cov_sub.device}")
-    k3_geometry(tile_h, ss)
+    if ss < 1 or tile_h < ss or tile_h % ss:
+        raise ValueError(f"{fn}: tile_h={tile_h} sub-rows with ss={ss}")
     n = int(ids.shape[0])
     index = cov_sub.get_device()
     check_tensor(fn, "cov_sub", cov_sub, torch.float32,

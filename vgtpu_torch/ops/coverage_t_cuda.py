@@ -12,14 +12,35 @@ import ctypes
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import CudaKernel, check_chunk_edges, current_stream
+from vgtpu_torch.utils.cuda_build import (
+    SMEM_LIMIT,
+    CudaKernel,
+    check_chunk_edges,
+    current_stream,
+)
 
-MAX_CH = 32    # edges per chunk the kernel's shared staging holds
+_EDGE_BYTES = 8 * 32 * 4   # one edge's scalars for the block's 32 chunks
 
 K4 = CudaKernel("coverage_t", {"vg_coverage_chunks_t": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
+
+
+def k4_geometry(ch: int) -> dict:
+    """vg_coverage_chunks_t's staging for chunks of ch edges, mirroring
+    csrc/coverage_t.cu: 32 x 8 threads over 32 chunks; each edge's 8
+    scalars for the 32 chunks (1 KB an edge) in dynamic shared memory sized
+    at launch (smem_bytes).  Raises ValueError for a CH the card cannot hold
+    (over SMEM_LIMIT shared bytes per block)."""
+    if ch < 1:
+        raise ValueError(f"K4: CH={ch}")
+    smem = ch * _EDGE_BYTES
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K4: CH={ch} needs {smem} shared bytes per block, "
+                         f"over the card's {SMEM_LIMIT}")
+    return {"threads": 256, "chunks_per_block": 32, "smem_bytes": smem,
+            "shared_bytes": smem}
 
 
 def coverage_chunks_t_cuda(chunk_edges: torch.Tensor, tile_h: int,
@@ -27,12 +48,13 @@ def coverage_chunks_t_cuda(chunk_edges: torch.Tensor, tile_h: int,
     """(NC, CH, 4) edges -> (TH*TW, NC) pixel-major coverage: one K4 launch
     on the edges' own device and its current stream."""
     ce = chunk_edges
-    nc, ch = check_chunk_edges("coverage_chunks_t_cuda", ce, MAX_CH)
+    nc, ch = check_chunk_edges("coverage_chunks_t_cuda", ce)
+    smem = k4_geometry(ch)["smem_bytes"]
     npx = tile_h * tile_w
     dev = ce.device
     out = torch.empty((npx, nc), dtype=torch.float32, device=dev)
     if nc:
         index = ce.get_device()
         K4.launch("vg_coverage_chunks_t", ce.data_ptr(), out.data_ptr(), nc,
-                  ch, tile_w, npx, index, current_stream(index))
+                  ch, tile_w, npx, smem, index, current_stream(index))
     return out

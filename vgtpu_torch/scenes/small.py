@@ -128,3 +128,27 @@ def draw_resolve_scene(ctx, font_data: bytes | None = None, vg=None) -> None:
     vg.lineTo(ctx, 210.0, 50.0)
     vg.closePath(ctx)
     vg.fillPath(ctx, vg.color4ub(220, 120, 30, 255), vg.FillFlags.ConcaveNonZeroAA)
+
+
+def draw_deep_chunk_scene(ctx, font_data: bytes | None = None, vg=None) -> None:
+    """draw_small_scene plus four combs, concave paths of 14 to 30 teeth
+    each inside one tile row: tiles that hold 29 to 61 edges of one path.
+    With ContextConfig(chunk_pools=(2, 8, 48)) the native binner fills
+    48-edge chunks, at ss = 2 in both a RES pool (one chunk of 40 edges)
+    and a RAW pool (the 61-edge comb's entry spans two chunks)."""
+    if vg is None:
+        import vgtpu_torch as vg
+
+    draw_small_scene(ctx, font_data, vg=vg)
+    for x, y, teeth, w, rgba, flags in (
+            (4.5, 1.0, 14, 4.0, (30, 160, 90, 200), vg.FillFlags.ConcaveNonZeroAA),
+            (130.25, 9.5, 20, 5.0, (200, 60, 90, 180), vg.FillFlags.ConcaveEvenOddAA),
+            (260.5, 17.25, 30, 4.0, (60, 60, 200, 220), vg.FillFlags.ConcaveNonZeroAA),
+            (390.5, 100.25, 25, 4.5, (60, 160, 200, 220), vg.FillFlags.ConcaveNonZeroAA)):
+        vg.beginPath(ctx)
+        vg.moveTo(ctx, x, y + 6.0)
+        for i in range(teeth):
+            vg.lineTo(ctx, x + i * w + w / 2, y)
+            vg.lineTo(ctx, x + (i + 1) * w, y + 6.0)
+        vg.closePath(ctx)
+        vg.fillPath(ctx, vg.color4ub(*rgba), flags)

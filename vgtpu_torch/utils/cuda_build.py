@@ -39,6 +39,8 @@ _BUILD = os.path.join(os.path.dirname(__file__), "..", "..", "build", "cuda")
 
 # -fmad=false: no implicit FMA contraction; the kernels write the FMAs their
 # plain twins also take explicitly (see csrc/coverage.cu)
+SMEM_LIMIT = 232_448   # shared bytes a block may use on an H100 (227 KB)
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
@@ -156,11 +158,11 @@ def check_tensor(who: str, name: str, t, dtype, shape: tuple, index: int,
     raise ValueError(f"{who}: {name} must be {align}-byte aligned")
 
 
-def check_chunk_edges(who: str, ce, max_ch: int | None = None) -> tuple[int, int]:
+def check_chunk_edges(who: str, ce) -> tuple[int, int]:
     """(NC, CH) of the chunk edges a coverage kernel (K4, K5, K6) takes:
     (NC, CH, 4) float32 on a CUDA device, contiguous and 16-byte aligned
-    (K5 and K6 load each edge as one float4), 1 <= CH <= max_ch; raises
-    ValueError otherwise."""
+    (K5 and K6 load each edge as one float4), CH >= 1; raises ValueError
+    otherwise."""
     if not ce.is_cuda:
         raise ValueError(f"{who}: edges on {ce.device}, not a CUDA device")
     if ce.dtype != torch.float32 or ce.dim() != 3 or ce.shape[2] != 4:
@@ -169,6 +171,6 @@ def check_chunk_edges(who: str, ce, max_ch: int | None = None) -> tuple[int, int
     if not ce.is_contiguous() or ce.data_ptr() % 16:
         raise ValueError(f"{who}: edges must be contiguous and 16-byte aligned")
     nc, ch = int(ce.shape[0]), int(ce.shape[1])
-    if ch < 1 or (max_ch is not None and ch > max_ch):
-        raise ValueError(f"{who}: CH={ch} outside 1..{max_ch}")
+    if ch < 1:
+        raise ValueError(f"{who}: CH={ch}")
     return nc, ch
