@@ -19,7 +19,7 @@ Phases (any failure raises and the process exits non-zero):
      a correct kernel gives).
   3c. K4 (pixel-major chunk coverage) against coverage_chunks_t_torch: the
      same random chunks at CH = 2, 4, 8, 24, 40, 64 and the 1080p frame's
-     pools.
+     pools, one at a time and all in one launch.
   3d. K6 (chunk coverage, one thread per chunk and pixel) against
      coverage_chunks_torch and K1: random chunks at CH = 2, 6, 24 and the
      1080p frame's pools.
@@ -51,7 +51,11 @@ Phases (any failure raises and the process exits non-zero):
      backdrop rows added (add_backdrop), over entry winding gathered by the
      bucket's entry table, from a random init plane, and k_rep=3 (on every
      bucket: the kernel takes any Nb, the entry point as vgtpu only
-     Nb % 128 == 0); every lane must be covered.
+     Nb % 128 == 0); every lane must be covered.  Then the same four
+     settings on buckets built from those buckets' tiles for each of the
+     16 template instantiations, in the narrow form (a grid of fewer
+     blocks than the card's SMs) and the wide one: every (G, pixels a
+     thread) instantiation must have been held to the twin.
   4e. Tile shapes beyond 8x128 (runs after 5b): the small scene through
      end() at ContextConfig(tile_w=256) and (tile_h=16), each at ss = 1, 2
      and 8 (up to 128 sub-rows per tile), through K1, K3 and K2 with their
@@ -62,6 +66,12 @@ Phases (any failure raises and the process exits non-zero):
      pools; 0 u8 levels from the plain twins on the same plan) and on the
      1080p frame (within 1 u8 level: the extras fold is atomic), with K1
      (and K3) launched and a 48-edge pool in the plan.
+  4g. Tiles taller than one staging window (runs after 4f): the small
+     scene with ContextConfig(chunk_pools=(2, 8, 48)) through end() at ss=1
+     with tile_h=16384 and at ss=2 with tile_h=8192 (16,384 sub-rows), so
+     K1's and K3's row masks take several windows a tile; K1 (K3) and K2
+     launched, 0 u8 levels from the plain twins on the same plan; K4 over
+     the plan's pools against its twin.
   5. The main path: createContext(device="cuda"), begin 1920x1080,
      scenes.demo_ui.draw_benchmark_frame, end().  Both kernels' launch
      counts must be > 0; the image must match the same plan through the
@@ -107,13 +117,17 @@ Phases (any failure raises and the process exits non-zero):
      measure_batch_ms_per_frame at K=6; the sharded frames per n (CUDA
      events, median of 12, from resident shards), K4 beside its twin and
      its device time in the n = 1 sharded frame, render_sharded per
-     variant; K5, K6, K7 and K8 beside their twins (K8 also beside
-     torch.add(1, x, alpha=2)), the [5c] frames beside the steady frame;
+     variant; K7 against its twin on every [5c] bucket in phase 4d's four
+     settings (both block forms must be among them); K5, K6, K7 and K8
+     beside their twins (K8 also beside torch.add(1, x, alpha=2)), the
+     [5c] frames beside the steady frame;
      the coverage work recounted: the (edge, row) pairs live in this run's
      pools (h > 0, the masks K1 and K3 walk) beside the dense count, both
      bounds of K1 and K3-K6 (the kernels line's bound_ms is the live one),
-     K1's and K3's ptxas registers and spills, the coverage kernels'
-     device ms and the launches per steady frame;
+     K1's, K3's, K4's and K7's ptxas registers and spills (K7 per
+     instantiation), K7's valid (tile, slot) share and skipped (warp, slot)
+     share on the [5c] buckets, K4's launches per shard, the coverage
+     kernels' device ms and the launches per steady frame;
      the launch route (utils/launch_route.py): host us per call of K8's
      wrapper and of torch.add over 2,000 back-to-back calls and of each
      step of the route (launch_route.ROUTE_STEPS), the steady ss=1
@@ -238,6 +252,116 @@ def k7_work(buckets, npx: int, scratch: int) -> tuple:
     return nbytes, ops
 
 
+def k7_settings(rng, ew_cov, ew_ent, pp, ct_t, bg_col) -> list:
+    """K7's four settings on one bucket, as (name, ew_t, params, ct_t, bg,
+    add_backdrop, k_rep): chunk coverage gathered by pteb (ew_cov) with the
+    backdrop rows added in the kernel; entry winding gathered by the
+    bucket's entry table (ew_ent, vgtpu's composite_bucketed_pallas_body);
+    the same from a random init plane; and K_REP paint variants over one
+    block of ew_t (the entry point, as vgtpu, takes k_rep only where
+    Nb % 128 == 0; the kernel takes any Nb)."""
+    import torch
+    from vgtpu_torch.ops.composite import _P_PAINT
+
+    dev = pp.device
+    mo, _npp, nb = pp.shape
+    plane = torch.from_numpy(
+        rng.uniform(0, 1, (bg_col.shape[0], nb)).astype(np.float32)).to(dev)
+    blocks = [pp]
+    for _v in range(1, K_REP):
+        q = pp.clone()
+        q[:, _P_PAINT + 10 : _P_PAINT + 18] *= torch.from_numpy(
+            rng.uniform(0.3, 1.0, (mo, 8, nb)).astype(np.float32)).to(dev)
+        blocks.append(q)
+    ct3 = None if ct_t is None else torch.cat([ct_t * 0.5 ** v for v in range(K_REP)],
+                                              dim=2)
+    return [("add_backdrop", ew_cov, pp, ct_t, bg_col, True, 1),
+            ("entry_w", ew_ent, pp, ct_t, bg_col, False, 1),
+            ("init plane", ew_ent, pp, ct_t, plane, False, 1),
+            (f"k_rep={K_REP}", ew_ent, torch.cat(blocks, dim=2), ct3, bg_col, False,
+             K_REP)]
+
+
+def check_k7(label: str, flags, settings, sms: int, tally: dict) -> float:
+    """Each setting (k7_settings) of one bucket through K7's entry point and
+    its twin composite_bucket_torch at 8x128 tiles; raises past K2_BOUND.
+    tally["runs"] counts the settings by name; tally["forms"] gathers the
+    (G, pixels a thread) instantiations launched (k7_geometry on the card's
+    `sms` SMs: the kernel's own choice of the wide or narrow form).
+    Returns the largest difference."""
+    import torch
+    from vgtpu_torch.ops import composite_flat_cuda as k7
+    from vgtpu_torch.ops.composite import composite_bucket_torch
+
+    g = k7.k7_instantiation(flags)[0]
+    worst = 0.0
+    for name, ew, pp, ct, bg, ab, kr in settings:
+        got = k7.composite_bucket_flat_cuda(ew, pp, ct, bg, tile_w=128, flags=flags,
+                                            add_backdrop=ab, k_rep=kr)
+        ref = composite_bucket_torch(ew, pp, ct, bg, tile_w=128, flags=flags,
+                                     add_backdrop=ab, k_rep=kr)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        tally["runs"][name] = tally["runs"].get(name, 0) + 1
+        mo, npx, _nb = (int(n) for n in ew.shape)
+        tally["forms"].add((g, k7.k7_geometry(mo, npx, 128, int(pp.shape[2]), ab, g,
+                                              sms)["pixels_per_thread"]))
+        if not err <= K2_BOUND:
+            raise AssertionError(f"K7 ({name}) disagrees on {label}, flags {flags}: {err}")
+    return worst
+
+
+def k7_sweep_buckets(pool, sms: int) -> list:
+    """Buckets that drive every K7 instantiation in both block forms.  For
+    each template mask G in 0..15: the tiles of every bucket in `pool`
+    whose template lanes G holds (G's lanes are a superset of each tile's,
+    as a real bucket's flags are of its tiles'), with the OR of their
+    runtime lanes, slots padded to the deepest with invalid ones, and the
+    tiles repeated to a grid of fewer blocks than the card's `sms` SMs
+    (the narrow form) and to one of more (the wide form).  pool: (ew_cov,
+    ew_ent, params, ct_t or None, flags) of real buckets of 8x128 tiles.
+    Returns (label, flags, ew_cov, ew_ent, params, ct_t) per (G, form)."""
+    import torch
+    from vgtpu_torch.ops import composite_flat_cuda as k7
+
+    npx = int(pool[0][1].shape[1])
+    grid_y = -(-npx // k7.GROUP)
+    sizes = {"narrow": k7.TILES * max(1, (sms - 1) // grid_y),
+             "wide": k7.TILES * (sms // grid_y + 1)}
+    out = []
+    for g in range(1 << k7.TEMPLATE_LANES):
+        members = [e for e in pool if k7.k7_instantiation(e[4])[0] & ~g == 0]
+        rt = 0
+        for e in members:
+            rt |= k7.k7_instantiation(e[4])[1]
+        bits = g | rt
+        flags = tuple(bool(bits >> i & 1) for i in range(7))
+        mo = max(int(e[2].shape[0]) for e in members)
+
+        def cat(parts):
+            padded = []
+            for t in parts:
+                z = t.new_zeros((mo, *t.shape[1:]))
+                z[: t.shape[0]] = t
+                padded.append(z)
+            return torch.cat(padded, dim=2)
+
+        ew_cov = cat([e[0] for e in members])
+        ew_ent = cat([e[1] for e in members])
+        pp = cat([e[2] for e in members])
+        ct = cat([e[3] if e[3] is not None else
+                  e[2].new_zeros((e[2].shape[0], 4 * npx, e[2].shape[2]))
+                  for e in members])
+        for form, nb in sizes.items():
+            idx = torch.arange(nb, device=pp.device) % pp.shape[2]
+            out.append((f"G={g} {form} ({nb} tiles of {len(members)} buckets, MO {mo})",
+                        flags, ew_cov[:, :, idx].contiguous(),
+                        ew_ent[:, :, idx].contiguous(), pp[:, :, idx].contiguous(),
+                        ct[:, :, idx].contiguous() if flags[2] else None))
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -339,13 +463,20 @@ def device_breakdown(run, frames: int = 10, zero=None):
     for _ in range(min(frames, 3)):
         run()
     torch.cuda.synchronize()
-    if zero is not None:
-        zero()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            run()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # CUPTI now and then hands back a window without its device records
+    # (K8's 1-us launches once came back empty): take the window again, at
+    # most three times
+    for _attempt in range(3):
+        if zero is not None:
+            zero()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(frames):
+                run()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ev:
+            break
     if not ev:
         raise AssertionError("torch.profiler recorded no device time")
     names = (("coverage_chunks_t_kernel", "K4"), ("coverage_chunks_kernel", "K1"),
@@ -399,6 +530,23 @@ def host_waits(run, frames: int = 5) -> dict:
     return {"waits": waits, "runtime": runtime, "launch_events": len(launches)}
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} from ptxas's -v
+    report."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), spill)
+    return out
+
+
 def ptxas_summary(log: str) -> str:
     """Registers per thread and spill stores over a library's kernels."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -437,7 +585,6 @@ def main() -> int:
         probe_cuda,
     )
     from vgtpu_torch.ops.composite import (
-        _P_PAINT,
         composite_bucket_into_torch,
         composite_bucket_torch,
         frame_fb,
@@ -593,6 +740,19 @@ def main() -> int:
               f"max|K4 - K1 transposed| = {float((got.t() - k1_rows).abs().max()):.3e}")
         if not err <= K1_BOUND:
             raise AssertionError(f"K4 disagrees with its plain twin on {label}: {err}")
+    # every pool of the frame in one launch (the sharded paths' call)
+    before = coverage_t_cuda.K4.launches
+    got = coverage_t_cuda.coverage_pools_t_cuda(d["chunk_edges"], 8, 128)
+    n4 = coverage_t_cuda.K4.launches - before
+    err = max(float((g - coverage_chunks_t_torch(ce, 8, 128)).abs().max())
+              for g, ce in zip(got, d["chunk_edges"]))
+    k4_err = max(k4_err, err)
+    geo4 = coverage_t_cuda.k4_geometry(8, 128, max(int(ce.shape[1])
+                                                   for ce in d["chunk_edges"]))
+    print(f"[3c] K4 over the {len(got)} 1080p pools in {n4} launch(es): "
+          f"max|K4 - plain| = {err:.3e}; geometry {geo4}")
+    if not err <= K1_BOUND or n4 != 1:
+        raise AssertionError(f"K4 over the 1080p pools: {err}, {n4} launches")
 
     # ---- 3d. K6 vs plain and vs K1 ---------------------------------------
     # K6 is K1's function and layout with K1's arithmetic, its own simple
@@ -860,14 +1020,12 @@ def main() -> int:
               f"{lanes.astype(int).tolist()}")
 
     # ---- 4d. K7 vs plain -------------------------------------------------
-    # every bucket at ss=1 of phase 4's scenes, in four settings: chunk
-    # coverage gathered by pteb with the backdrop rows added in the kernel;
-    # entry winding (entry coverage + backdrop) gathered by the bucket's
-    # entry table (vgtpu's composite_bucketed_pallas_body); the same from a
-    # random init plane; and k_rep=3 paint variants over one block of ew_t
-    # on every bucket (the entry point, as vgtpu, takes k_rep only where
-    # Nb % 128 == 0; the kernel takes any Nb)
-    k7_err, covered_k7, k7_runs, n128 = 0.0, set(), {}, 0
+    # every bucket at ss=1 of phase 4's scenes in k7_settings' four
+    # settings, then k7_sweep_buckets: each of the 16 template
+    # instantiations in both block forms on those buckets' tiles
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k7_err, covered_k7, n128, k7_pool = 0.0, set(), 0, []
+    tally = {"runs": {}, "forms": set()}
     for label, p, dd in scenes:
         ne = p.entry_backdrop.shape[0]
         cov_p = cov_all_resolved_torch(dd["chunk_edges"], dd["cov_map"], 8, 128)
@@ -877,49 +1035,39 @@ def main() -> int:
         bg_col = torch.tensor(BG, device=dev).repeat_interleave(8 * 128)[:, None]
         for i, flags in enumerate(dd["bucket_flags"]):
             pteb, te, pp = dd["bucket_pteb"][i], dd["bucket_te"][i], dd["bucket_params"][i]
-            mo, _npp, nbp = pp.shape
             ct_t = (dd["ct_flat"][dd["bucket_ctile"][i]].permute(1, 2, 0).contiguous()
                     if flags[2] else None)
             ew_cov = cov_p[pteb].permute(1, 2, 0).contiguous()
             ew_ent = entry_w[te].permute(1, 2, 0).contiguous()
-            plane = torch.from_numpy(
-                rng.uniform(0, 1, (4 * 8 * 128, nbp)).astype(np.float32)).to(dev)
-            runs = [("add_backdrop", ew_cov, pp, ct_t, bg_col, True, 1),
-                    ("entry_w", ew_ent, pp, ct_t, bg_col, False, 1),
-                    ("init plane", ew_ent, pp, ct_t, plane, False, 1)]
-            n128 += nbp % 128 == 0
-            blocks = [pp]
-            for _v in range(1, K_REP):
-                q = pp.clone()
-                q[:, _P_PAINT + 10 : _P_PAINT + 18] *= torch.from_numpy(
-                    rng.uniform(0.3, 1.0, (mo, 8, nbp)).astype(np.float32)).to(dev)
-                blocks.append(q)
-            ct3 = (None if ct_t is None else
-                   torch.cat([ct_t * 0.5 ** v for v in range(K_REP)], dim=2))
-            runs.append((f"k_rep={K_REP}", ew_ent, torch.cat(blocks, dim=2), ct3,
-                         bg_col, False, K_REP))
-            for name, ew, pp_r, ct_r, bg_r, ab, kr in runs:
-                got = composite_flat_cuda.composite_bucket_flat_cuda(
-                    ew, pp_r, ct_r, bg_r, tile_w=128, flags=flags, add_backdrop=ab,
-                    k_rep=kr)
-                ref = composite_bucket_torch(ew, pp_r, ct_r, bg_r, tile_w=128,
-                                             flags=flags, add_backdrop=ab, k_rep=kr)
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                k7_err = max(k7_err, err)
-                k7_runs[name] = k7_runs.get(name, 0) + 1
-                if not err <= K2_BOUND:
-                    raise AssertionError(f"K7 ({name}) disagrees on {label} bucket {i} "
-                                         f"flags {flags}: {err}")
+            n128 += pp.shape[2] % 128 == 0
+            k7_err = max(k7_err, check_k7(
+                f"{label} bucket {i}", flags,
+                k7_settings(rng, ew_cov, ew_ent, pp, ct_t, bg_col), sms, tally))
+            k7_pool.append((ew_cov, ew_ent, pp, ct_t, flags))
             covered_k7.add(tuple(int(f) for f in flags))
-        print(f"[4d] K7 on {len(dd['bucket_flags'])} {label} buckets: runs {k7_runs}; "
-              f"max|K7 - plain| = {k7_err:.3e} (bound {K2_BOUND:.0e})")
+        print(f"[4d] K7 on {len(dd['bucket_flags'])} {label} buckets: runs "
+              f"{tally['runs']}; max|K7 - plain| = {k7_err:.3e} (bound {K2_BOUND:.0e})")
     lanes = np.array(sorted(covered_k7)).any(axis=0)
     print(f"[4d] K7 lanes (grad,tri,tex,clip,eo,noaa,scissor) covered: "
           f"{lanes.astype(int).tolist()}; k_rep={K_REP} on {n128} buckets with "
           f"Nb % 128 == 0 among them")
     if not lanes.all():
         raise AssertionError(f"a lane of K7 was never exercised: {lanes}")
+    sweep = {"runs": {}, "forms": set()}
+    sweep_err = 0.0
+    for label, flags, ew_cov, ew_ent, pp, ct_t in k7_sweep_buckets(k7_pool, sms):
+        sweep_err = max(sweep_err, check_k7(
+            f"sweep {label}", flags,
+            k7_settings(rng, ew_cov, ew_ent, pp, ct_t, bg_col), sms, sweep))
+    k7_err = max(k7_err, sweep_err)
+    every = {(g, pix) for g in range(1 << composite_flat_cuda.TEMPLATE_LANES)
+             for pix in (composite_flat_cuda.PIX_NARROW, composite_flat_cuda.PIX_WIDE)}
+    print(f"[4d] K7 sweep of every instantiation on {sms} SMs: runs {sweep['runs']}; "
+          f"(G, pixels a thread) checked {sorted(sweep['forms'])}; max|K7 - plain| = "
+          f"{sweep_err:.3e} (bound {K2_BOUND:.0e})")
+    if every - sweep["forms"]:
+        raise AssertionError(f"K7 instantiations never held to the twin: "
+                             f"{sorted(every - sweep['forms'])}")
 
     # ---- 5. the main path ----------------------------------------------
     zero_counts()
@@ -1117,6 +1265,66 @@ def main() -> int:
             if lv > lv_bound:
                 raise AssertionError(f"[4f] {name}: {lv} u8 levels from the twins")
             del c6, img6, ref6, d6
+
+    # ---- 4g. tiles taller than one staging window -------------------------
+    # the 512x256 scenes with chunk_pools=(2, 8, 48) through end(): the
+    # small scene at ss=1 with tile_h=16384 (over the 14,512 rows K1's masks
+    # once held at CH = 2) and the resolve scene at ss=2 with tile_h=8192
+    # (16,384 sub-rows, over K3's 7,248; at that height every entry of the
+    # small scene takes several chunks, so its plan has no RES pool and
+    # K3 would not run), held to the plain twins on the same plan at 0 u8
+    # levels; K4 over the plan's pools against its twin
+    for ss, th, draw in ((1, 16384, draw_small_scene), (2, 8192, draw_resolve_scene)):
+        name = f"tall tiles tile_h={th} ss={ss} ({draw.__name__})"
+        c7 = vg.createContext(vg.ContextConfig(coverage_supersample=ss, tile_h=th,
+                                               chunk_pools=(2, 8, 48)),
+                              device="cuda")
+        zero_counts()
+        vg.begin(c7, 0, WIDTH, HEIGHT, 1.0)
+        draw(c7)
+        img7 = vg.end(c7)
+        counts = read_counts()
+        paths[name] = counts
+        d7, p7 = c7.last_device_arrays, c7.last_plan
+        shapes = [tuple(int(x) for x in ce.shape[:2]) for ce in d7["chunk_edges"]]
+        max_ch = max(c for _n, c in shapes)
+        k_res = len(d7["res"]["rparams"]) if d7["res"] is not None else 0
+        k1g = coverage_cuda.k1_geometry(p7.tile_h, 128, max(c for _n, c in shapes[k_res:]))
+        k3g = (coverage_resolve_cuda.k3_geometry(p7.tile_h, ss, max(
+            c for _n, c in shapes[:k_res])) if k_res else {})
+        need = ("K1", "K2") + (("K3",) if ss > 1 else ())
+        missing = [k for k in need if counts[k] <= 0]
+        print(f"[4g] {name}: plan tiles {p7.tile_h}x{p7.tile_w} (sub-rows x width), "
+              f"pools {shapes} ({k_res} RES first); K1 windows of "
+              f"{k1g['window_rows']} rows ({k1g['windows']} a tile), K3 "
+              f"{k3g.get('window_rows')} sub-rows ({k3g.get('windows')}); "
+              f"launches {counts}")
+        if missing or k1g["windows"] < 2 or (ss > 1 and k3g.get("windows", 0) < 2):
+            raise AssertionError(f"[4g] {name}: launched no {missing}, or the tile "
+                                 f"fits one window: {k1g}, {k3g}")
+        ref7 = execute_plan_torch(p7, c7.background, device_arrays=d7)
+        if tuple(img7.shape) != (HEIGHT, WIDTH, 4) or not bool(torch.isfinite(img7).all()):
+            raise AssertionError(f"[4g] {name}: {tuple(img7.shape)} image or "
+                                 f"non-finite pixels")
+        lv = u8_levels(img7, ref7)
+        print(f"[4g] {name}: vs the plain twins on the card: max|diff| "
+              f"{float((img7 - ref7).abs().max()):.3e}, {lv} u8 levels (bound 0)")
+        if lv:
+            raise AssertionError(f"[4g] {name}: {lv} u8 levels from the twins")
+        del img7, ref7
+        got = coverage_t_cuda.coverage_pools_t_cuda(d7["chunk_edges"], p7.tile_h, 128)
+        err = 0.0
+        for g, ce in zip(got, d7["chunk_edges"]):
+            err = max(err, float((g - coverage_chunks_t_torch(ce, p7.tile_h, 128))
+                                 .abs().max()))
+        k4_err = max(k4_err, err)
+        print(f"[4g] K4 over the plan's pools at tile_h={p7.tile_h}: max|K4 - plain| "
+              f"= {err:.3e} (bound {K1_BOUND:.0e}); geometry "
+              f"{coverage_t_cuda.k4_geometry(p7.tile_h, 128, max_ch)}")
+        if not err <= K1_BOUND:
+            raise AssertionError(f"[4g] K4 disagrees at tile_h={p7.tile_h}: {err}")
+        del got, c7, d7
+        torch.cuda.empty_cache()
 
     # ---- 5c. the 1080p frame through K5 or K6 and K7 ----------------------
     # chunk coverage per pool (K5 pixel-major, or K6 chunk-major), the
@@ -1516,8 +1724,7 @@ def main() -> int:
               f"{mesh_note(sf.mesh)}; {card})")
     # K4 over the n = 1 shard's pools (every live chunk of the frame)
     k4_pools = sharded[1].shards[0]["chunk_edges"]
-    ms["K4"] = time_ms(lambda: [coverage_t_cuda.coverage_chunks_t_cuda(ce, 8, 128)
-                                for ce in k4_pools])
+    ms["K4"] = time_ms(lambda: coverage_t_cuda.coverage_pools_t_cuda(k4_pools, 8, 128))
     ms["K4_plain"] = time_ms(lambda: [coverage_chunks_t_torch(ce, 8, 128)
                                       for ce in k4_pools])
     for key in ("K4", "K4_plain"):
@@ -1530,6 +1737,11 @@ def main() -> int:
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
     for key, v in top + ([] if "K4" in dict(top) else [("K4", by.get("K4", 0.0))]):
         print(f"[6]    {key:48s} {v:.4f} ms/frame")
+    print("[6] K4 launches per shard (one launch over a shard's pools): " + ", ".join(
+        f"{name} {paths[name]['K4'] / n:g} ({paths[name]['K4']} over {n} shard(s))"
+        for name, n in (("sharded n=1", 1), ("sharded n=2", 2), ("sharded n=4", 4),
+                        ("render_sharded n=4", 4))) + f"; profiled n = 1 frame "
+        f"{dev_launched['sharded']['K4']:g} launches")
     ms["render_sharded"] = time_ms(lambda: vb.render_sharded(mesh4, BG_APP), runs=5,
                                    warmup=1)
     print(f"[6] render_sharded K={K_BATCH} over {mesh_note(mesh4)}: "
@@ -1555,6 +1767,72 @@ def main() -> int:
         for ew, pp, ct, fl in k7_in:
             fn(ew, pp, ct, bg_col, tile_w=128, flags=fl, add_backdrop=False)
 
+    # K7 against its twin on every [5c] bucket in k7_settings' four settings
+    # (the [5c] frame's own is entry_w), both block forms among them
+    tally5 = {"runs": {}, "forms": set()}
+    err5 = 0.0
+    for i, ((ew, pp, ct, fl), pteb) in enumerate(zip(k7_in, dv["bucket_pteb"])):
+        ew_cov = cov_res[pteb].permute(1, 2, 0).contiguous()
+        err5 = max(err5, check_k7(f"[5c] bucket {i}", fl,
+                                  k7_settings(rng, ew_cov, ew, pp, ct, bg_col), sms,
+                                  tally5))
+    k7_err = max(k7_err, err5)
+    pix5 = sorted({pix for _g, pix in tally5["forms"]})
+    print(f"[6] K7 on the {len(k7_in)} [5c] buckets: runs {tally5['runs']}; (G, pixels "
+          f"a thread) {sorted(tally5['forms'])}; max|K7 - plain| = {err5:.3e} (bound "
+          f"{K2_BOUND:.0e})")
+    if pix5 != sorted((composite_flat_cuda.PIX_NARROW, composite_flat_cuda.PIX_WIDE)):
+        raise AssertionError(f"[6] the [5c] buckets held only K7's {pix5}-pixel form "
+                             f"to the twin")
+
+    # K7's live slots on the [5c] buckets: the (tile, slot) pairs valid; the
+    # (warp, slot) pairs a warp of 32 tiles skips (no tile valid); and the
+    # invalid (tile, slot) pairs of real tiles it still walks (a tile whose
+    # slot is invalid in a slot its warp walks keeps c = 0)
+    from vgtpu_torch.ops.composite import _P_VALID
+
+    n_pairs = n_valid = n_wslots = n_wskip = n_walked_invalid = 0
+    tiles = composite_flat_cuda.TILES
+    for (_ew, pp, _ct, _fl), ids in zip(k7_in, dv["bucket_ids"]):
+        valid = pp[:, _P_VALID, :] > 0                        # (MO, Nb)
+        real = ids < nt
+        n_pairs += int(valid[:, real].numel())
+        n_valid += int(valid[:, real].sum())
+        mo_b, nbo_b = valid.shape
+        groups = -(-nbo_b // tiles)
+        padded = torch.zeros((mo_b, groups * tiles), dtype=torch.bool,
+                             device=valid.device)
+        padded[:, :nbo_b] = valid
+        real_p = torch.zeros(groups * tiles, dtype=torch.bool, device=valid.device)
+        real_p[:nbo_b] = real
+        per_warp = padded.reshape(mo_b, groups, tiles)
+        live = per_warp.any(dim=2)                            # (MO, groups)
+        n_wslots += int(live.numel())
+        n_wskip += int((~live).sum())
+        n_walked_invalid += int((live[:, :, None] & ~per_warp
+                                 & real_p.reshape(1, groups, -1)).sum())
+    k7_regs = {}
+    for mangled, (regs, spill) in ptxas_by_kernel(composite_flat_cuda.K7.build_log).items():
+        m = re.search(r"ILi(\d+)ELi(\d+)EE", mangled)
+        if m:
+            k7_regs[(int(m.group(1)), int(m.group(2)))] = (regs, spill)
+    used = sorted({(composite_flat_cuda.k7_instantiation(fl)[0],
+                    composite_flat_cuda.k7_geometry(
+                        int(pp.shape[0]), npx, 128, int(pp.shape[2]), False,
+                        composite_flat_cuda.k7_instantiation(fl)[0],
+                        sms)["pixels_per_thread"])
+                   for (_ew, pp, _ct, fl) in k7_in})
+    print(f"[6] K7 on the [5c] buckets: (tile, slot) pairs valid {n_valid} of {n_pairs} "
+          f"({100 * n_valid / max(n_pairs, 1):.1f}%, real tiles); (warp, slot) pairs "
+          f"skipped {n_wskip} of {n_wslots} ({100 * n_wskip / max(n_wslots, 1):.1f}%); "
+          f"invalid (tile, slot) pairs of real tiles still walked {n_walked_invalid} "
+          f"of {n_pairs - n_valid} "
+          f"({100 * n_walked_invalid / max(n_pairs - n_valid, 1):.1f}%)")
+    print(f"[6] ptxas K7 per instantiation (G: grad 1, tri 2, tex 4, clip 8; pixels a "
+          f"thread): { {k: k7_regs[k] for k in sorted(k7_regs)} } (registers, spill "
+          f"bytes); the [5c] buckets take (G, pixels) in {used} on {sms} SMs: "
+          f"{ {k: k7_regs.get(k) for k in used} }")
+
     x8 = torch.from_numpy(np.random.default_rng(SEED).normal(
         0, 1e3, cold_probe.SHAPE).astype(np.float32)).to(dev)
     one8 = torch.ones_like(x8)
@@ -1570,8 +1848,8 @@ def main() -> int:
         "K5": time_ms(lambda: [coverage_t_flat_cuda.coverage_chunks_t_flat_cuda(
             ce, 8, 128) for ce in fpools]),
         "K5_plain": time_ms(lambda: [coverage_chunks_t_torch(ce, 8, 128) for ce in fpools]),
-        "K4 frame pools": time_ms(lambda: [coverage_t_cuda.coverage_chunks_t_cuda(
-            ce, 8, 128) for ce in fpools]),
+        "K4 frame pools": time_ms(lambda: coverage_t_cuda.coverage_pools_t_cuda(
+            fpools, 8, 128)),
         "K6": time_ms(lambda: [coverage_slots_cuda.coverage_chunks_slots_cuda(
             ce, 8, 128) for ce in fpools]),
         "K6_plain": time_ms(lambda: [coverage_chunks_torch(ce, 8, 128) for ce in fpools]),
@@ -1737,7 +2015,7 @@ def main() -> int:
                      f"{dms:.4f} ms by {dby}")
         print(f"[6] work {key}: {nb / 1e6:.1f} MB, {ops / 1e9:.2f} G operations -> "
               f"bound {bms:.4f} ms by {by_}{dense} (67 TFLOP/s FP32, 3.35 TB/s HBM)")
-    for key in ("K1", "K3", "K4"):
+    for key in ("K1", "K3", "K4", "K7"):
         print(f"[6] ptxas {key} ({kernels[key].name}.cu): "
               f"{ptxas_summary(kernels[key].build_log)}")
     k1_rate = k1_flop / (ms["K1"] * 1e-3) / 1e12

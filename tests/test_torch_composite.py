@@ -734,3 +734,95 @@ def test_flat_frame_matches_vgtpu(feature_plan, coverage):
     ref_img = ref_img.reshape(plan.nty * th, plan.ntx * tw, 4)[:plan.height, :plan.width]
     assert img.shape == ref_img.shape == (H, W, 4)
     np.testing.assert_allclose(img.numpy(), ref_img, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("bits", [0, 1, 6, 8, 15, 16, 48, 64, 79, 113, 127])
+def test_k7_instantiation_maps_lane_bits(bits):
+    """K7's lane mask -> instantiation: the gradient, tri, texture and clip
+    lanes (bits 0-3) pick one of 16 template instantiations, even-odd,
+    non-AA and scissor (bits 4-6) pass as runtime bits; together they are
+    the seven-bit mask the entry point takes."""
+    from vgtpu_torch.ops.composite_flat_cuda import TEMPLATE_LANES, k7_instantiation
+
+    flags = tuple(bool(bits >> i & 1) for i in range(7))
+    g, rt = k7_instantiation(flags)
+    assert TEMPLATE_LANES == 4
+    assert g == bits & 15 and rt == bits & 112 and g | rt == bits
+    with pytest.raises(ValueError, match="7 lane flags"):
+        k7_instantiation(flags[:6])
+
+
+@pytest.mark.parametrize("mo,npx,tile_w,add_backdrop,window,nbd", [
+    (4, 8 * 128, 128, True, 4, 1), (32, 8 * 128, 128, True, 16, 1),
+    (40, 8 * 128, 128, False, 17, 0), (1, 8 * 256, 256, True, 1, 1),
+    (16, 8 * 16, 16, True, 16, 2), (8, 8 * 24, 24, True, 8, 3),
+    (8, 2 * 24, 24, True, 8, 2), (0, 8 * 128, 128, True, 0, 1)])
+def test_k7_geometry_stages_a_window_of_slot_tables(mo, npx, tile_w, add_backdrop,
+                                                    window, nbd):
+    """K7's launch geometry (csrc/composite_flat.cu geometry()): blocks of
+    32 tiles x 32 pixels, grid = tile blocks x 32-pixel groups; per window
+    of min(MO, 32) slots (fewer where 64 KB would not hold them) the params
+    rows the bucket's instantiation reads (row_mask) and the backdrop rows
+    a 32-pixel group spans (one row where tile_w is a multiple of 32, 32 /
+    tile_w where it divides 32, else up to two more, never more than the
+    tile's rows) for each of the block's 32 tiles, then the ew ring."""
+    from vgtpu_torch.ops.composite_flat_cuda import k7_geometry
+
+    g = k7_geometry(mo, npx, tile_w, 200, add_backdrop)
+    assert g["grid"] == (7, -(-npx // 32))
+    assert g["window"] == window and g["backdrop_rows"] == nbd
+    assert g["staged_rows"] == 30 + nbd          # every lane: all 30 rows
+    assert g["smem_bytes"] == 4 * (window * (30 + nbd) * 32 + 4 * 32 * 32)
+    assert g["smem_bytes"] <= 232_448
+    # a solid bucket stages 14 params rows, a gradient + triangle one 30
+    for lanes, rows in ((0, 14), (1, 28), (2, 24), (3, 28), (8, 15), (11, 29)):
+        assert k7_geometry(mo, npx, tile_w, 200, add_backdrop,
+                           lanes)["staged_rows"] == rows + nbd
+    # every row a group touches is staged
+    for g0 in range(0, npx, 32):
+        rows = {p // tile_w for p in range(g0, min(g0 + 32, npx))}
+        assert not add_backdrop or len(rows) <= nbd
+    with pytest.raises(ValueError, match="K7"):
+        k7_geometry(4, 100, 128, 8, True)
+
+
+@pytest.mark.parametrize("nbo,npx,narrow", [(12, 1024, True), (96, 1024, True),
+                                             (128, 1024, True), (160, 1024, False),
+                                             (384, 1024, False), (32, 8192, False)])
+def test_k7_geometry_takes_narrow_blocks_on_small_grids(nbo, npx, narrow):
+    """A bucket whose grid has fewer blocks than the card has SMs (132)
+    takes K7's narrow form (2 pixels a thread, 512 threads), the others the
+    wide one (4 pixels, 256 threads); both stage the same shared bytes."""
+    from vgtpu_torch.ops.composite_flat_cuda import k7_geometry
+
+    g = k7_geometry(16, npx, 128, nbo, True, 0)
+    assert (g["grid"][0] * g["grid"][1] < 132) == narrow
+    assert (g["pixels_per_thread"], g["threads"]) == ((2, 512) if narrow else (4, 256))
+    assert g["smem_bytes"] == k7_geometry(16, npx, 128, nbo, True, 0,
+                                          sms=0)["smem_bytes"]
+
+
+def test_k7_row_mask_holds_every_row_an_instantiation_reads():
+    """K7 stages only the params rows its instantiation reads: the rows the
+    shared composite steps read for each lane (fill rule, AA, scissor,
+    paint kind and origin, inner colour; kind on the clip lane, the
+    colour-tile flag on the texture lane, the gradient's and the triangle's
+    paint rows) are all in row_mask."""
+    from vgtpu_torch.ops.composite import (
+        _P_AA, _P_CTILE, _P_KIND, _P_OX, _P_OY, _P_PAINT, _P_PK, _P_RULE, _P_SC,
+        _P_VALID)
+    from vgtpu_torch.ops.composite_flat_cuda import META, row_mask
+
+    base = {_P_VALID, _P_RULE, _P_AA, _P_PK, _P_OX, _P_OY,
+            *range(_P_SC, _P_SC + 4), *range(_P_PAINT + 10, _P_PAINT + 14)}
+    lane_rows = {8: {_P_KIND}, 4: {_P_CTILE},
+                 1: {*range(_P_PAINT, _P_PAINT + 10), *range(_P_PAINT + 14, _P_PAINT + 18)},
+                 2: set(range(_P_PAINT, _P_PAINT + 12))}
+    for g in range(16):
+        want = set(base)
+        for bit, rows in lane_rows.items():
+            if g & bit:
+                want |= rows
+        got = {r for r in range(META) if row_mask(g) >> r & 1}
+        assert got == want
+    assert row_mask(15) == (1 << META) - 1

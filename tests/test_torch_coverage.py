@@ -215,6 +215,61 @@ def test_live_edges_only_equal_the_dense_twin_bit_for_bit(th, tw, ch):
     assert 0.05 < frac < 0.8
 
 
+def coverage_windowed_walk(chunk_edges: torch.Tensor, tile_h: int, tile_w: int,
+                           window: int) -> torch.Tensor:
+    """coverage_live_edges_only walked as K1, K3 and K4 walk a tile taller
+    than their staging window: the row masks of rows r0 .. r0 + window - 1
+    only (edge_row_live from row0 = r0), those rows accumulated, then the
+    next window; a window's masks never cover another's rows."""
+    from vgtpu_torch.ops.coverage import edge_row_live, fma
+
+    nc, ch, _ = chunk_edges.shape
+    px = torch.arange(tile_w, dtype=torch.float32)
+    acc = torch.zeros((nc, tile_h, tile_w), dtype=torch.float32)
+    for r0 in range(0, tile_h, window):
+        nr = min(window, tile_h - r0)
+        live = edge_row_live(chunk_edges, nr, row0=r0)          # (NC, CH, nr)
+        py = torch.arange(r0, r0 + nr, dtype=torch.float32)[:, None]
+        win = torch.zeros((nc, nr, tile_w), dtype=torch.float32)
+        for e in range(ch):
+            x0, y0, x1, y1 = (chunk_edges[:, e, k][:, None, None] for k in range(4))
+            dy = y1 - y0
+            s = torch.sign(dy)
+            m = (x1 - x0) / torch.where(torch.abs(dy) < 1e-6, 1.0, dy)
+            steep = torch.abs(m) < 0.01
+            s_over_m = s / torch.where(steep, 1.0, m)
+            ytop = torch.maximum(torch.minimum(y0, y1), py)
+            h = torch.clamp_min(torch.minimum(torch.maximum(y0, y1), py + 1.0) - ytop,
+                                0.0)
+            xt = fma(m, ytop - y0, x0)
+            u0 = (px + 1.0) - xt
+            u1 = fma(-m, h, u0)
+            c0, c1 = torch.clamp(u0, 0.0, 1.0), torch.clamp(u1, 0.0, 1.0)
+            g = (c0 * (u0 - 0.5 * c0) - c1 * (u1 - 0.5 * c1)) * s_over_m
+            term = torch.where(steep, s * h * c0, g)
+            win = torch.where(live[:, e, :, None], win + term, win)
+        acc[:, r0:r0 + nr] = win
+    return acc
+
+
+@pytest.mark.parametrize("th,window", [(64, 8), (64, 24), (48, 16), (40, 40)])
+def test_windowed_walk_equals_the_dense_twin_bit_for_bit(th, window):
+    """The exactness of windowed staging: a tile taller than the staging
+    window, walked one window of row masks at a time (the last window
+    shorter where the window does not divide the tile), equals the dense
+    twin bit for bit (torch.equal) in K1's layout and, transposed, K4's
+    twin; on boundary_chunks over the tall tile and random_chunks."""
+    from vgtpu_torch.ops.coverage import coverage_chunks_t_torch
+
+    for edges in (boundary_chunks(th + window, 32, 24, th, TW),
+                  random_chunks(th * window, 32, 8)):
+        e = torch.from_numpy(edges)
+        walked = coverage_windowed_walk(e, th, TW, window)
+        assert torch.equal(walked, coverage_chunks_torch(e, th, TW))
+        assert torch.equal(walked.reshape(e.shape[0], -1).t(),
+                           coverage_chunks_t_torch(e, th, TW))
+
+
 @pytest.mark.parametrize("ch", [1, 2, 8, 24, 32, 33, 40, 48, 64])
 @pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (8, 256), (16, 128),
                                            (32, 256), (256, 128)])
@@ -227,38 +282,102 @@ def test_k1_geometry_admits_every_ch_and_tile_shape(tile_h, tile_w, ch):
     from vgtpu_torch.ops.coverage_cuda import SMEM_LIMIT, k1_geometry
 
     g = k1_geometry(tile_h, tile_w, ch)
+    assert g["window_rows"] == tile_h and g["windows"] == 1
     assert g["smem_bytes"] == g["shared_bytes"] == (
         4 * g["chunks_per_block"] * (8 * ch + tile_h * -(-ch // 32)))
     assert g["smem_bytes"] <= SMEM_LIMIT == 232_448
     assert g["threads"] == 128
 
 
+@pytest.mark.parametrize("ch", [2, 8, 24, 32, 33, 48])
+@pytest.mark.parametrize("tile_h", [8, 256, 7_072, 14_512, 14_520, 16_384, 65_536])
+def test_k1_geometry_admits_every_tile_height(tile_h, ch):
+    """K1 stages its row masks a window of rows at a time, so every tile
+    height vgtpu admits is taken: the whole tile in one window where its
+    masks fit the card (up to 14,512 rows at CH = 2, 7,072 at CH = 48: the
+    tiles K1 took before windows), else windows of the most rows that fit,
+    the staging within 227 KB whatever the height."""
+    from vgtpu_torch.ops.coverage_cuda import SMEM_LIMIT, edge_mask_bytes, k1_geometry
+
+    g = k1_geometry(tile_h, 128, ch)
+    win = g["window_rows"]
+    assert 1 <= win <= tile_h and g["windows"] == -(-tile_h // win)
+    assert g["smem_bytes"] == edge_mask_bytes(ch, win) <= SMEM_LIMIT
+    if edge_mask_bytes(ch, tile_h) <= SMEM_LIMIT:
+        assert win == tile_h                       # one window, as before
+    else:
+        assert edge_mask_bytes(ch, win + 1) > SMEM_LIMIT   # the most that fit
+    assert (win == 14_512) == (ch == 2 and tile_h >= 14_512)
+
+
 def test_k1_geometry_refuses_what_the_card_cannot_hold():
+    """With windowed masks only a CH whose edge scalars leave no room for
+    one row of masks is refused: 1,808 edges a chunk take windows of one
+    row, 1,809 do not fit; and a tile width that is not a multiple of 128."""
     from vgtpu_torch.ops.coverage_cuda import k1_geometry
 
-    assert k1_geometry(8, 128, 1_700)["smem_bytes"] <= 232_448
-    with pytest.raises(ValueError, match="over the card's 232448"):
-        k1_geometry(8, 128, 1_800)
-    assert k1_geometry(14_000, 128, 2)["smem_bytes"] <= 232_448
-    with pytest.raises(ValueError, match="over the card's 232448"):
-        k1_geometry(15_000, 128, 2)
+    assert k1_geometry(8, 128, 1_700)["window_rows"] == 8
+    assert k1_geometry(8, 128, 1_808)["window_rows"] == 1
+    assert k1_geometry(65_536, 128, 1_808)["smem_bytes"] <= 232_448
+    with pytest.raises(ValueError, match="no room for 1 row"):
+        k1_geometry(8, 128, 1_809)
     with pytest.raises(ValueError, match="multiple of 128"):
         k1_geometry(8, 192, 8)
 
 
 @pytest.mark.parametrize("ch", [1, 2, 24, 32, 33, 48, 64, 226])
 def test_k4_geometry_admits_every_ch_the_card_holds(ch):
-    """K4 stages 1 KB an edge for its 32 chunks in dynamic shared memory
-    sized at launch, and refuses only a CH over 232,448 shared bytes (227
-    edges fill them)."""
-    from vgtpu_torch.ops.coverage_t_cuda import SMEM_LIMIT, k4_geometry
+    """K4 stages, per block of cpb chunks and a window of at most 8 rows,
+    the edge scalars (32 bytes an edge), the row masks and 8 warps'
+    transpose buffers of 128 pixels x (cpb + 1) floats in dynamic shared
+    memory sized at launch: 8 chunks a block (one 32-byte sector per
+    pixel's store) up to ~700 edges, then 4, 2, 1, so every CH the earlier
+    K4 took (227) and many more are admitted; a CH no single chunk can hold
+    (about 6,900 edges) is refused."""
+    from vgtpu_torch.ops.coverage_t_cuda import SMEM_LIMIT, k4_geometry, k4_smem
 
-    g = k4_geometry(ch)
-    assert g["smem_bytes"] == g["shared_bytes"] == ch * 1024
-    assert g["shared_bytes"] <= SMEM_LIMIT
-    assert k4_geometry(227)["smem_bytes"] == SMEM_LIMIT
+    g = k4_geometry(8, 128, ch)
+    cpb = g["chunks_per_block"]
+    assert cpb == 8
+    assert g["window_rows"] == 8 and g["grid_y"] == 1 and g["threads"] == 256
+    assert g["smem_bytes"] == g["shared_bytes"] == k4_smem(ch, cpb, 8) <= SMEM_LIMIT
+    assert k4_smem(ch, cpb, 8) == 4 * (cpb * (8 * ch + 8 * -(-ch // 32))
+                                       + 8 * 128 * (cpb + 1))
+    for deep, deep_cpb in ((227, 8), (450, 8), (800, 4), (3_000, 2), (6_500, 1)):
+        gd = k4_geometry(8, 128, deep)
+        assert gd["chunks_per_block"] == deep_cpb and gd["smem_bytes"] <= SMEM_LIMIT
     with pytest.raises(ValueError, match="over the card's 232448"):
-        k4_geometry(228)
+        k4_geometry(8, 128, 7_300)
+
+
+@pytest.mark.parametrize("tile_h", [1, 3, 8, 16, 256, 16_384, 65_536, 600_000])
+def test_k4_geometry_windows_any_tile_height(tile_h):
+    """K4's window is at most 8 rows (fewer for a shorter tile); blocks along
+    grid.y, at most 65,535 of them, stride over the tile's windows, so the
+    staging does not grow with the tile and every height launches."""
+    from vgtpu_torch.ops.coverage_t_cuda import k4_geometry
+
+    g = k4_geometry(tile_h, 256, 24)
+    assert g["window_rows"] == min(tile_h, 8)
+    assert g["grid_y"] == min(-(-tile_h // g["window_rows"]), 65_535)
+    assert g["smem_bytes"] == k4_geometry(8, 128, 24)["smem_bytes"] or tile_h < 8
+
+
+def test_k4_pool_packing_takes_its_own_chunks_per_block():
+    """K4's launch packs its pools as K1's does (deepest first, at most
+    MAX_POOLS a launch) with its own chunks per block: block prefixes of
+    ceil(NC / 8) blocks, each pool's descriptor pointing at its own output
+    (the row is unused); a block prefix counted with another chunks per
+    block is what the card's read_pools refuses."""
+    from vgtpu_torch.ops.coverage_cuda import MAX_POOLS, pack_pools
+
+    shapes = [(100, 2), (33, 8), (0, 24), (64, 48)]
+    (descs,) = pack_pools(shapes, 8)
+    assert [(i, b) for i, _r, b in descs] == [(3, 0), (1, 8), (0, 13)]
+    assert pack_pools(shapes, 8) != pack_pools(shapes)
+    launches = pack_pools([(40, 2 + i) for i in range(MAX_POOLS + 3)], 8)
+    assert [len(d) for d in launches] == [MAX_POOLS, 3]
+    assert [b for _i, _r, b in launches[1]] == [0, 5, 10]
 
 
 def test_pack_pools_block_prefix_rows_and_order():
@@ -370,6 +489,31 @@ def test_coverage_t_pools_match_pallas_default_unroll():
             jnp.asarray(edges), TH, TW, interpret=True))
         got = coverage_chunks_t(torch.from_numpy(edges), TH, TW)
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_coverage_pools_t_matches_pallas_kernel_per_pool():
+    """coverage_pools_t, the one-call form the sharded paths take (one K4
+    launch over every pool on CUDA), gives each pool's pixel-major coverage
+    as vgtpu's _kernel_t2 does (interpret mode), pools in order; other
+    devices are refused."""
+    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t_raw
+
+    from vgtpu_torch.ops.coverage import coverage_pools_t
+
+    pools = [np.ascontiguousarray(ce) for ce, _cent in _small_scene_plan().chunk_pools]
+    got = coverage_pools_t([torch.from_numpy(ce) for ce in pools], TH, TW)
+    assert len(got) == len(pools) > 1
+    for ce, cov in zip(pools, got):
+        n = len(ce)
+        npad = -(-n // 128) * 128
+        edges = np.zeros((npad,) + ce.shape[1:], np.float32)
+        edges[:n] = ce
+        ref = np.asarray(coverage_chunks_pallas_t_raw(
+            jnp.asarray(edges), TH, TW, interpret=True))[:, :n]
+        assert cov.shape == (TH * TW, n)
+        np.testing.assert_allclose(cov.numpy(), ref, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        coverage_pools_t([torch.zeros((4, 2, 4), device="meta")], TH, TW)
 
 
 def test_entry_coverage_from_pools_matches_vgtpu():

@@ -207,11 +207,11 @@ def test_k3_geometry_admits_every_tile_height(tile_h, ss):
     """K3 sizes its staging from the tile's sub-rows and the pool's CH:
     every tile height vgtpu admits at every ss, and every CH up to 64 (the
     native binner's largest pool in the chunk_pools=(2, 8, 48) frames is
-    48), is admitted within the 227 KB a block may use.  Per chunk the
-    edges (8 floats an edge) and sub-row masks (ceil(CH/32) words a
-    sub-row) are dynamic shared memory; the rparams staging, at least
-    RP_BD + TH floats per chunk, is static up to 64 sub-rows and dynamic
-    above."""
+    48), is admitted within the 227 KB a block may use, in one window.  Per
+    chunk the edges (8 floats an edge) and sub-row masks (ceil(CH/32) words
+    a sub-row) are dynamic shared memory; the rparams staging, RP_BD + 64
+    floats per chunk, is static up to 64 sub-rows, and RP_BD + the window's
+    sub-rows of dynamic memory above."""
     from vgtpu_torch.ops.coverage_cuda import edge_mask_bytes
     from vgtpu_torch.ops.coverage_resolve import RP_BD
     from vgtpu_torch.ops.coverage_resolve_cuda import SMEM_LIMIT, k3_geometry
@@ -219,25 +219,54 @@ def test_k3_geometry_admits_every_tile_height(tile_h, ss):
     th = tile_h * ss                      # sub-rows
     for ch in (1, 2, 8, 24, 32, 33, 40, 48, 64):
         g = k3_geometry(th, ss, ch)
+        assert g["window_rows"] == th and g["windows"] == 1
         assert g["staged_rows"] == RP_BD + max(th, 64)
         staging = 4 * g["chunks_per_block"] * g["staged_rows"]
         edges = 4 * g["chunks_per_block"] * (8 * ch + th * -(-ch // 32))
         assert edge_mask_bytes(ch, th) == edges
+        static = staging if th <= 64 else 0
         assert g["smem_bytes"] == edges + (0 if th <= 64 else staging)
-        assert g["shared_bytes"] == edges + staging <= SMEM_LIMIT == 232_448
+        assert g["shared_bytes"] == g["smem_bytes"] + static <= SMEM_LIMIT == 232_448
     with pytest.raises(ValueError, match="need ss"):
         k3_geometry(th + 1, ss, 2) if ss > 1 else k3_geometry(0, 1, 2)
 
 
+@pytest.mark.parametrize("ss", [1, 2, 4, 8])
+@pytest.mark.parametrize("ch", [2, 24, 48])
+@pytest.mark.parametrize("tile_h", [256, 7_248, 8_192, 16_384, 65_536])
+def test_k3_geometry_windows_tall_tiles(tile_h, ch, ss):
+    """Tiles of any height (in sub-rows, a multiple of ss) are admitted: the
+    masks and the rparams backdrop rows are staged for a window of whole
+    output rows (a multiple of ss sub-rows), the whole tile where it fits,
+    else the most that fit, within 227 KB."""
+    from vgtpu_torch.ops.coverage_resolve import RP_BD
+    from vgtpu_torch.ops.coverage_resolve_cuda import SMEM_LIMIT, k3_geometry
+
+    g = k3_geometry(tile_h, ss, ch)
+    win = g["window_rows"]
+    assert win % ss == 0 and ss <= win <= tile_h
+    assert g["windows"] == -(-tile_h // win)
+    assert g["staged_rows"] == RP_BD + win
+    assert g["shared_bytes"] <= SMEM_LIMIT
+    row = 4 * g["chunks_per_block"] * (-(-ch // 32) + 1)
+    assert win == tile_h or g["shared_bytes"] + ss * row > SMEM_LIMIT
+
+
 def test_k3_geometry_refuses_what_the_card_cannot_hold():
-    """Only a block over 232,448 shared bytes is refused: at CH = 2 (one
-    mask word a sub-row) 384 + 32 TH bytes hold 7,248 sub-rows, not 7,256;
-    at 8 rows, 1,700 edges a chunk and not 1,800."""
+    """Only a CH whose edge scalars leave no room for the masks is refused:
+    tiles of up to 64 sub-rows take one window (8 sub-rows hold 1,752 edges
+    a chunk, not 1,753), taller tiles windows of whole output rows (1,800
+    edges a chunk take windows of one output row at ss = 2, 1,801 do not
+    fit); and ss must divide the tile."""
     from vgtpu_torch.ops.coverage_resolve_cuda import k3_geometry
 
-    assert k3_geometry(7_248, 8, 2)["shared_bytes"] <= 232_448
-    with pytest.raises(ValueError, match="over the card's 232448"):
-        k3_geometry(7_256, 8, 2)
-    assert k3_geometry(8, 1, 1_700)["shared_bytes"] <= 232_448
-    with pytest.raises(ValueError, match="over the card's 232448"):
-        k3_geometry(8, 1, 1_800)
+    assert k3_geometry(7_256, 8, 2)["shared_bytes"] <= 232_448
+    assert k3_geometry(8, 1, 1_700)["window_rows"] == 8
+    assert k3_geometry(8, 1, 1_752)["window_rows"] == 8
+    with pytest.raises(ValueError, match="no room for 8 row"):
+        k3_geometry(8, 1, 1_753)
+    assert k3_geometry(128, 2, 1_800)["window_rows"] == 2
+    with pytest.raises(ValueError, match="no room for 2 row"):
+        k3_geometry(128, 2, 1_801)
+    with pytest.raises(ValueError, match="need ss"):
+        k3_geometry(7_257, 8, 2)

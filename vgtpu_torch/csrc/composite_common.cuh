@@ -4,9 +4,10 @@
 // params column, the fill rule, the clip state machine, and the shading and
 // blending of one output pixel.  The lane switches (gradient, tri, texture,
 // even-odd, non-AA, scissor) are arguments: K2 passes its template bits,
-// which fold away in the inlined call, K7 its runtime flags.  The params
-// column is an accessor: K7 reads it from device memory (GlobalColumn), K2
-// from the block's staged slot table in shared memory (SharedColumn); the
+// which fold away in the inlined call, K7 its template bits for gradient,
+// tri and texture and runtime flags for the rest.  The params column is an
+// accessor over a slot table staged in shared memory: K2's rows adjacent
+// (SharedColumn), K7's a row of tiles apart (its StagedColumn); the
 // arithmetic is the same.  Rounding: see composite.cu (-fmad=false, the
 // gradient's two explicit __fmaf_rn).
 #pragma once
@@ -22,20 +23,6 @@ constexpr float K_DRAW = 0.f, K_CLIP_ADD = 1.f, K_CLIP_COMMIT = 2.f;
 constexpr float K_CLIP_RESET = 3.f;
 constexpr float PK_GRADIENT = 1.f, PK_IMAGE = 2.f, PK_TEXTURE = 3.f;
 constexpr float PK_TRI = 4.f;
-
-// Row `row` of a (slot, tile) params column pp whose rows are nbp apart.
-__device__ __forceinline__ float param(const float* pp, int nbp, int row) {
-  return __ldg(pp + static_cast<size_t>(row) * nbp);
-}
-
-// A (slot, tile) params column in device memory, rows `stride` floats apart.
-struct GlobalColumn {
-  const float* p;
-  int stride;
-  __device__ __forceinline__ float operator()(int row) const {
-    return param(p, stride, row);
-  }
-};
 
 // A (slot, tile) params column staged in shared memory, rows adjacent.
 struct SharedColumn {

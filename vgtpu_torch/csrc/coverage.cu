@@ -28,9 +28,15 @@
 //   edge's scalars (x0, y0, ymin, ymax, s, m, steep, s/m) in shared memory
 //   and takes one ballot per tile row of the edges with h > 0, computed with
 //   the kernel's own float expressions: a per-(chunk, row) mask, ceil(CH/32)
-//   words.  Any CH: the staging is dynamic shared memory sized at launch,
-//   kChunksPerBlock * (32 CH + 4 TH ceil(CH/32)) bytes for the launch's
-//   deepest pool (ops/coverage_cuda.k1_geometry mirrors it).
+//   words.  Any CH and any tile height: the staging is dynamic shared
+//   memory sized at launch for the launch's deepest pool and a window of
+//   W rows, kChunksPerBlock * (32 CH + 4 W ceil(CH/32)) bytes.  W is the
+//   whole tile where that fits in the card's 227 KB (every tile up to
+//   14,512 rows at CH = 2, 7,072 at CH = 48), else the most rows that fit:
+//   the block stages the masks of one window, walks it, and restages the
+//   next (ops/coverage_cuda.k1_geometry mirrors the sizing).  A tile of one
+//   window runs the loop once, with the staging and walk it had before
+//   windows existed.
 // - Warp <-> (chunk, row, 128-column group), lane <-> 4 adjacent columns.
 //   The warp walks only its row's set bits, in edge order (__ffs): per live
 //   edge it reads the 8 scalars as two broadcast float4 loads, computes
@@ -67,15 +73,16 @@ constexpr int kChunksPerBlock = vg::kPoolChunksPerBlock;
 constexpr int kThreads = vg::kPoolThreads;
 constexpr int kGroupCols = 128;  // a warp's columns: 32 lanes x 4
 
-// Dynamic shared bytes of a block over chunks of ch edges and th rows.
-inline size_t block_smem(int ch, int th) {
+// Dynamic shared bytes of a block over chunks of ch edges and windows of
+// win rows.
+inline size_t block_smem(int ch, int win) {
   const size_t nwords = static_cast<size_t>((ch + 31) / 32);
   return sizeof(float) * kChunksPerBlock * vg::kEdgeScalars * ch +
-         sizeof(unsigned) * kChunksPerBlock * th * nwords;
+         sizeof(unsigned) * kChunksPerBlock * win * nwords;
 }
 
 __global__ void __launch_bounds__(kThreads)
-coverage_chunks_kernel(const vg::Pools P, int th, int tile_w) {
+coverage_chunks_kernel(const vg::Pools P, int th, int tile_w, int win) {
   extern __shared__ __align__(16) float smem[];
   const vg::PoolDesc d = vg::pick_pool(P);
   const int ch = d.ch;
@@ -84,27 +91,30 @@ coverage_chunks_kernel(const vg::Pools P, int th, int tile_w) {
   float* sp = smem;
   unsigned* masks =
       reinterpret_cast<unsigned*>(smem + kChunksPerBlock * ch * vg::kEdgeScalars);
-  vg::stage_chunks(d.edges, d.nc, ch, c0, kChunksPerBlock, th, sp, masks);
-
   const int lane = threadIdx.x & 31;
   const int groups = tile_w / kGroupCols;
-  const int per_chunk = th * groups;
   const int npx = th * tile_w;
-  for (int t = threadIdx.x >> 5; t < kChunksPerBlock * per_chunk;
-       t += kThreads / 32) {
-    const int lc = t / per_chunk;
-    const int c = c0 + lc;
-    if (c >= d.nc) break;  // t rises, so every later task is past nc too
-    const int rg = t - lc * per_chunk;
-    const int r = rg / groups;
-    const int px0 = (rg - r * groups) * kGroupCols + lane * 4;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    vg::add_live_edges<4>(sp + lc * ch * vg::kEdgeScalars,
-                          masks + (lc * th + r) * nwords, nwords,
-                          static_cast<float>(r), px0, acc);
-    *reinterpret_cast<float4*>(d.out + static_cast<size_t>(c) * npx +
-                               r * tile_w + px0) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  for (int r0 = 0; r0 < th; r0 += win) {
+    const int nr = th - r0 < win ? th - r0 : win;
+    if (r0 > 0) __syncthreads();  // every warp is done with the last window
+    vg::stage_chunks(d.edges, d.nc, ch, c0, kChunksPerBlock, r0, nr, sp, masks);
+    const int per_chunk = nr * groups;
+    for (int t = threadIdx.x >> 5; t < kChunksPerBlock * per_chunk;
+         t += kThreads / 32) {
+      const int lc = t / per_chunk;
+      const int c = c0 + lc;
+      if (c >= d.nc) break;  // t rises, so every later task is past nc too
+      const int rg = t - lc * per_chunk;
+      const int r = rg / groups;
+      const int px0 = (rg - r * groups) * kGroupCols + lane * 4;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      vg::add_live_edges<4>(sp + lc * ch * vg::kEdgeScalars,
+                            masks + (lc * nr + r) * nwords, nwords,
+                            static_cast<float>(r0 + r), px0, acc);
+      *reinterpret_cast<float4*>(d.out + static_cast<size_t>(c) * npx +
+                                 (r0 + r) * tile_w + px0) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
   }
 }
 
@@ -114,21 +124,23 @@ coverage_chunks_kernel(const vg::Pools P, int th, int tile_w) {
 // (unused), out, nc, ch, block0: ops/coverage_cuda.pack_pools), read on the
 // host; each pool's edges (nc, ch, 4) f32 and its output rows (nc, th *
 // tile_w) f32, 16-byte aligned, all on `device`.  tile_w a multiple of 128.
-// smem_bytes is the launch's dynamic shared memory as the wrapper computed
-// it (ops/coverage_cuda.k1_geometry for the call's deepest pool); less than
-// this file's sizing for the launch's deepest pool, or a malformed
-// descriptor, is refused.  Launches on `stream`, does not synchronise;
-// returns cudaGetLastError().
+// win: the rows a window stages (>= 1); smem_bytes: the launch's dynamic
+// shared memory; both as the wrapper computed them (ops/coverage_cuda.
+// k1_geometry for the call's deepest pool).  A smem_bytes below this
+// file's sizing of min(win, th) rows for the launch's deepest pool, or a
+// malformed descriptor, is refused.  Launches on `stream`, does not
+// synchronise; returns cudaGetLastError().
 extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
-                                  int tile_w, int smem_bytes, int device,
-                                  cudaStream_t stream) {
+                                  int tile_w, int win, int smem_bytes,
+                                  int device, cudaStream_t stream) {
   vg::Pools pools;
   int max_ch = 0;
   const int blocks =
       vg::read_pools(desc, npools, kChunksPerBlock, &pools, &max_ch);
-  const size_t smem = block_smem(max_ch, th);
-  if (blocks < 0 || th < 1 || tile_w < kGroupCols || tile_w % kGroupCols ||
-      smem_bytes < 0 || static_cast<size_t>(smem_bytes) < smem) {
+  if (win > th) win = th;
+  if (blocks < 0 || th < 1 || win < 1 || tile_w < kGroupCols ||
+      tile_w % kGroupCols || smem_bytes < 0 ||
+      static_cast<size_t>(smem_bytes) < block_smem(max_ch, win)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const vg::DeviceScope scope(device);
@@ -136,7 +148,7 @@ extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
   if (smem_bytes > 48 * 1024) {
     vg::allow_dynamic_smem(coverage_chunks_kernel, &raised);
   }
-  coverage_chunks_kernel<<<blocks, kThreads, smem_bytes, stream>>>(pools, th,
-                                                                  tile_w);
+  coverage_chunks_kernel<<<blocks, kThreads, smem_bytes, stream>>>(
+      pools, th, tile_w, win);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,17 +38,24 @@
 //   stages, as K1 (vg::stage_chunks), each edge's scalars and a per-(chunk,
 //   sub-row) mask of the edges with h > 0, one ballot per sub-row; the edges
 //   and masks live in dynamic shared memory sized at launch for the
-//   launch's deepest pool, so any CH is taken.  Each chunk's rparams column
+//   launch's deepest pool.  Each chunk's rparams column
 //   (RP_ROWS x NC, a strided column, read once per block) is staged too:
 //   tiles of up to kStaticTh = 64 sub-rows (every tile at tile_h 8, the
 //   default) stage it in a static array with a compile-time row stride,
-//   taller tiles (up to 256 sub-rows: tile_h 32 at ss = 8) after the masks
-//   in the dynamic shared memory, kChunksPerBlock * (RP_BD + TH) floats
-//   (ops/coverage_resolve_cuda.k3_geometry mirrors the sizing).  The static
+//   taller tiles after the masks in the dynamic shared memory.  The static
 //   form keeps the rparams staging's source as it was before the dynamic
 //   form existed: builds that reached it through one pointer for both forms
 //   compiled to a reordered body whose 1080p ss=2 launches took ~5% more
 //   device time (NVIDIA H100 80GB HBM3, 700 W).
+// - Windows of sub-rows (tiles over kStaticTh sub-rows, their own kernel,
+//   coverage_res_windowed_kernel).  The masks and the backdrop rows of the
+//   rparams column are staged for a window of W output rows (W * ss
+//   sub-rows) at a time: the whole tile where it fits the card's 227 KB,
+//   else the most output rows that fit.  The block walks a window, then
+//   restages the next, so the staging does not grow with the tile:
+//   kChunksPerBlock * (32 CH + 4 W ss ceil(CH/32)) bytes + kChunksPerBlock
+//   * (RP_BD + W ss) floats (ops/coverage_resolve_cuda.k3_geometry mirrors
+//   the sizing).  The static form stages its whole tile, as before.
 // - Warp <-> (chunk, output row, 128-column group), lane <-> 4 adjacent
 //   columns, as K1.  The warp walks its ss sub-rows one after the other,
 //   each over that sub-row's live edges only, in edge order
@@ -98,24 +105,30 @@ __device__ __forceinline__ float resolve_sub(float w, const ResolveParams& r,
   return cov * (inside ? 1.f : 0.f);
 }
 
-// Dynamic shared bytes of a block over chunks of ch edges and th sub-rows:
-// the edge scalars and the masks, then (th > kStaticTh) the rparams.
-inline size_t block_smem(int ch, int th) {
+// Dynamic shared bytes of a block over chunks of ch edges, tiles of th
+// sub-rows and windows of win sub-rows: the edge scalars and a window's
+// masks (the static form: one window, win = th), then (th > kStaticTh) the
+// rparams header and a window's backdrop rows.
+inline size_t block_smem(int ch, int th, int win) {
   const size_t nwords = static_cast<size_t>((ch + 31) / 32);
   return sizeof(float) * kChunksPerBlock * vg::kEdgeScalars * ch +
-         sizeof(unsigned) * kChunksPerBlock * th * nwords +
+         sizeof(unsigned) * kChunksPerBlock * win * nwords +
          (th <= kStaticTh ? 0 : sizeof(float) * kChunksPerBlock *
-                                    static_cast<size_t>(RP_BD + th));
+                                    static_cast<size_t>(RP_BD + win));
 }
 
-// kRows > 0: each chunk's rparams column is staged in a static array of
-// kRows rows (tiles of up to kRows - RP_BD sub-rows); kRows == 0: in dynamic
-// shared memory of RP_BD + TH rows per chunk, after the edges and masks.
+// Tiles of up to kRows - RP_BD sub-rows (kRows = RP_BD + kStaticTh): each
+// chunk's rparams column staged in a static array of kRows rows, the masks
+// of the whole tile in one window.  Its source is the static form's before
+// windows existed: one loop over windows in it compiled to 40 more
+// instructions and took ~6% more device time on the 1080p ss=2 frame
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py [6]).
 template <int kRows>
 __global__ void __launch_bounds__(kThreads)
 coverage_res_kernel(const vg::Pools P, int tile_w, int ss, int th_out) {
+  static_assert(kRows > 0, "the static form");
   extern __shared__ __align__(16) float smem[];
-  __shared__ float srp[kChunksPerBlock][kRows > 0 ? kRows : 1];
+  __shared__ float srp[kChunksPerBlock][kRows];
   const vg::PoolDesc d = vg::pick_pool(P);
   const int nc = d.nc, ch = d.ch;
   const int nwords = (ch + 31) >> 5;
@@ -125,7 +138,6 @@ coverage_res_kernel(const vg::Pools P, int tile_w, int ss, int th_out) {
   float* sp = smem;
   unsigned* masks =
       reinterpret_cast<unsigned*>(smem + kChunksPerBlock * ch * vg::kEdgeScalars);
-  float* srp_dynamic = reinterpret_cast<float*>(masks + kChunksPerBlock * th * nwords);
   const float* rp = d.rp;
 
   // rparams column of each chunk; neighbouring threads read neighbouring
@@ -134,15 +146,9 @@ coverage_res_kernel(const vg::Pools P, int tile_w, int ss, int th_out) {
     const int k = i / kChunksPerBlock;
     const int lc = i - k * kChunksPerBlock;
     const int c = c0 + lc;
-    if (c < nc) {
-      if constexpr (kRows > 0) {
-        srp[lc][k] = rp[static_cast<size_t>(k) * nc + c];
-      } else {
-        srp_dynamic[lc * nrp + k] = rp[static_cast<size_t>(k) * nc + c];
-      }
-    }
+    if (c < nc) srp[lc][k] = rp[static_cast<size_t>(k) * nc + c];
   }
-  vg::stage_chunks(d.edges, nc, ch, c0, kChunksPerBlock, th, sp, masks);
+  vg::stage_chunks(d.edges, nc, ch, c0, kChunksPerBlock, 0, th, sp, masks);
 
   const int lane = threadIdx.x & 31;
   const int groups = tile_w / kGroupCols;
@@ -157,12 +163,7 @@ coverage_res_kernel(const vg::Pools P, int tile_w, int ss, int th_out) {
     const int rg = t - lc * per_chunk;
     const int ro = rg / groups;
     const int px0 = (rg - ro * groups) * kGroupCols + lane * 4;
-    const float* q;
-    if constexpr (kRows > 0) {
-      q = srp[lc];
-    } else {
-      q = srp_dynamic + lc * nrp;
-    }
+    const float* q = srp[lc];
     const ResolveParams r{q[RP_EO],     q[RP_NOAA],   q[RP_TEXF],   q[RP_SC],
                           q[RP_SC + 1], q[RP_SC + 2], q[RP_SC + 3]};
     const float* sp_chunk = sp + lc * ch * vg::kEdgeScalars;
@@ -186,6 +187,84 @@ coverage_res_kernel(const vg::Pools P, int tile_w, int ss, int th_out) {
                                ro * tile_w + px0) =
         make_float4(c_sum[0] * inv_ss, c_sum[1] * inv_ss, c_sum[2] * inv_ss,
                     c_sum[3] * inv_ss);
+  }
+}
+
+// Taller tiles: the masks and the rparams backdrop rows staged a window of
+// win_out output rows (win_out * ss sub-rows) at a time in dynamic shared
+// memory after the edges, RP_BD header rows + the window's backdrop rows
+// per chunk.
+__global__ void __launch_bounds__(kThreads)
+coverage_res_windowed_kernel(const vg::Pools P, int tile_w, int ss, int th_out,
+                             int win_out) {
+  extern __shared__ __align__(16) float smem[];
+  const vg::PoolDesc d = vg::pick_pool(P);
+  const int nc = d.nc, ch = d.ch;
+  const int nwords = (ch + 31) >> 5;
+  const int c0 = (static_cast<int>(blockIdx.x) - d.block0) * kChunksPerBlock;
+  const int win = win_out * ss;          // sub-rows a window stages
+  float* sp = smem;
+  unsigned* masks =
+      reinterpret_cast<unsigned*>(smem + kChunksPerBlock * ch * vg::kEdgeScalars);
+  float* srp = reinterpret_cast<float*>(masks + kChunksPerBlock * win * nwords);
+  const float* rp = d.rp;
+  const int lane = threadIdx.x & 31;
+  const int groups = tile_w / kGroupCols;
+  const int npx_out = th_out * tile_w;
+  const float inv_ss = 1.f / static_cast<float>(ss);
+
+  for (int ro0 = 0; ro0 < th_out; ro0 += win_out) {
+    const int nro = th_out - ro0 < win_out ? th_out - ro0 : win_out;
+    const int r0 = ro0 * ss, nr = nro * ss;
+    if (ro0 > 0) __syncthreads();  // every warp is done with the last window
+    // the RP_BD header rows and the window's backdrop rows, RP_BD + r0 ..
+    // RP_BD + r0 + nr - 1, of each chunk's rparams column (stage_chunks'
+    // closing barrier covers these stores)
+    const int nrp = RP_BD + nr;
+    for (int i = threadIdx.x; i < kChunksPerBlock * nrp; i += blockDim.x) {
+      const int k = i / kChunksPerBlock;
+      const int lc = i - k * kChunksPerBlock;
+      const int c = c0 + lc;
+      const int row = k < RP_BD ? k : k + r0;
+      if (c < nc) srp[lc * (RP_BD + win) + k] = rp[static_cast<size_t>(row) * nc + c];
+    }
+    vg::stage_chunks(d.edges, nc, ch, c0, kChunksPerBlock, r0, nr, sp, masks);
+
+    const int per_chunk = nro * groups;
+    for (int t = threadIdx.x >> 5; t < kChunksPerBlock * per_chunk;
+         t += kThreads / 32) {
+      const int lc = t / per_chunk;
+      const int c = c0 + lc;
+      if (c >= nc) break;  // t rises, so every later task is past nc too
+      const int rg = t - lc * per_chunk;
+      const int rl = rg / groups;
+      const int ro = ro0 + rl;
+      const int px0 = (rg - rl * groups) * kGroupCols + lane * 4;
+      const float* q = srp + lc * (RP_BD + win);  // row RP_BD + j: sub-row r0 + j
+      const ResolveParams r{q[RP_EO],     q[RP_NOAA],   q[RP_TEXF],   q[RP_SC],
+                            q[RP_SC + 1], q[RP_SC + 2], q[RP_SC + 3]};
+      const float* sp_chunk = sp + lc * ch * vg::kEdgeScalars;
+      float c_sum[4];
+      for (int k = 0; k < ss; ++k) {
+        const int sr = ro * ss + k;
+        const float py = static_cast<float>(sr);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        vg::add_live_edges<4>(sp_chunk, masks + (lc * nr + sr - r0) * nwords,
+                              nwords, py, px0, acc);
+        const float bd = q[RP_BD + sr - r0];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float cv = resolve_sub(acc[j] + bd, r,
+                                       static_cast<float>(px0 + j) + 0.5f,
+                                       py + 0.5f);
+          c_sum[j] = k == 0 ? cv : c_sum[j] + cv;
+        }
+      }
+      *reinterpret_cast<float4*>(d.out + static_cast<size_t>(c) * npx_out +
+                                 ro * tile_w + px0) =
+          make_float4(c_sum[0] * inv_ss, c_sum[1] * inv_ss, c_sum[2] * inv_ss,
+                      c_sum[3] * inv_ss);
+    }
   }
 }
 
@@ -224,24 +303,26 @@ resolve_rows_kernel(const float* __restrict__ cov_sub,
 // each pool's edges (nc, ch, 4) f32, rparams (RP_BD + th rows padded, nc)
 // f32 (row stride nc) and output rows (nc, th_out * tile_w) f32, 16-byte
 // aligned (a row range of the caller's cov_final), all on `device`.
-// tile_w a multiple of 128.  smem_bytes is the launch's dynamic shared
-// memory as the wrapper computed it (ops/coverage_resolve_cuda.k3_geometry
-// for the call's deepest pool); less than this file's sizing for the
-// launch's deepest pool, or a malformed descriptor, is refused.  Launches
-// on `stream`, does not synchronise; returns cudaGetLastError().
+// tile_w a multiple of 128.  win_out: the output rows a window stages (>=
+// 1);
+// smem_bytes: the launch's dynamic shared memory; both as the wrapper
+// computed them (ops/coverage_resolve_cuda.k3_geometry for the call's
+// deepest pool).  A smem_bytes below this file's sizing for the launch's
+// deepest pool, or a malformed descriptor, is refused.  Launches on
+// `stream`, does not synchronise; returns cudaGetLastError().
 extern "C" int vg_coverage_chunks_res(const long long* desc, int npools,
                                       int tile_w, int ss, int th_out,
-                                      int smem_bytes, int device,
+                                      int win_out, int smem_bytes, int device,
                                       cudaStream_t stream) {
   vg::Pools pools;
   int max_ch = 0;
   const int blocks =
       vg::read_pools(desc, npools, kChunksPerBlock, &pools, &max_ch);
   const int th = th_out * ss;
-  const size_t smem = block_smem(max_ch, th);
-  if (blocks < 0 || ss < 1 || th_out < 1 ||
-      tile_w < kGroupCols || tile_w % kGroupCols ||
-      smem_bytes < 0 || static_cast<size_t>(smem_bytes) < smem) {
+  if (th <= kStaticTh || win_out > th_out) win_out = th_out;  // static: one window
+  if (blocks < 0 || ss < 1 || th_out < 1 || win_out < 1 ||
+      tile_w < kGroupCols || tile_w % kGroupCols || smem_bytes < 0 ||
+      static_cast<size_t>(smem_bytes) < block_smem(max_ch, th, win_out * ss)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const vg::DeviceScope scope(device);
@@ -255,10 +336,10 @@ extern "C" int vg_coverage_chunks_res(const long long* desc, int npools,
   } else {
     static unsigned raised = 0;
     if (smem_bytes > 48 * 1024) {
-      vg::allow_dynamic_smem(coverage_res_kernel<0>, &raised);
+      vg::allow_dynamic_smem(coverage_res_windowed_kernel, &raised);
     }
-    coverage_res_kernel<0><<<blocks, kThreads, smem_bytes, stream>>>(
-        pools, tile_w, ss, th_out);
+    coverage_res_windowed_kernel<<<blocks, kThreads, smem_bytes, stream>>>(
+        pools, tile_w, ss, th_out, win_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,29 +8,52 @@
 // signed area chunk c's CH edges sweep over tile pixel p.  The TPU kernel
 // writes (g0 - g1) * b_gen + a_vert * c0, with b_gen = 0 on near-vertical
 // edges and a_vert = 0 on the others, so one term is always an exact 0 and
-// the sum equals K1's select form bit for bit; this kernel takes K1's
-// per-edge arithmetic from edge_coverage.cuh.  The plain twin is
+// the sum equals K1's select form bit for bit.  The plain twin is
 // vgtpu_torch/ops/coverage.py::coverage_chunks_t_torch.
 //
-// What bounds it on an H100: arithmetic (about 25 float ops per edge and
-// pixel: every edge at every pixel, where K1 skips the rows an edge does
-// not span; 16*CH bytes in and 4 bytes out per chunk and pixel).
+// What bounds it on an H100: the 4 bytes of coverage written per chunk and
+// pixel, against ~12 float ops per pixel and *live* (edge, row) pair, as
+// K1 (chip_smoke.py [6] prints the live share of the sharded frame's pools).
 //
-// Design: a block of 32 x 8 threads owns 32 consecutive chunks and a slab
-// of pixels.  threadIdx.x is the chunk, so a warp stores 32 consecutive
-// floats of one pixel row of the output: the stores coalesce.  The per-edge
-// scalars of the block's chunks are staged in shared memory with the chunk
-// innermost ([edge][scalar][chunk], 32 KB at CH = 32), so a warp's loads hit
-// 32 different banks.  The staging is dynamic shared memory of 1 KB per edge
-// sized at launch, so any CH the card can hold (227 edges) is taken
-// (ops/coverage_t_cuda.k4_geometry mirrors the sizing).  One form serves
-// every CH: it has the former static 32-edge array's 952 instructions and
-// 55 registers, and its device time on the n = 1 sharded frame is within
-// 2% of that form's (NVIDIA H100 80GB HBM3, 700 W).  Each thread keeps
-// kPix accumulators and walks the edges
-// outermost: one edge's 8 scalars are loaded once for kPix pixels, and
-// every pixel still sums its edges in edge order (K1's and the twin's order).
-// Rounding: as K1 (-fmad=false, the two explicit __fmaf_rn sites).
+// Design: K1's culling, then a transpose through shared memory.
+// - Exact culling (csrc/edge_coverage.cuh): a block stages its chunks'
+//   edge scalars and, per (chunk, row), the mask of the edges with h > 0
+//   (vg::stage_chunks), and each pixel sums only its row's live edges, in
+//   edge order (vg::add_live_edges): an edge with h == 0 adds exactly +-0,
+//   so the sum is the dense edge-order sum bit for bit.
+// - Warp <-> (row, 128-column group), lane <-> 4 columns a warp apart
+//   (px0 + 32 j): the warp walks its row for each of the block's chunks in
+//   turn, K1's per-lane work (the row part once per live edge, 4 columns
+//   each) with every mask the warp's, so culling costs no divergence (a lane
+//   per chunk, the layout before, would wait for its warp's deepest chunk's
+//   edges at every pixel).
+// - Transpose without a block barrier: each warp owns a buffer of its 128
+//   pixels x the block's cpb chunks in shared memory, [pixel][chunk] with
+//   row stride cpb + 1 floats (a lane's columns are a warp apart, so a
+//   chunk's writes land in 32 banks); once the group's chunks are summed
+//   (__syncwarp) the warp stores it pixel by pixel, each pixel's cpb
+//   consecutive chunks of the (NPX, NC) output: with cpb = 8, one full
+//   32-byte sector a pixel (pools hold multiples of 128 chunks), four a
+//   store instruction.  Warps never wait for each other inside a window,
+//   so a deep chunk holds back only its own warp.  (Blocks of 32 chunks,
+//   a whole line a pixel, were slower on the n = 1 sharded frame: 0.0893
+//   ms device a launch with a block-wide buffer between barriers, 0.0633
+//   with warps of 32-column units, against this design's 0.0363 and K1's
+//   0.0326 on the frame's pools; chip_smoke.py [6], NVIDIA H100 80GB HBM3,
+//   700 W.)
+// - Chunks per block: cpb = 8 where the staging fits the card's 227 KB,
+//   else 4, 2, 1 (deep chunks), so every CH the parent took (227) and many
+//   more run; cpb is uniform over a launch.
+// - Windows of rows: a block owns cpb chunks and a window of W rows (at
+//   most kRowsPerBlock, the default tile's 8, fewer where the masks would
+//   not fit), blocks along grid.y stride over the tile's windows, so the
+//   staging never grows with the tile's height (ops/coverage_t_cuda.
+//   k4_geometry mirrors the sizing).
+// - One launch over all pools: by-value descriptors (edges, output, NC, CH,
+//   first block; vg::Pools), deepest pool first, as K1; each pool writes its
+//   own (NPX, NC_pool) output.
+// Rounding: as K1 (-fmad=false, the two explicit __fmaf_rn sites; the
+// per-column expressions are add_edge_row's).
 
 #include <cuda_runtime.h>
 
@@ -39,96 +62,108 @@
 
 namespace {
 
-constexpr int kChunks = 32;   // chunks per block, one per threadIdx.x
-constexpr int kRows = 8;      // threadIdx.y
-constexpr int kPix = 8;       // pixels per thread and pass
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kGroupCols = 128;   // a warp's columns: 32 lanes x 4
+constexpr int kMaxChunks = 8;     // chunks per block at most
+constexpr int kRowsPerBlock = 8;  // rows a window holds at most
 
-// Dynamic shared bytes of a block over chunks of ch edges.
-inline size_t block_smem(int ch) {
-  return sizeof(float) * vg::kEdgeScalars * kChunks * static_cast<size_t>(ch);
+// Dynamic shared bytes of a block over cpb chunks of ch edges and windows of
+// win rows: edge scalars, masks, the warps' transpose buffers.
+inline size_t block_smem(int ch, int cpb, int win) {
+  const size_t nwords = static_cast<size_t>((ch + 31) / 32);
+  return sizeof(float) * cpb * vg::kEdgeScalars * static_cast<size_t>(ch) +
+         sizeof(unsigned) * cpb * win * nwords +
+         sizeof(float) * (kThreads / 32) * kGroupCols * (cpb + 1);
 }
 
-__global__ void __launch_bounds__(kChunks * kRows)
-coverage_chunks_t_kernel(const float* __restrict__ edges,
-                         float* __restrict__ out, int nc, int ch,
-                         int tile_w, int npx) {
-  extern __shared__ float sp[];  // [edge][scalar][chunk]
-  const int tid = threadIdx.y * kChunks + threadIdx.x;
-  const int c0 = blockIdx.x * kChunks;
+__global__ void __launch_bounds__(kThreads)
+coverage_chunks_t_kernel(const vg::Pools P, int th, int tile_w, int cpb,
+                         int win) {
+  extern __shared__ __align__(16) float smem[];
+  const vg::PoolDesc d = vg::pick_pool(P);
+  const int nc = d.nc, ch = d.ch;
+  const int nwords = (ch + 31) >> 5;
+  const int c0 = (static_cast<int>(blockIdx.x) - d.block0) * cpb;
+  const int lcpb = __ffs(cpb) - 1;  // cpb is a power of two
+  const int bstride = cpb + 1;
+  float* sp = smem;
+  unsigned* masks = reinterpret_cast<unsigned*>(sp + cpb * ch * vg::kEdgeScalars);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* wbuf = reinterpret_cast<float*>(masks + cpb * win * nwords) +
+                warp * kGroupCols * bstride;
+  const int groups = tile_w / kGroupCols;
+  const int ncb = nc - c0 < cpb ? nc - c0 : cpb;  // the block's chunks
 
-  for (int i = tid; i < kChunks * ch; i += kChunks * kRows) {
-    const int e = i / kChunks;
-    const int lc = i - e * kChunks;
-    const int c = c0 + lc;
-    if (c >= nc) continue;
-    float q[vg::kEdgeScalars];
-    vg::stage_edge(edges + (static_cast<size_t>(c) * ch + e) * 4, q);
+  for (int r0 = blockIdx.y * win; r0 < th; r0 += gridDim.y * win) {
+    const int nr = th - r0 < win ? th - r0 : win;
+    if (r0 != static_cast<int>(blockIdx.y) * win) __syncthreads();
+    vg::stage_chunks(d.edges, nc, ch, c0, cpb, r0, nr, sp, masks);
+    for (int u = warp; u < nr * groups; u += kThreads / 32) {
+      const int r = u / groups;
+      const int px0 = (u - r * groups) * kGroupCols;
+      for (int lc = 0; lc < ncb; ++lc) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        vg::add_live_edges<4, 32>(sp + lc * ch * vg::kEdgeScalars,
+                                  masks + (lc * nr + r) * nwords, nwords,
+                                  static_cast<float>(r0 + r), px0 + lane, acc);
 #pragma unroll
-    for (int k = 0; k < vg::kEdgeScalars; ++k) {
-      sp[(e * vg::kEdgeScalars + k) * kChunks + lc] = q[k];
-    }
-  }
-  __syncthreads();
-
-  const int c = c0 + threadIdx.x;
-  if (c >= nc) return;
-  const int stride = gridDim.y * kRows * kPix;
-  for (int p0 = (blockIdx.y * kRows + threadIdx.y) * kPix; p0 < npx;
-       p0 += stride) {
-    float px[kPix], py[kPix], acc[kPix];
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      const int p = p0 + j;
-      const int row = p / tile_w;
-      px[j] = static_cast<float>(p - row * tile_w);
-      py[j] = static_cast<float>(row);
-      acc[j] = 0.f;
-    }
-    for (int e = 0; e < ch; ++e) {
-      float q[vg::kEdgeScalars];
-#pragma unroll
-      for (int k = 0; k < vg::kEdgeScalars; ++k) {
-        q[k] = sp[(e * vg::kEdgeScalars + k) * kChunks + threadIdx.x];
+        for (int j = 0; j < 4; ++j) wbuf[(lane + 32 * j) * bstride + lc] = acc[j];
       }
-#pragma unroll
-      for (int j = 0; j < kPix; ++j)
-        acc[j] += vg::edge_contribution(q, px[j], py[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      if (p0 + j < npx) out[static_cast<size_t>(p0 + j) * nc + c] = acc[j];
+      __syncwarp();
+      // pixel px of the group, chunk lc: lc fastest, so a warp stores
+      // 32 / cpb pixels' runs of cpb consecutive chunks
+      const size_t p0 = static_cast<size_t>(r0 + r) * tile_w + px0;
+      for (int i = lane; i < kGroupCols << lcpb; i += 32) {
+        const int px = i >> lcpb;
+        const int lc = i & (cpb - 1);
+        if (lc < ncb) {
+          d.out[(p0 + px) * nc + c0 + lc] = wbuf[px * bstride + lc];
+        }
+      }
+      __syncwarp();
     }
   }
 }
 
 }  // namespace
 
-// edges: (nc, ch, 4) f32 contiguous; out: (npx, nc) f32 contiguous; both on
-// `device`.  smem_bytes is the launch's dynamic shared memory as the
-// wrapper computed it (ops/coverage_t_cuda.k4_geometry: ch KB); a value
-// other than this file's sizing is refused.
-// Launches on `stream`, does not synchronise; returns cudaGetLastError().
-extern "C" int vg_coverage_chunks_t(const float* edges, float* out, int nc,
-                                    int ch, int tile_w, int npx,
+// desc: npools descriptors, vg::kDescWords 64-bit words each (edges, rp
+// (unused), out, nc, ch, block0: ops/coverage_cuda.pack_pools with cpb
+// chunks per block), read on the host; each pool's edges (nc, ch, 4) f32
+// and its own output (th * tile_w, nc) f32, all on `device`.  tile_w a
+// multiple of 128; cpb (a power of two, 1..8) chunks per block, win (1..
+// kRowsPerBlock) rows a window;
+// smem_bytes the launch's dynamic shared memory: all three as the wrapper
+// computed them (ops/coverage_t_cuda.k4_geometry for the call's deepest
+// pool).  A smem_bytes below this file's sizing for the launch's deepest
+// pool, or a malformed descriptor, is refused.  Launches on `stream`, does
+// not synchronise; returns cudaGetLastError().
+extern "C" int vg_coverage_chunks_t(const long long* desc, int npools, int th,
+                                    int tile_w, int cpb, int win,
                                     int smem_bytes, int device,
                                     cudaStream_t stream) {
-  const size_t smem = block_smem(ch);
-  if (ch < 1 || smem != static_cast<size_t>(smem_bytes)) {
+  vg::Pools pools;
+  int max_ch = 0;
+  if (cpb < 1 || cpb > kMaxChunks || (cpb & (cpb - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = vg::read_pools(desc, npools, cpb, &pools, &max_ch);
+  if (win > th) win = th;
+  if (blocks < 0 || max_ch < 1 || th < 1 || win < 1 ||
+      win > kRowsPerBlock || tile_w < kGroupCols || tile_w % kGroupCols ||
+      smem_bytes < 0 ||
+      static_cast<size_t>(smem_bytes) < block_smem(max_ch, cpb, win)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const vg::DeviceScope scope(device);
-  if (nc > 0 && npx > 0) {
-    const int per_block = kRows * kPix;
-    int ys = (npx + per_block - 1) / per_block;
-    if (ys > 65535) ys = 65535;
-    const dim3 grid((nc + kChunks - 1) / kChunks, ys);
-    const dim3 block(kChunks, kRows);
-    static unsigned raised = 0;
-    if (smem > 48 * 1024) {
-      vg::allow_dynamic_smem(coverage_chunks_t_kernel, &raised);
-    }
-    coverage_chunks_t_kernel<<<grid, block, smem, stream>>>(edges, out, nc,
-                                                            ch, tile_w, npx);
+  int ys = (th + win - 1) / win;
+  if (ys > 65535) ys = 65535;
+  static unsigned raised = 0;
+  if (smem_bytes > 48 * 1024) {
+    vg::allow_dynamic_smem(coverage_chunks_t_kernel, &raised);
   }
+  coverage_chunks_t_kernel<<<dim3(blocks, ys), kThreads, smem_bytes, stream>>>(
+      pools, th, tile_w, cpb, win);
   return static_cast<int>(cudaGetLastError());
 }

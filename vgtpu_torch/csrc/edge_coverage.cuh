@@ -7,13 +7,16 @@
 //   stage_edge          K1 (csrc/coverage.cu), K3 (csrc/coverage_resolve.cu),
 //                       K4 (csrc/coverage_t.cu), K6 (csrc/coverage_slots.cu)
 //                       and K5 (csrc/coverage_t_flat.cu)
-//   edge_contribution   K4, K5, K6: every edge at every pixel
-//   edge_row_h, add_edge_row, stage_chunks, PoolDesc / Pools / pick_pool /
-//   read_pools, kPoolChunksPerBlock, kPoolThreads
-//                       K1 and K3: only the (edge, row) pairs with h > 0,
-//                       over a launch of several chunk pools
-// edge_contribution is kept as it was when the row split was added, so K4's,
-// K5's and K6's code does not move with K1's and K3's.
+//   edge_contribution   K5, K6: every edge at every pixel
+//   edge_row_h, add_edge_row, add_live_edges, stage_chunks, PoolDesc /
+//   Pools / pick_pool / read_pools
+//                       K1, K3 and K4: only the (edge, row) pairs with h > 0,
+//                       over a launch of several chunk pools, the row masks
+//                       staged one window of rows at a time
+//   kPoolChunksPerBlock, kPoolThreads
+//                       K1's and K3's block (K4 sizes its own)
+// edge_contribution is kept as it was when the row split was added, so K5's
+// and K6's code does not move with the culling kernels'.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,9 +77,12 @@ __device__ __forceinline__ float edge_row_h(const float* q, float py,
   return fmaxf(fminf(q[3], py + 1.f) - *ytop, 0.f);
 }
 
-// acc[j] += edge_contribution(q, px0 + j, py) for j < kCols: the row part
-// once, then per column the same roundings in the same order.
-template <int kCols>
+// acc[j] += edge_contribution(q, px0 + j * kStep, py) for j < kCols: the
+// row part once, then per column the same roundings in the same order.
+// kStep 1 (K1, K3): a lane's adjacent columns; K4 takes kStep 32 (a lane's
+// columns a warp apart, so its transpose buffer is written without bank
+// conflicts).
+template <int kCols, int kStep = 1>
 __device__ __forceinline__ void add_edge_row(const float* q, float py,
                                              int px0, float* acc) {
   float ytop;
@@ -86,13 +92,13 @@ __device__ __forceinline__ void add_edge_row(const float* q, float py,
     const float sh = q[4] * h;  // (s * h) * cl0, edge_contribution's order
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      const float u0 = (static_cast<float>(px0 + j) + 1.f) - xt;
+      const float u0 = (static_cast<float>(px0 + j * kStep) + 1.f) - xt;
       acc[j] += sh * fminf(fmaxf(u0, 0.f), 1.f);
     }
   } else {
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      const float u0 = (static_cast<float>(px0 + j) + 1.f) - xt;
+      const float u0 = (static_cast<float>(px0 + j * kStep) + 1.f) - xt;
       const float u1 = __fmaf_rn(-q[5], h, u0);
       const float cl0 = fminf(fmaxf(u0, 0.f), 1.f);
       const float cl1 = fminf(fmaxf(u1, 0.f), 1.f);
@@ -104,15 +110,20 @@ __device__ __forceinline__ void add_edge_row(const float* q, float py,
 }
 
 // Stages chunks c0 .. c0 + nchunks - 1 (those < nc) of an (nc, ch, 4) edge
-// array: the per-edge scalars into sp[(lc * ch + e) * kEdgeScalars] (16-byte
-// aligned), and for each (chunk, row) the mask of the edges live on the row,
-// h > 0 by edge_row_h, into masks[(lc * th + r) * nwords + w] (bit b <->
+// array over one window of rows, r0 .. r0 + nr - 1: the per-edge scalars
+// into sp[(lc * ch + e) * kEdgeScalars] (16-byte aligned), and for each
+// (chunk, row of the window) the mask of the edges live on the row, h > 0
+// by edge_row_h, into masks[(lc * nr + r - r0) * nwords + w] (bit b <->
 // edge 32 w + b; nwords = ceil(ch / 32)).  One warp per (chunk, 32-edge
 // word): each lane stages one edge in registers and the warp takes one
-// ballot per row.  Ends with __syncthreads().
+// ballot per row.  Ends with __syncthreads().  A kernel whose tile is
+// taller than its window calls this once per window, after a barrier that
+// ends the previous window's reads: the scalars are written again with the
+// same values, the masks are the new window's.  So the staging is sized by
+// the window, not by the tile.
 __device__ __forceinline__ void stage_chunks(const float* edges, int nc,
                                              int ch, int c0, int nchunks,
-                                             int th, float* sp,
+                                             int r0, int nr, float* sp,
                                              unsigned* masks) {
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
@@ -130,21 +141,21 @@ __device__ __forceinline__ void stage_chunks(const float* edges, int nc,
       dst[0] = make_float4(q[0], q[1], q[2], q[3]);
       dst[1] = make_float4(q[4], q[5], q[6], q[7]);
     }
-    for (int r = 0; r < th; ++r) {
+    for (int r = 0; r < nr; ++r) {
       float ytop;
       const bool live =
-          valid && edge_row_h(q, static_cast<float>(r), &ytop) > 0.f;
+          valid && edge_row_h(q, static_cast<float>(r0 + r), &ytop) > 0.f;
       const unsigned bits = __ballot_sync(0xffffffffu, live);
-      if (lane == 0) masks[(lc * th + r) * nwords + w] = bits;
+      if (lane == 0) masks[(lc * nr + r) * nwords + w] = bits;
     }
   }
   __syncthreads();
 }
 
-// acc[j] += the contributions to columns px0 .. px0 + kCols - 1 of row py
-// of the live edges in one (chunk, row) mask, in edge order (words in
+// acc[j] += the contributions to columns px0 + j * kStep (j < kCols) of row
+// py of the live edges in one (chunk, row) mask, in edge order (words in
 // order, bits from the lowest): the sum of every edge, bit for bit.
-template <int kCols>
+template <int kCols, int kStep = 1>
 __device__ __forceinline__ void add_live_edges(const float* sp_chunk,
                                                const unsigned* mask,
                                                int nwords, float py, int px0,
@@ -158,18 +169,20 @@ __device__ __forceinline__ void add_live_edges(const float* sp_chunk,
           reinterpret_cast<const float4*>(sp_chunk + e * kEdgeScalars);
       const float4 a = src[0], b = src[1];
       const float q[kEdgeScalars] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-      add_edge_row<kCols>(q, py, px0, acc);
+      add_edge_row<kCols, kStep>(q, py, px0, acc);
     }
   }
 }
 
-// One launch of K1 or K3 covers up to kMaxPools chunk pools.  The pools'
-// descriptors pass by value; pool i owns blocks [block0_i, block0_{i+1})
-// and writes its nc chunk rows from `out` on.  K3 also reads each pool's
+// One launch of K1, K3 or K4 covers up to kMaxPools chunk pools.  The
+// pools' descriptors pass by value; pool i owns blocks [block0_i,
+// block0_{i+1}) and writes its nc chunk rows from `out` on (K4: its own
+// pixel-major (npx, nc) output at `out`).  K3 also reads each pool's
 // (RP_ROWS, nc) rparams, row stride nc.  The host packs them
 // (ops/coverage_cuda.pack_pools) as kDescWords 64-bit words per pool:
-// edges, rp, out, nc, ch, block0.  Both kernels' blocks are kPoolThreads
-// threads over kPoolChunksPerBlock chunks.  ops/coverage_cuda.py mirrors
+// edges, rp, out, nc, ch, block0.  K1's and K3's blocks are kPoolThreads
+// threads over kPoolChunksPerBlock chunks; K4 passes its own chunks per
+// block.  ops/coverage_cuda.py mirrors
 // kMaxPools, kPoolChunksPerBlock, kPoolThreads and kEdgeScalars in one
 // block (MAX_POOLS, CHUNKS_PER_BLOCK, THREADS, EDGE_SCALARS); a mirror that
 // drifts is refused, not obeyed: read_pools rejects block prefixes counted
@@ -182,8 +195,8 @@ constexpr int kPoolThreads = 128;
 
 struct PoolDesc {
   const float* edges;  // (nc, ch, 4); unread when ch == 0 (K1's dead row)
-  const float* rp;     // K3: (RP_ROWS, nc); K1: unused
-  float* out;          // the pool's first output row
+  const float* rp;     // K3: (RP_ROWS, nc); K1, K4: unused
+  float* out;          // the pool's first output row (K4: its output)
   int nc, ch, block0;
 };
 

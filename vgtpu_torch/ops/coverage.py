@@ -10,12 +10,13 @@ Input layout (from vgtpu_torch.raster.binning):
 
 On a CUDA tensor `cov_all` launches kernel K1 (csrc/coverage.cu, via
 ops/coverage_cuda.py; one launch over every pool), `coverage_chunks`
-kernel K6 (csrc/coverage_slots.cu, via ops/coverage_slots_cuda.py) and `coverage_chunks_t` kernel K4
-(csrc/coverage_t.cu, via ops/coverage_t_cuda.py) or, with variant="flat",
-K5 (csrc/coverage_t_flat.cu, via ops/coverage_t_flat_cuda.py); on a CPU
-tensor they run the plain torch twins `cov_all_torch`,
-`coverage_chunks_torch` and `coverage_chunks_t_torch`.  Any other device
-raises.
+kernel K6 (csrc/coverage_slots.cu, via ops/coverage_slots_cuda.py),
+`coverage_pools_t` kernel K4 (csrc/coverage_t.cu, via
+ops/coverage_t_cuda.py; one launch over every pool) and `coverage_chunks_t`
+K4 on one pool or, with variant="flat", K5 (csrc/coverage_t_flat.cu, via
+ops/coverage_t_flat_cuda.py); on a CPU tensor they run the plain torch
+twins `cov_all_torch`, `coverage_chunks_torch` and
+`coverage_chunks_t_torch`.  Any other device raises.
 """
 
 from __future__ import annotations
@@ -65,14 +66,16 @@ def _edge_contribution(px, py, x0, y0, x1, y1):
     return torch.where(steep, vertical, general)
 
 
-def edge_row_live(chunk_edges: torch.Tensor, tile_h: int) -> torch.Tensor:
-    """(NC, CH, TH) bool: edge e of chunk c spans tile row r (h > 0, by
-    _edge_contribution's own expressions).  These are the row masks kernels
-    K1 and K3 walk: an edge with h == 0 on a row adds exactly +0 or -0 to
-    each of its pixels, which leaves the edge-order sum bit for bit as it
-    was."""
+def edge_row_live(chunk_edges: torch.Tensor, tile_h: int,
+                  row0: int = 0) -> torch.Tensor:
+    """(NC, CH, TH) bool: edge e of chunk c spans tile row row0 + r (h > 0,
+    by _edge_contribution's own expressions).  These are the row masks
+    kernels K1, K3 and K4 walk, a window of rows from row0 at a time: an
+    edge with h == 0 on a row adds exactly +0 or -0 to each of its pixels,
+    which leaves the edge-order sum bit for bit as it was."""
     y0, y1 = chunk_edges[:, :, 1:2], chunk_edges[:, :, 3:4]
-    py = torch.arange(tile_h, dtype=torch.float32, device=chunk_edges.device)
+    py = torch.arange(row0, row0 + tile_h, dtype=torch.float32,
+                      device=chunk_edges.device)
     ytop = torch.maximum(torch.minimum(y0, y1), py)
     h = torch.clamp_min(torch.minimum(torch.maximum(y0, y1), py + 1.0) - ytop, 0.0)
     return h > 0
@@ -156,26 +159,40 @@ def coverage_chunks_t(chunk_edges: torch.Tensor, tile_h: int, tile_w: int,
     raise ValueError(f"coverage_chunks_t: unsupported device {dev}")
 
 
+def coverage_pools_t(chunk_edges: list, tile_h: int, tile_w: int) -> list:
+    """[(TH*TW, NC_i)] pixel-major coverage of every pool: kernel K4 on CUDA
+    (one launch over all the pools), the plain twin per pool on the CPU."""
+    dev = chunk_edges[0].device
+    if dev.type == "cuda":
+        from vgtpu_torch.ops.coverage_t_cuda import coverage_pools_t_cuda
+
+        return coverage_pools_t_cuda(chunk_edges, tile_h, tile_w)
+    if dev.type == "cpu":
+        return [coverage_chunks_t_torch(ce, tile_h, tile_w) for ce in chunk_edges]
+    raise ValueError(f"coverage_pools_t: unsupported device {dev}")
+
+
 def entry_coverage_from_pools(chunk_edges: list, chunk_entry: list,
                               num_entries: int, tile_h: int,
                               tile_w: int) -> torch.Tensor:
     """Per-entry coverage (NE, TH, TW) of pooled chunks: the twin of vgtpu's
     entry_coverage_from_pools, which the sharded frame and the variant-sharded
-    batch take.  Each pool's pixel-major coverage (kernel K4 on CUDA) is
-    segment-summed over its chunk -> entry map (index_add_ over chunks into
-    an (NE, NPX) accumulator), and the pools' sums add in pool order.  On
-    CUDA index_add_ is atomic, so a multi-chunk entry's adds land in no fixed
-    order; on the CPU they run in chunk order, as XLA's segment_sum does."""
+    batch take.  Every pool's pixel-major coverage (kernel K4 on CUDA, one
+    launch over the pools) is segment-summed over its chunk -> entry map
+    (index_add_ over chunks into an (NE, NPX) accumulator), and the pools'
+    sums add in pool order.  On CUDA index_add_ is atomic, so a multi-chunk
+    entry's adds land in no fixed order; on the CPU they run in chunk order,
+    as XLA's segment_sum does."""
     npx = tile_h * tile_w
+    if not chunk_edges:
+        raise ValueError("entry_coverage_from_pools: no chunk pools")
     acc = None
-    for ce, cent in zip(chunk_edges, chunk_entry, strict=True):
-        cov_t = coverage_chunks_t(ce, tile_h, tile_w)
+    covs = coverage_pools_t(chunk_edges, tile_h, tile_w)
+    for cov_t, cent in zip(covs, chunk_entry, strict=True):
         part = torch.zeros((num_entries, npx), dtype=torch.float32,
-                           device=ce.device)
+                           device=cov_t.device)
         part.index_add_(0, cent, cov_t.t())
         acc = part if acc is None else acc + part
-    if acc is None:
-        raise ValueError("entry_coverage_from_pools: no chunk pools")
     return acc.reshape(num_entries, tile_h, tile_w)
 
 

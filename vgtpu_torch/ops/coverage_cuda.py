@@ -27,46 +27,69 @@ EDGE_SCALARS = 8       # kEdgeScalars: floats an edge stages
 
 K1 = CudaKernel("coverage", {"vg_coverage_chunks": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
-def edge_mask_bytes(ch: int, tile_h: int) -> int:
-    """Dynamic shared bytes of a K1 or K3 block for chunks of ch edges over
-    tile_h (sub-)rows: each chunk's per-edge scalars (8 floats an edge) and
-    its row masks (ceil(ch/32) 32-bit words a row)."""
-    return 4 * CHUNKS_PER_BLOCK * (EDGE_SCALARS * ch + tile_h * (-(-ch // 32)))
+def edge_mask_bytes(ch: int, rows: int) -> int:
+    """Dynamic shared bytes of a K1 or K3 block's edge staging for chunks of
+    ch edges over a window of `rows` (sub-)rows: each chunk's per-edge
+    scalars (8 floats an edge) and its row masks (ceil(ch/32) 32-bit words
+    a row)."""
+    return 4 * CHUNKS_PER_BLOCK * (EDGE_SCALARS * ch + rows * (-(-ch // 32)))
+
+
+def window_rows(ch: int, tile_h: int, row_bytes: int, fixed_bytes: int,
+                step: int = 1) -> int:
+    """The rows of a staging window: all tile_h rows where the block's
+    staging, fixed_bytes + row_bytes a row, fits the card's SMEM_LIMIT,
+    else the most rows that fit, a multiple of `step` (K3's sub-rows come
+    ss to an output row).  Raises ValueError when not even `step` rows fit:
+    the CH is too deep for one block."""
+    fit = (SMEM_LIMIT - fixed_bytes) // row_bytes // step * step
+    if fit < step:
+        raise ValueError(f"CH={ch}: {fixed_bytes} shared bytes of edges leave no "
+                         f"room for {step} row(s) of masks within the card's "
+                         f"{SMEM_LIMIT}")
+    return min(tile_h, fit)
 
 
 def k1_geometry(tile_h: int, tile_w: int, ch: int) -> dict:
     """vg_coverage_chunks's launch geometry for a pool of ch-edge chunks over
     tile_h x tile_w tiles, mirroring csrc/coverage.cu: blocks of 128 threads
     over 4 chunks, a warp per (chunk, row, 128-column group); the staging
-    (edge_mask_bytes) in dynamic shared memory.  A launch over several pools
-    takes its deepest pool's smem_bytes.  Raises ValueError for a
-    tile width that is not a multiple of 128 columns (vgtpu admits 128 and
-    256) or a block over SMEM_LIMIT shared bytes."""
+    (edge_mask_bytes) in dynamic shared memory over a window of
+    `window_rows` rows, the whole tile where it fits the card.  A launch
+    over several pools takes its deepest pool's geometry.  Raises
+    ValueError for a tile width that is not a multiple of 128 columns
+    (vgtpu admits 128 and 256) or a CH whose edges leave no room for one
+    row of masks (about 1,800 edges)."""
     if tile_h < 1 or tile_w < 128 or tile_w % 128:
         raise ValueError(f"K1: tiles of {tile_h}x{tile_w} (need tile_h >= 1 "
                          f"and tile_w a multiple of 128)")
     if ch < 0:
         raise ValueError(f"K1: CH={ch}")
-    smem = edge_mask_bytes(ch, tile_h)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K1: CH={ch} over {tile_h} rows needs {smem} shared "
-                         f"bytes per block, over the card's {SMEM_LIMIT}")
+    try:
+        win = window_rows(ch, tile_h, 4 * CHUNKS_PER_BLOCK * (-(-ch // 32)),
+                          edge_mask_bytes(ch, 0))
+    except ValueError as e:
+        raise ValueError(f"K1: {e}") from None
+    smem = edge_mask_bytes(ch, win)
     return {"threads": THREADS, "chunks_per_block": CHUNKS_PER_BLOCK,
+            "window_rows": win, "windows": -(-tile_h // win),
             "smem_bytes": smem, "shared_bytes": smem}
 
 
-def pack_pools(shapes: list) -> list:
-    """The launches of one K1 or K3 call over pools of shapes [(NC, CH, ...),
-    ...] whose chunk rows follow one another in one output tensor.  Returns a
-    list of launches, each a list of descriptors (pool index, first output
-    row, first block), block0 running from 0 in each launch.  Empty pools
-    get no descriptor.  The deepest pools (largest CH) come first, so their
-    blocks, the longest, start first; a launch holds at most MAX_POOLS
-    descriptors, and further pools take further launches."""
+def pack_pools(shapes: list, chunks_per_block: int = CHUNKS_PER_BLOCK) -> list:
+    """The launches of one K1, K3 or K4 call over pools of shapes [(NC, CH,
+    ...), ...] whose chunk rows follow one another in one output tensor (K4
+    ignores the rows: each pool has its own).  Returns a list of launches,
+    each a list of descriptors (pool index, first output row, first block),
+    block0 running from 0 in each launch, ceil(NC / chunks_per_block)
+    blocks a pool.  Empty pools get no descriptor.  The deepest pools
+    (largest CH) come first, so their blocks, the longest, start first; a
+    launch holds at most MAX_POOLS descriptors, and further pools take
+    further launches."""
     rows, row = [], 0
     for shape in shapes:
         rows.append(row)
@@ -78,7 +101,7 @@ def pack_pools(shapes: list) -> list:
         descs, block = [], 0
         for i in order[k:k + MAX_POOLS]:
             descs.append((i, rows[i], block))
-            block += -(-shapes[i][0] // CHUNKS_PER_BLOCK)
+            block += -(-shapes[i][0] // chunks_per_block)
         launches.append(descs)
     return launches
 
@@ -135,9 +158,9 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
             raise ValueError(f"cov_all_cuda: CH={ce.shape[1]}")
         total += ce.shape[0]
         max_ch = max(max_ch, ce.shape[1])
-    smem = k1_geometry(tile_h, tile_w, max_ch)["smem_bytes"]
+    geo = k1_geometry(tile_h, tile_w, max_ch)
     npx = tile_h * tile_w
     out = torch.empty((total + 1, npx), dtype=torch.float32, device=dev)
     launch_pools(K1, "vg_coverage_chunks", [*chunk_edges, None], None, out, npx,
-                 smem, tile_h, tile_w)
+                 geo["smem_bytes"], tile_h, tile_w, geo["window_rows"])
     return out
