@@ -14,22 +14,25 @@ Phases (any failure raises and the process exits non-zero):
   3. K1 against its plain twin coverage_chunks_torch on the card: random
      chunks (horizontal, near-vertical, tiny-dy, zero-length, out-of-tile
      edges) at CH = 2, 4, 8, 24, 40, 64 (over the 32 edges K1 once
-     staged) and the 1080p frame's pool sizes, then all of them in one
-     launch (within K1_BOUND; kernel and twin round alike, so 0.0 is what
-     a correct kernel gives).
+     staged), 2,048 and 8,192 (deeper than one edge window: the deep form)
+     and the 1080p frame's pool sizes, then all of them in one launch
+     (within K1_BOUND; kernel and twin round alike, so 0.0 is what a
+     correct kernel gives).
   3c. K4 (pixel-major chunk coverage) against coverage_chunks_t_torch: the
-     same random chunks at CH = 2, 4, 8, 24, 40, 64 and the 1080p frame's
-     pools, one at a time and all in one launch.
-  3d. K6 (chunk coverage, one thread per chunk and pixel) against
-     coverage_chunks_torch and K1: random chunks at CH = 2, 6, 24 and the
-     1080p frame's pools.
-  3e. K5 (pixel-major coverage, flat form) against coverage_chunks_t_torch
-     and K4: the same random chunks, the 1080p frame's pools and the pools
-     of its n = 1 partition.
+     same random chunks (2,048 and 8,192 in the deep form) and the 1080p
+     frame's pools, one at a time and all in one launch.
+  3d. K6 (chunk coverage of one pool, K1's design) against
+     coverage_chunks_torch and K1: random
+     chunks at CH = 2, 6, 24, 40, 64, 2,048 and 8,192 on 8x128 and 8x256
+     tiles and the 1080p frame's pools ([4g] and [4h] add the tall tiles'
+     and the deep-tile scene's pools).
+  3e. K5 (pixel-major coverage of one pool, K4's design) against
+     coverage_chunks_t_torch and K4: the same random chunks, the
+     1080p frame's pools and the pools of its n = 1 partition.
   3b. K3 against coverage_chunks_res_torch: random chunks at ss = 2, 4 and
-     CH = 2, 4, 6, 12, 24, 40, 64 with random resolve params (even-odd,
-     non-AA, texture, scissor, backdrop), and the RES pools of the 1080p
-     ss=2 plan (one launch); K3's vg_resolve_rows against
+     CH = 2, 4, 6, 12, 24, 40, 64, 2,048, 8,192 with random resolve params
+     (even-odd, non-AA, texture, scissor, backdrop), and the RES pools of
+     the 1080p ss=2 plan (one launch); K3's vg_resolve_rows against
      resolve_cov_rows_torch on its XE rows.
   4. K2 against its plain twin composite_bucket_into_torch on every bucket of
      the 1080p tiger + demo-UI plan and of the two 512x256 scenes of
@@ -70,8 +73,15 @@ Phases (any failure raises and the process exits non-zero):
      scene with ContextConfig(chunk_pools=(2, 8, 48)) through end() at ss=1
      with tile_h=16384 and at ss=2 with tile_h=8192 (16,384 sub-rows), so
      K1's and K3's row masks take several windows a tile; K1 (K3) and K2
-     launched, 0 u8 levels from the plain twins on the same plan; K4 over
-     the plan's pools against its twin.
+     launched, 0 u8 levels from the plain twins on the same plan; K4, K5
+     and K6 over the plan's pools against their twins.
+  4h. Chunks deeper than one edge window (runs after 4g): the deep-tile
+     scene (scenes.small.draw_deep_tile_scene: 2,001 edges of one path in
+     one tile) with ContextConfig(chunk_pools=(2, 8, CH_DEEP)) through
+     end() at ss = 1 and 2: its chunk is deeper than the 1,808 edges a
+     shallow K1 block held, so K1 (and at ss=2 K3) launch in their deep
+     form; 0 u8 levels from the plain twins on the same plan; K4, K5 and
+     K6 over the plan's pools against their twins.
   5. The main path: createContext(device="cuda"), begin 1920x1080,
      scenes.demo_ui.draw_benchmark_frame, end().  Both kernels' launch
      counts must be > 0; the image must match the same plan through the
@@ -124,10 +134,11 @@ Phases (any failure raises and the process exits non-zero):
      the coverage work recounted: the (edge, row) pairs live in this run's
      pools (h > 0, the masks K1 and K3 walk) beside the dense count, both
      bounds of K1 and K3-K6 (the kernels line's bound_ms is the live one),
-     K1's, K3's, K4's and K7's ptxas registers and spills (K7 per
-     instantiation), K7's valid (tile, slot) share and skipped (warp, slot)
-     share on the [5c] buckets, K4's launches per shard, the coverage
-     kernels' device ms and the launches per steady frame;
+     K1's, K3's, K4's, K5's, K6's and K7's ptxas registers and spills (K5,
+     K6 and K7 per kernel), K7's valid (tile, slot) share and skipped
+     (warp, slot) share on the [5c] buckets, K4's launches per shard, the
+     coverage kernels' device ms and the launches per steady frame; K5's
+     and K6's device ms per [5c] frame, their live share and both bounds;
      the launch route (utils/launch_route.py): host us per call of K8's
      wrapper and of torch.add over 2,000 back-to-back calls and of each
      step of the route (launch_route.ROUTE_STEPS), the steady ss=1
@@ -167,6 +178,13 @@ BG = (1.0, 1.0, 1.0, 1.0)
 BG_APP = (0.12, 0.12, 0.13, 1.0)   # bench.py's background for the serving paths
 K_REP = 3                          # phase 4c's variant blocks
 K_BATCH = 6                        # bench.py batch_diag's K
+# the random chunks' depths: the shallow form's (up to 64) and two deeper
+# than one edge window (coverage_cuda.EDGE_WINDOW), 2,048 over the 1,808
+# edges a shallow K1 block held and 8,192 over K4's 6,980; the deep ones
+# with fewer chunks (their twins loop over the edges)
+CH_RANDOM = (2, 4, 6, 8, 24, 40, 64, 2048, 8192)
+NC_DEEP = {2048: 512, 8192: 128}
+CH_DEEP = 2048                     # [4h]'s chunk_pools=(2, 8, CH_DEEP)
 # the card's peaks for the bound (H100 SXM at 700 W): FP32 outside the
 # tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -479,11 +497,12 @@ def device_breakdown(run, frames: int = 10, zero=None):
             break
     if not ev:
         raise AssertionError("torch.profiler recorded no device time")
-    names = (("coverage_chunks_t_kernel", "K4"), ("coverage_chunks_kernel", "K1"),
-             ("coverage_res_kernel", "K3"),
+    names = (("coverage_chunks_t_kernel", "K4"), ("coverage_chunks_t_deep", "K4"),
+             ("coverage_chunks_kernel", "K1"), ("coverage_chunks_deep", "K1"),
+             ("coverage_res_", "K3"),
              ("resolve_rows_kernel", "K3 rows"), ("composite_final_kernel", "K2 (e)"),
              ("composite_bucket_kernel", "K2 (a)/(d)"),
-             ("coverage_t_flat_kernel", "K5"), ("coverage_slots_kernel", "K6"),
+             ("coverage_t_flat_", "K5"), ("coverage_slots_", "K6"),
              ("composite_flat_kernel", "K7"), ("probe_affine_kernel", "K8"))
     by, calls = {}, {}
     for e in ev:
@@ -633,6 +652,7 @@ def main() -> int:
         HEIGHT,
         WIDTH,
         draw_deep_chunk_scene,
+        draw_deep_tile_scene,
         draw_feature_scene,
         draw_resolve_scene,
         draw_small_scene,
@@ -690,12 +710,32 @@ def main() -> int:
     # ---- 3. K1 vs plain -------------------------------------------------
     rng = np.random.default_rng(SEED)
     k1_err = 0.0
-    rand_edges = []                    # phase 3c holds K4 to the same chunks
+    rand_edges = []                    # phases 3c-3e hold K4-K6 to the same chunks
     pools_nc = [int(ce.shape[0]) for ce in d["chunk_edges"]]
-    for ch in (2, 4, 8, 24, 40, 64):
+    twins = {}
+
+    def plain(edges, th, tw, pixel_major=False):
+        """The plain twin's coverage of a pool (coverage_chunks_torch, or
+        coverage_chunks_t_torch pixel_major), computed once per pool and
+        layout for phases 3-3e (a deep pool's twin loops over its edges)."""
+        key = (edges.data_ptr(), tuple(edges.shape), th, tw, pixel_major)
+        if key not in twins:
+            fn = coverage_chunks_t_torch if pixel_major else coverage_chunks_torch
+            twins[key] = fn(edges, th, tw)
+        return twins[key]
+
+    def stamp(tag):
+        print(f"{tag} done at {time.perf_counter() - t_start:.1f} s (host clock)")
+
+    def random_nc(ch):
+        """The random pool's chunk count: the 1080p pool of that depth's,
+        within 2,048 .. 8,192, or NC_DEEP's for the deep ones."""
         nc = next((n for n, ce in zip(pools_nc, d["chunk_edges"])
                    if ce.shape[1] == ch), 2048)
-        nc = min(max(nc, 2048), 8192)
+        return NC_DEEP.get(ch, min(max(nc, 2048), 8192))
+
+    for ch in CH_RANDOM:
+        nc = random_nc(ch)
         edges = torch.from_numpy(random_chunks(rng, nc, ch)).to(dev)
         rand_edges.append(edges)
         got = coverage_cuda.cov_all_cuda([edges], 8, 128)
@@ -703,11 +743,12 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         k1_err = max(k1_err, err)
-        print(f"[3] K1 CH={ch:2d} NC={nc}: max|K1 - plain| = {err:.3e} "
-              f"(bound {K1_BOUND:.0e})")
+        print(f"[3] K1 CH={ch:2d} NC={nc} ({coverage_cuda.k1_geometry(8, 128, ch)['form']} "
+              f"form): max|K1 - plain| = {err:.3e} (bound {K1_BOUND:.0e})")
         if not err <= K1_BOUND:
             raise AssertionError(f"K1 disagrees with its plain twin at CH={ch}: {err}")
-    # the six random pools in one launch (the deepest first), dead row last
+    # the random pools in one launch (the deepest first: the deep form), dead
+    # row last
     got = coverage_cuda.cov_all_cuda(rand_edges, 8, 128)
     err = float((got - cov_all_torch(rand_edges, 8, 128)).abs().max())
     k1_err = max(k1_err, err)
@@ -723,6 +764,8 @@ def main() -> int:
     if not err <= K1_BOUND:
         raise AssertionError(f"K1 disagrees on the 1080p pools: {err}")
 
+    stamp("[3]")
+
     # ---- 3c. K4 vs plain ------------------------------------------------
     # K4 is K1's function in the pixel-major layout, with K1's arithmetic:
     # K1's bound, and its transpose should equal K1's rows too
@@ -731,7 +774,7 @@ def main() -> int:
                          for e in rand_edges] + [
             (f"1080p pool {tuple(ce.shape[:2])}", ce) for ce in d["chunk_edges"]]:
         got = coverage_t_cuda.coverage_chunks_t_cuda(edges, 8, 128)
-        ref = coverage_chunks_t_torch(edges, 8, 128)
+        ref = plain(edges, 8, 128, True)
         k1_rows = coverage_cuda.cov_all_cuda([edges], 8, 128)[:-1]
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
@@ -744,7 +787,7 @@ def main() -> int:
     before = coverage_t_cuda.K4.launches
     got = coverage_t_cuda.coverage_pools_t_cuda(d["chunk_edges"], 8, 128)
     n4 = coverage_t_cuda.K4.launches - before
-    err = max(float((g - coverage_chunks_t_torch(ce, 8, 128)).abs().max())
+    err = max(float((g - plain(ce, 8, 128, True)).abs().max())
               for g, ce in zip(got, d["chunk_edges"]))
     k4_err = max(k4_err, err)
     geo4 = coverage_t_cuda.k4_geometry(8, 128, max(int(ce.shape[1])
@@ -755,59 +798,80 @@ def main() -> int:
         raise AssertionError(f"K4 over the 1080p pools: {err}, {n4} launches")
 
     # ---- 3d. K6 vs plain and vs K1 ---------------------------------------
-    # K6 is K1's function and layout with K1's arithmetic, its own simple
-    # design: K1's bound, and it should equal K1's rows too
-    rand_56 = []                       # phase 3e holds K5 to the same chunks
-    for ch in (2, 6, 24):
-        nc = next((n for n, ce in zip(pools_nc, d["chunk_edges"])
-                   if ce.shape[1] == ch), 2048)
-        nc = min(max(nc, 2048), 8192)
-        rand_56.append((f"CH={ch:2d} NC={nc}", torch.from_numpy(
-            random_chunks(rng, nc, ch)).to(dev)))
-    frame_pools = [(f"1080p pool {tuple(ce.shape[:2])}", ce) for ce in d["chunk_edges"]]
-    k6_err = 0.0
-    for label, edges in rand_56 + frame_pools:
-        got = coverage_slots_cuda.coverage_chunks_slots_cuda(edges, 8, 128)
-        ref = coverage_chunks_torch(edges, 8, 128)
-        k1_rows = coverage_cuda.cov_all_cuda([edges], 8, 128)[:-1]
+    # K6 is K1's function, layout and design for one pool, with K1's
+    # arithmetic: K1's bound, and it should equal K1's rows too; random
+    # chunks at every depth on 8x128 and 8x256 tiles, the 1080p pools (the
+    # tall tiles' pools in [4g], the deep-chunk scene's in [4h])
+    ch_56 = (2, 6, 24, 40, 64, 2048, 8192)
+    rand_56 = [(f"CH={int(e.shape[1]):2d} NC={int(e.shape[0])} 8x128", e, 128)
+               for e in rand_edges if int(e.shape[1]) in ch_56]
+    for ch in ch_56:                   # phase 3e holds K5 to the same chunks
+        nc = NC_DEEP.get(ch, 512)
+        rand_56.append((f"CH={ch:2d} NC={nc} 8x256", torch.from_numpy(
+            random_chunks(rng, nc, ch)).to(dev), 256))
+    frame_pools = [(f"1080p pool {tuple(ce.shape[:2])}", ce, 128)
+                   for ce in d["chunk_edges"]]
+
+    def check_k6(label, edges, th, tw, tag="[3d]", ref=None):
+        """K6 against coverage_chunks_torch (or `ref`, its result) and K1
+        on one pool; returns the largest error against the twin."""
+        ref = coverage_chunks_torch(edges, th, tw) if ref is None else ref
+        k1_rows = coverage_cuda.cov_all_cuda([edges], th, tw)[:-1]
+        got = coverage_slots_cuda.coverage_chunks_slots_cuda(edges, th, tw)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         vs_k1 = float((got.reshape(k1_rows.shape) - k1_rows).abs().max())
-        k6_err = max(k6_err, err)
-        print(f"[3d] K6 {label}: max|K6 - plain| = {err:.3e} (bound {K1_BOUND:.0e}); "
-              f"max|K6 - K1| = {vs_k1:.3e}")
+        print(f"{tag} K6 {label} ({coverage_slots_cuda.k6_geometry(th, tw, int(edges.shape[1]))['form']} "
+              f"form): max|K6 - plain| = {err:.3e} (bound "
+              f"{K1_BOUND:.0e}); max|K6 - K1| = {vs_k1:.3e}")
         if not (err <= K1_BOUND and vs_k1 <= K1_BOUND):
             raise AssertionError(f"K6 disagrees with its plain twin or K1 on {label}: "
                                  f"{err}, {vs_k1}")
+        return err
 
-    # ---- 3e. K5 vs plain and vs K4 ---------------------------------------
-    # K5 is K4's function and layout with K1's arithmetic, in the flat form;
-    # also on the pools of the n = 1 partition (the sharded frame's K4 input)
-    part_pools = [(f"partitioned pool {tuple(ce.shape[:2])}",
-                   torch.from_numpy(np.ascontiguousarray(ce)).to(dev))
-                  for ce, _cent in partition_plan_for_mesh(
-                      plan_dense_arrays(plan), plan, 1)[0]["chunk_pools"]]
-    k5_err = 0.0
-    for label, edges in rand_56 + frame_pools + part_pools:
-        got = coverage_t_flat_cuda.coverage_chunks_t_flat_cuda(edges, 8, 128)
-        ref = coverage_chunks_t_torch(edges, 8, 128)
-        k4 = coverage_t_cuda.coverage_chunks_t_cuda(edges, 8, 128)
+    def check_k5(label, edges, th, tw, tag="[3e]", ref=None):
+        """K5 against coverage_chunks_t_torch (or `ref`, its result) and
+        K4 on one pool; returns the largest error against the twin."""
+        ref = coverage_chunks_t_torch(edges, th, tw) if ref is None else ref
+        k4 = coverage_t_cuda.coverage_chunks_t_cuda(edges, th, tw)
+        got = coverage_t_flat_cuda.coverage_chunks_t_flat_cuda(edges, th, tw)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         vs_k4 = float((got - k4).abs().max())
-        k5_err = max(k5_err, err)
-        print(f"[3e] K5 {label}: max|K5 - plain| = {err:.3e} (bound {K1_BOUND:.0e}); "
-              f"max|K5 - K4| = {vs_k4:.3e}")
+        print(f"{tag} K5 {label} ({coverage_t_flat_cuda.k5_geometry(th, tw, int(edges.shape[1]))['form']} "
+              f"form): max|K5 - plain| = {err:.3e} (bound "
+              f"{K1_BOUND:.0e}); max|K5 - K4| = {vs_k4:.3e}")
         if not (err <= K1_BOUND and vs_k4 <= K1_BOUND):
             raise AssertionError(f"K5 disagrees with its plain twin or K4 on {label}: "
                                  f"{err}, {vs_k4}")
+        return err
+
+    k6_err = 0.0
+    for label, edges, tw in rand_56 + frame_pools:
+        k6_err = max(k6_err, check_k6(label, edges, 8, tw, ref=plain(edges, 8, tw)))
+
+    # ---- 3e. K5 vs plain and vs K4 ---------------------------------------
+    # K5 is K4's function, layout and design for one pool, with K1's
+    # arithmetic; also on the pools of the n = 1 partition (the sharded
+    # frame's K4 input)
+    part_pools = [(f"partitioned pool {tuple(ce.shape[:2])}",
+                   torch.from_numpy(np.ascontiguousarray(ce)).to(dev), 128)
+                  for ce, _cent in partition_plan_for_mesh(
+                      plan_dense_arrays(plan), plan, 1)[0]["chunk_pools"]]
+    k5_err = 0.0
+    for label, edges, tw in rand_56 + frame_pools + part_pools:
+        k5_err = max(k5_err, check_k5(label, edges, 8, tw,
+                                      ref=plain(edges, 8, tw, True)))
+    twins.clear()
+
+    stamp("[3c]-[3e]")
 
     # ---- 3b. K3 vs plain ------------------------------------------------
     k3_err = 0.0
     for ss in (2, 4):
         th = 8 * ss
-        for ch in (2, 4, 6, 12, 24, 40, 64):
-            nc = 2048
+        for ch in (2, 4, 6, 12, 24, 40, 64, 2048, 8192):
+            nc = NC_DEEP[ch] // ss if ch in NC_DEEP else 2048
             e = random_chunks(rng, nc, ch)
             e[..., 1::2] *= ss                  # y spans the TH sub-rows
             edges = torch.from_numpy(e).to(dev)
@@ -819,8 +883,9 @@ def main() -> int:
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             k3_err = max(k3_err, err)
-            print(f"[3b] K3 ss={ss} CH={ch:2d} NC={nc}: max|K3 - plain| = "
-                  f"{err:.3e} (bound {K3_BOUND:.0e})")
+            print(f"[3b] K3 ss={ss} CH={ch:2d} NC={nc} "
+                  f"({coverage_resolve_cuda.k3_geometry(th, ss, ch)['form']} form): "
+                  f"max|K3 - plain| = {err:.3e} (bound {K3_BOUND:.0e})")
             if not err <= K3_BOUND:
                 raise AssertionError(f"K3 disagrees with its plain twin at "
                                      f"ss={ss} CH={ch}: {err}")
@@ -863,6 +928,8 @@ def main() -> int:
           f"{float((fin_k - fin_p).abs().max()):.3e}")
     if not err <= K3_BOUND:
         raise AssertionError(f"vg_resolve_rows disagrees with its twin: {err}")
+
+    stamp("[3b]")
 
     # ---- 4. K2 vs plain -------------------------------------------------
     scenes = [("1080p", plan, d)]
@@ -1069,6 +1136,8 @@ def main() -> int:
         raise AssertionError(f"K7 instantiations never held to the twin: "
                              f"{sorted(every - sweep['forms'])}")
 
+    stamp("[4]-[4d]")
+
     # ---- 5. the main path ----------------------------------------------
     zero_counts()
     ctx = vg.createContext(device="cuda")
@@ -1184,6 +1253,8 @@ def main() -> int:
         if worst > U8_BOUND:
             raise AssertionError(f"{name}: an image is {worst} u8 levels off")
 
+    stamp("[5]-[5b]")
+
     # ---- 4e. tile shapes beyond 8x128 ------------------------------------
     # the small scene through end() at tile_w=256 and at tile_h=16, ss = 1,
     # 2, 8 (up to 128 sub-rows: K2's pixel groups, K3's launch-sized rparams
@@ -1273,7 +1344,7 @@ def main() -> int:
     # (16,384 sub-rows, over K3's 7,248; at that height every entry of the
     # small scene takes several chunks, so its plan has no RES pool and
     # K3 would not run), held to the plain twins on the same plan at 0 u8
-    # levels; K4 over the plan's pools against its twin
+    # levels; K4, K5 and K6 over the plan's pools against their twins
     for ss, th, draw in ((1, 16384, draw_small_scene), (2, 8192, draw_resolve_scene)):
         name = f"tall tiles tile_h={th} ss={ss} ({draw.__name__})"
         c7 = vg.createContext(vg.ContextConfig(coverage_supersample=ss, tile_h=th,
@@ -1315,8 +1386,12 @@ def main() -> int:
         got = coverage_t_cuda.coverage_pools_t_cuda(d7["chunk_edges"], p7.tile_h, 128)
         err = 0.0
         for g, ce in zip(got, d7["chunk_edges"]):
-            err = max(err, float((g - coverage_chunks_t_torch(ce, p7.tile_h, 128))
-                                 .abs().max()))
+            ref = coverage_chunks_t_torch(ce, p7.tile_h, 128)
+            err = max(err, float((g - ref).abs().max()))
+            label = f"tall-tile pool {tuple(ce.shape[:2])} at tile_h={p7.tile_h}"
+            k5_err = max(k5_err, check_k5(label, ce, p7.tile_h, 128, "[4g]", ref))
+            del ref
+            k6_err = max(k6_err, check_k6(label, ce, p7.tile_h, 128, "[4g]"))
         k4_err = max(k4_err, err)
         print(f"[4g] K4 over the plan's pools at tile_h={p7.tile_h}: max|K4 - plain| "
               f"= {err:.3e} (bound {K1_BOUND:.0e}); geometry "
@@ -1325,6 +1400,71 @@ def main() -> int:
             raise AssertionError(f"[4g] K4 disagrees at tile_h={p7.tile_h}: {err}")
         del got, c7, d7
         torch.cuda.empty_cache()
+
+    stamp("[4e]-[4g]")
+
+    # ---- 4h. chunks deeper than one edge window ---------------------------
+    # the deep-tile scene (a comb of 2,001 edges in one tile) with
+    # chunk_pools=(2, 8, CH_DEEP) through end() at ss = 1 and 2: its chunk
+    # is deeper than the 1,808 edges a shallow K1 block held, so K1 (and at
+    # ss=2 K3, whose RES pool the chunk's entry reaches) launch in their
+    # deep form; held to the plain twins on the same plan at 0 u8 levels;
+    # K4, K5 and K6 over the plan's pools against their twins
+    for ss in (1, 2):
+        name = f"deep chunks chunk_pools (2, 8, {CH_DEEP}) ss={ss}"
+        c8 = vg.createContext(vg.ContextConfig(coverage_supersample=ss,
+                                               chunk_pools=(2, 8, CH_DEEP)),
+                              device="cuda")
+        zero_counts()
+        vg.begin(c8, 0, WIDTH, HEIGHT, 1.0)
+        draw_deep_tile_scene(c8)
+        img8 = vg.end(c8)
+        counts = read_counts()
+        paths[name] = counts
+        d8, p8 = c8.last_device_arrays, c8.last_plan
+        pools8 = d8["chunk_edges"]
+        shapes = [tuple(int(x) for x in ce.shape[:2]) for ce in pools8]
+        live = [int((ce.abs().sum(dim=2) > 0).sum(dim=1).max()) for ce in pools8]
+        k_res = len(d8["res"]["rparams"]) if d8["res"] is not None else 0
+        k1g = coverage_cuda.k1_geometry(p8.tile_h, 128, max(c for _n, c in shapes[k_res:]))
+        k3g = (coverage_resolve_cuda.k3_geometry(p8.tile_h, ss, max(
+            c for _n, c in shapes[:k_res])) if k_res else {})
+        need = ("K1", "K2") + (("K3",) if ss > 1 else ())
+        missing = [k for k in need if counts[k] <= 0]
+        print(f"[4h] {name}: pools {shapes} ({k_res} RES first), the deepest live "
+              f"chunk per pool {live} edges; K1 {k1g['form']} form, K3 "
+              f"{k3g.get('form', 'no RES pool, no')} form (edge windows of "
+              f"{k1g['edge_window']}); launches {counts}")
+        if (missing or k1g["form"] != "deep" or max(live) <= 1808
+                or (ss > 1 and (k3g.get("form") != "deep" or max(live[:k_res]) <= 1808))):
+            raise AssertionError(f"[4h] {name}: launched no {missing}, or K1 or K3 "
+                                 f"took no deep form, or no chunk over 1,808 edges: "
+                                 f"{k1g}, {k3g}, {live}")
+        ref8 = execute_plan_torch(p8, c8.background, device_arrays=d8)
+        if tuple(img8.shape) != (HEIGHT, WIDTH, 4) or not bool(torch.isfinite(img8).all()):
+            raise AssertionError(f"[4h] {name}: {tuple(img8.shape)} image or "
+                                 f"non-finite pixels")
+        lv = u8_levels(img8, ref8)
+        print(f"[4h] {name}: vs the plain twins on the card: max|diff| "
+              f"{float((img8 - ref8).abs().max()):.3e}, {lv} u8 levels (bound 0)")
+        if lv:
+            raise AssertionError(f"[4h] {name}: {lv} u8 levels from the twins")
+        got = coverage_t_cuda.coverage_pools_t_cuda(pools8, p8.tile_h, 128)
+        err = 0.0
+        for g, ce in zip(got, pools8):
+            ref = coverage_chunks_t_torch(ce, p8.tile_h, 128)
+            err = max(err, float((g - ref).abs().max()))
+            label = f"deep-tile pool {tuple(ce.shape[:2])} at tile_h={p8.tile_h}"
+            k5_err = max(k5_err, check_k5(label, ce, p8.tile_h, 128, "[4h]", ref))
+            k6_err = max(k6_err, check_k6(label, ce, p8.tile_h, 128, "[4h]"))
+        k4_err = max(k4_err, err)
+        print(f"[4h] K4 over the plan's pools ({coverage_t_cuda.k4_geometry(p8.tile_h, 128, CH_DEEP)['form']} "
+              f"form): max|K4 - plain| = {err:.3e} (bound {K1_BOUND:.0e})")
+        if not err <= K1_BOUND:
+            raise AssertionError(f"[4h] K4 disagrees on the deep-tile pools: {err}")
+        del got, c8, d8, img8, ref8
+
+    stamp("[4h]")
 
     # ---- 5c. the 1080p frame through K5 or K6 and K7 ----------------------
     # chunk coverage per pool (K5 pixel-major, or K6 chunk-major), the
@@ -1338,6 +1478,8 @@ def main() -> int:
         counts = read_counts()
         check_path(f"flat frame via {cov_k}", counts, (cov_k, "K7"), [(fimg, img)],
                    tag="[5c]")
+
+    stamp("[5c]")
 
     # ---- 7. the serving paths -------------------------------------------
     def app_frame(c, draw, dispatch=True):
@@ -1455,6 +1597,8 @@ def main() -> int:
                [(bimgs[k], refs[k]) for k in range(K_BATCH)])
     refs_batch = refs
 
+    stamp("[7]")
+
     # ---- 8. the multi-GPU paths -----------------------------------------
     n_cards = torch.cuda.device_count()
 
@@ -1517,6 +1661,8 @@ def main() -> int:
     check_path("render_sharded n=4", counts, ("K4",),
                [(simgs[k], refs_batch[k]) for k in range(K_BATCH)], tag="[8]")
     del refs, refs_batch, imgs, bimgs, rf_imgs, simgs
+
+    stamp("[8]")
 
     # ---- 6. times -------------------------------------------------------
     pl, dv = ctx.last_plan, ctx.last_device_arrays
@@ -1874,6 +2020,10 @@ def main() -> int:
               f"({100 * busy / window:.1f}% busy; torch.profiler, 10 calls; {card})")
         for key, v in sorted(by.items(), key=lambda kv: -kv[1])[:8]:
             print(f"[6]    {key:48s} {v:.4f} ms/call")
+    for key in ("K5", "K6"):
+        print(f"[6] {key} device ms per [5c] frame: {dev_ms[f'flat {key}'][key]:.4f} in "
+              f"{dev_launched[f'flat {key}'][key]:g} launches ({len(fpools)} pools; "
+              f"torch.profiler, 10 frames; {card})")
 
     # the launch route: host us per call of K8's wrapper and of torch.add,
     # and of each step of the route (utils/launch_route.py); the steady
@@ -1911,6 +2061,8 @@ def main() -> int:
     if ms["K8"] > 1.1 * ms["K8_library"]:
         print(f"[6] note: K8 {ms['K8']:.4f} ms is over 1.1x torch.add's "
               f"{ms['K8_library']:.4f} ms (CUDA events)")
+
+    stamp("[6]")
 
     # ---- 9. cold start ----------------------------------------------------
     # each phase a fresh process with jax blocked; phase 2's builds left the
@@ -2015,9 +2167,18 @@ def main() -> int:
                      f"{dms:.4f} ms by {dby}")
         print(f"[6] work {key}: {nb / 1e6:.1f} MB, {ops / 1e9:.2f} G operations -> "
               f"bound {bms:.4f} ms by {by_}{dense} (67 TFLOP/s FP32, 3.35 TB/s HBM)")
-    for key in ("K1", "K3", "K4", "K7"):
+    for key in ("K1", "K3", "K4", "K5", "K6", "K7"):
         print(f"[6] ptxas {key} ({kernels[key].name}.cu): "
               f"{ptxas_summary(kernels[key].build_log)}")
+    for key in ("K5", "K6"):
+        print(f"[6] ptxas {key} per kernel (registers, spill bytes): "
+              f"{ptxas_by_kernel(kernels[key].build_log)}")
+    print(f"[6] K5 and K6 on the [5c] frame's pools: live (edge, row) pairs "
+          f"{lp['ss=1 frame'][0]} of {lp['ss=1 frame'][1]} "
+          f"({100 * lp['ss=1 frame'][0] / lp['ss=1 frame'][1]:.1f}%); bound "
+          f"{bound(*work['K5'])[0]:.4f} ms live, {bound(*dense_work['K5'])[0]:.4f} "
+          f"dense; device {dev_ms['flat K5']['K5']:.4f} (K5), "
+          f"{dev_ms['flat K6']['K6']:.4f} (K6) ms per frame ({card})")
     k1_rate = k1_flop / (ms["K1"] * 1e-3) / 1e12
     k2_rate = work["a"][0] / (ms["K2"] * 1e-3) / 1e12
     k3_rate = k3_flop / (ms["K3_ss2"] * 1e-3) / 1e12

@@ -10,6 +10,8 @@ Tolerance atol=1e-5: both sides evaluate the same float32 expressions in the
 same order, with the two FMAs XLA contracts written out in the twin; what is
 left is a few ulps on coverage values of magnitude <= CH."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -270,6 +272,83 @@ def test_windowed_walk_equals_the_dense_twin_bit_for_bit(th, window):
                            coverage_chunks_t_torch(e, th, TW))
 
 
+def coverage_edge_window_walk(chunk_edges: torch.Tensor, tile_h: int,
+                              tile_w: int, row_window: int,
+                              edge_window: int) -> torch.Tensor:
+    """The deep form's walk (csrc/edge_coverage.cuh::walk_deep and K3's):
+    per window of rows, the chunk's edges a window of edge_window edges at a
+    time, each window's masks (edge_row_live of the window's edges over the
+    window's rows), its live edges added in edge order to the sums carried
+    from the last edge window as stored floats."""
+    from vgtpu_torch.ops.coverage import edge_row_live, fma
+
+    nc, ch, _ = chunk_edges.shape
+    px = torch.arange(tile_w, dtype=torch.float32)
+    out = torch.zeros((nc, tile_h, tile_w), dtype=torch.float32)
+    for r0 in range(0, tile_h, row_window):
+        nr = min(row_window, tile_h - r0)
+        py = torch.arange(r0, r0 + nr, dtype=torch.float32)[:, None]
+        for e0 in range(0, ch, edge_window):
+            win = chunk_edges[:, e0:e0 + edge_window]
+            live = edge_row_live(win, nr, row0=r0)          # the window's masks
+            acc = out[:, r0:r0 + nr].clone()                # the carried sums
+            for i in range(win.shape[1]):
+                x0, y0, x1, y1 = (win[:, i, k][:, None, None] for k in range(4))
+                dy = y1 - y0
+                s = torch.sign(dy)
+                m = (x1 - x0) / torch.where(torch.abs(dy) < 1e-6, 1.0, dy)
+                steep = torch.abs(m) < 0.01
+                s_over_m = s / torch.where(steep, 1.0, m)
+                ytop = torch.maximum(torch.minimum(y0, y1), py)
+                h = torch.clamp_min(torch.minimum(torch.maximum(y0, y1), py + 1.0)
+                                    - ytop, 0.0)
+                u0 = (px + 1.0) - fma(m, ytop - y0, x0)
+                u1 = fma(-m, h, u0)
+                c0, c1 = torch.clamp(u0, 0.0, 1.0), torch.clamp(u1, 0.0, 1.0)
+                g = (c0 * (u0 - 0.5 * c0) - c1 * (u1 - 0.5 * c1)) * s_over_m
+                term = torch.where(steep, s * h * c0, g)
+                acc = torch.where(live[:, i, :, None], acc + term, acc)
+            out[:, r0:r0 + nr] = acc
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _dense_chunks(ch: int, th: int) -> tuple:
+    """boundary_chunks and random_chunks of ch edges over a th x 128 tile,
+    each with its dense twins (chunk-major and pixel-major)."""
+    from vgtpu_torch.ops.coverage import coverage_chunks_t_torch
+
+    nc = 2 if ch > 1_000 else 6
+    out = []
+    for edges in (boundary_chunks(ch + th, nc, ch, th, TW),
+                  random_chunks(3 * ch + th, nc, ch)):
+        e = torch.from_numpy(edges)
+        out.append((e, coverage_chunks_torch(e, th, TW),
+                    coverage_chunks_t_torch(e, th, TW)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("ch", [33, 64, 100, 2_100])
+@pytest.mark.parametrize("edge_window", [32, 64])
+@pytest.mark.parametrize("th,row_window", [(16, 8), (24, 16)])
+def test_edge_window_walk_equals_the_dense_twins_bit_for_bit(th, row_window,
+                                                             edge_window, ch):
+    """The exactness of edge windows: a chunk deeper than one window, its
+    edges staged and walked a window at a time inside windows of rows (that
+    divide the tile or not), the sums carried from window to window as
+    floats, equals the dense twin bit for bit (torch.equal) in K1's and
+    K6's layout and, transposed, K4's and K5's, on boundary_chunks and
+    random_chunks; the culling is not vacuous (live and dead pairs)."""
+    from vgtpu_torch.ops.coverage import edge_row_live
+
+    for e, dense, dense_t in _dense_chunks(ch, th):
+        walked = coverage_edge_window_walk(e, th, TW, row_window, edge_window)
+        assert torch.equal(walked, dense)
+        assert torch.equal(walked.reshape(e.shape[0], -1).t(), dense_t)
+        frac = float(edge_row_live(e, th).float().mean())
+        assert 0.01 < frac < 0.9
+
+
 @pytest.mark.parametrize("ch", [1, 2, 8, 24, 32, 33, 40, 48, 64])
 @pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (8, 256), (16, 128),
                                            (32, 256), (256, 128)])
@@ -311,43 +390,68 @@ def test_k1_geometry_admits_every_tile_height(tile_h, ch):
 
 
 def test_k1_geometry_refuses_what_the_card_cannot_hold():
-    """With windowed masks only a CH whose edge scalars leave no room for
-    one row of masks is refused: 1,808 edges a chunk take windows of one
-    row, 1,809 do not fit; and a tile width that is not a multiple of 128."""
-    from vgtpu_torch.ops.coverage_cuda import k1_geometry
+    """Edge windows lift K1's depth ceiling: a chunk deeper than one window
+    (EDGE_WINDOW = 512 edges) takes the deep form, one chunk a block and
+    its edges staged a window at a time, so every CH is admitted (1,809,
+    over the 1,808 the shallow staging held, up to 65,536) within 227 KB
+    at any tile height; the shallow form keeps every CH up to the window.
+    Only a tile width that is not a multiple of 128 is refused."""
+    from vgtpu_torch.ops.coverage_cuda import (
+        EDGE_WINDOW,
+        SMEM_LIMIT,
+        deep_smem,
+        k1_geometry,
+    )
 
-    assert k1_geometry(8, 128, 1_700)["window_rows"] == 8
-    assert k1_geometry(8, 128, 1_808)["window_rows"] == 1
-    assert k1_geometry(65_536, 128, 1_808)["smem_bytes"] <= 232_448
-    with pytest.raises(ValueError, match="no room for 1 row"):
-        k1_geometry(8, 128, 1_809)
+    assert EDGE_WINDOW == 512 and EDGE_WINDOW % 32 == 0
+    assert k1_geometry(8, 128, EDGE_WINDOW)["form"] == "shallow"
+    assert k1_geometry(8, 128, EDGE_WINDOW)["window_rows"] == 8
+    for ch in (EDGE_WINDOW + 1, 1_753, 1_801, 1_809, 7_300, 65_536):
+        for tile_h, tile_w in ((8, 128), (16, 256), (65_536, 128)):
+            g = k1_geometry(tile_h, tile_w, ch)
+            assert g["form"] == "deep" and g["edge_window"] == EDGE_WINDOW
+            assert g["chunks_per_block"] == 1 and g["threads"] == 128
+            assert g["window_rows"] == min(tile_h, 4)
+            assert g["smem_bytes"] == deep_smem(EDGE_WINDOW, g["window_rows"])
+            assert g["smem_bytes"] <= SMEM_LIMIT
+            assert g["grid_y"] == min(-(-tile_h * (tile_w // 128) // 4), 65_535)
     with pytest.raises(ValueError, match="multiple of 128"):
         k1_geometry(8, 192, 8)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k1_geometry(8, 192, 2_048)
 
 
-@pytest.mark.parametrize("ch", [1, 2, 24, 32, 33, 48, 64, 226])
+@pytest.mark.parametrize("ch", [1, 2, 24, 32, 33, 48, 64, 226, 1_753, 1_801,
+                                1_809, 7_300, 65_536])
 def test_k4_geometry_admits_every_ch_the_card_holds(ch):
-    """K4 stages, per block of cpb chunks and a window of at most 8 rows,
-    the edge scalars (32 bytes an edge), the row masks and 8 warps'
-    transpose buffers of 128 pixels x (cpb + 1) floats in dynamic shared
-    memory sized at launch: 8 chunks a block (one 32-byte sector per
-    pixel's store) up to ~700 edges, then 4, 2, 1, so every CH the earlier
-    K4 took (227) and many more are admitted; a CH no single chunk can hold
-    (about 6,900 edges) is refused."""
+    """K4's shallow form stages, per block of cpb chunks and a window of at
+    most 8 rows, the edge scalars (32 bytes an edge), the row masks and 8
+    warps' transpose buffers of 128 pixels x (cpb + 1) floats in dynamic
+    shared memory sized at launch: 8 chunks a block (one 32-byte sector
+    per pixel's store) throughout the edge window (512 edges).  Deeper
+    chunks take the deep form (one chunk a block, edges staged a window at
+    a time, one float a pixel stored: no transpose), so every CH is
+    admitted, 7,300 (over the 6,980 one shallow chunk held) and 65,536
+    among them.  A tile width that is not a multiple of 128 is refused."""
+    from vgtpu_torch.ops.coverage_cuda import EDGE_WINDOW, deep_smem
     from vgtpu_torch.ops.coverage_t_cuda import SMEM_LIMIT, k4_geometry, k4_smem
 
     g = k4_geometry(8, 128, ch)
-    cpb = g["chunks_per_block"]
-    assert cpb == 8
-    assert g["window_rows"] == 8 and g["grid_y"] == 1 and g["threads"] == 256
-    assert g["smem_bytes"] == g["shared_bytes"] == k4_smem(ch, cpb, 8) <= SMEM_LIMIT
-    assert k4_smem(ch, cpb, 8) == 4 * (cpb * (8 * ch + 8 * -(-ch // 32))
-                                       + 8 * 128 * (cpb + 1))
-    for deep, deep_cpb in ((227, 8), (450, 8), (800, 4), (3_000, 2), (6_500, 1)):
-        gd = k4_geometry(8, 128, deep)
-        assert gd["chunks_per_block"] == deep_cpb and gd["smem_bytes"] <= SMEM_LIMIT
-    with pytest.raises(ValueError, match="over the card's 232448"):
-        k4_geometry(8, 128, 7_300)
+    assert g["threads"] == 256 and g["smem_bytes"] == g["shared_bytes"] <= SMEM_LIMIT
+    if ch <= EDGE_WINDOW:
+        cpb = g["chunks_per_block"]
+        assert g["form"] == "shallow" and cpb == 8 and g["edge_window"] == 0
+        assert g["window_rows"] == 8 and g["grid_y"] == 1
+        assert g["smem_bytes"] == k4_smem(ch, cpb, 8) == 4 * (
+            cpb * (8 * ch + 8 * -(-ch // 32)) + 8 * 128 * (cpb + 1))
+    else:
+        assert g["form"] == "deep" and g["chunks_per_block"] == 1
+        assert g["edge_window"] == EDGE_WINDOW and g["window_rows"] == 8
+        assert g["smem_bytes"] == deep_smem(EDGE_WINDOW, 8)
+        assert g["grid_y"] == 1 and k4_geometry(8, 256, ch)["grid_y"] == 2
+    assert k4_geometry(8, 128, EDGE_WINDOW)["chunks_per_block"] == 8
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k4_geometry(8, 192, ch)
 
 
 @pytest.mark.parametrize("tile_h", [1, 3, 8, 16, 256, 16_384, 65_536, 600_000])
@@ -553,7 +657,7 @@ def test_k4_wrapper_refuses_cpu_tensors_and_other_devices():
 
 # ---- K6: chunk coverage, edge slot by edge slot --------------------------------
 
-@pytest.mark.parametrize("ch", [2, 6, 24])
+@pytest.mark.parametrize("ch", [2, 6, 24, 40, 64])
 def test_coverage_chunks_matches_pallas_kernel(ch):
     """K6's TPU kernel (_kernel, coverage_chunks_pallas) in interpret mode:
     its grid accumulates the output slot by slot, the order of the twin."""
@@ -571,7 +675,7 @@ def test_coverage_chunks_matches_pallas_kernel(ch):
 
 # ---- K5: pixel-major coverage, the flat form -------------------------------------
 
-@pytest.mark.parametrize("ch", [2, 6, 24])
+@pytest.mark.parametrize("ch", [2, 6, 24, 40, 64])
 def test_coverage_chunks_t_flat_matches_pallas_kernel(ch):
     """K5's TPU kernel (_kernel_t, variant "flat") in interpret mode at
     unroll=1.  It equals K4's (_kernel_t2) bit for bit, so K4's twin is
@@ -640,3 +744,66 @@ def test_k5_k6_wrappers_refuse_cpu_tensors_and_other_devices(kernel):
     assert k.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         dispatch(torch.zeros((4, 2, 4), device="meta"))
+
+
+@pytest.mark.parametrize("ch", [1, 2, 24, 64, 512, 513, 2_048, 8_192, 65_536])
+@pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (8, 256), (16, 128),
+                                           (64, 256), (16_384, 128)])
+def test_k6_geometry_admits_any_ch_and_tile_shape(tile_h, tile_w, ch):
+    """K6 takes K1's design for one pool: up to the edge window (512 edges)
+    K1's shallow geometry (4 chunks a block, windows of rows), with the
+    block's raw edges (16 bytes an edge, one bulk copy) and an mbarrier in
+    its shared memory too; deeper, K1's deep form (one chunk a block, edge
+    windows).  Every CH and tile shape fits the card either way; a tile
+    width that is not a multiple of 128 is refused."""
+    from vgtpu_torch.ops.coverage_cuda import (
+        EDGE_WINDOW,
+        SMEM_LIMIT,
+        deep_smem,
+        edge_mask_bytes,
+        k1_geometry,
+    )
+    from vgtpu_torch.ops.coverage_slots_cuda import k6_geometry
+
+    k1 = k1_geometry(tile_h, tile_w, ch)
+    g = k6_geometry(tile_h, tile_w, ch)
+    assert g["smem_bytes"] <= SMEM_LIMIT
+    assert g["form"] == k1["form"] == ("shallow" if ch <= EDGE_WINDOW else "deep")
+    if ch > EDGE_WINDOW:
+        assert g == k1
+        assert g["chunks_per_block"] == 1 and g["edge_window"] == EDGE_WINDOW
+        assert g["smem_bytes"] == deep_smem(EDGE_WINDOW, min(tile_h, 4))
+    else:
+        win = g["window_rows"]
+        assert g["smem_bytes"] == edge_mask_bytes(ch, win) + 4 * 4 * 4 * ch + 16
+        assert 1 <= win <= k1["window_rows"]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k6_geometry(tile_h, 192, ch)
+
+
+@pytest.mark.parametrize("ch", [1, 2, 24, 64, 512, 513, 2_048, 8_192, 65_536])
+@pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (8, 256), (16, 128),
+                                           (64, 256), (16_384, 128)])
+def test_k5_geometry_admits_any_ch_and_tile_shape(tile_h, tile_w, ch):
+    """K5 takes K4's design for one pool and K4's geometry: up to the edge
+    window K4's shallow form (cpb chunks a block, windows of at most 8 rows
+    along grid.y), deeper the deep form (one chunk a block, edge windows,
+    no transpose).  Every CH and tile shape fits the card; a tile width
+    that is not a multiple of 128 is refused."""
+    from vgtpu_torch.ops.coverage_cuda import EDGE_WINDOW, SMEM_LIMIT, deep_smem
+    from vgtpu_torch.ops.coverage_t_cuda import k4_geometry, k4_smem
+    from vgtpu_torch.ops.coverage_t_flat_cuda import k5_geometry
+
+    g = k5_geometry(tile_h, tile_w, ch)
+    assert g == k4_geometry(tile_h, tile_w, ch) and g["smem_bytes"] <= SMEM_LIMIT
+    assert g["form"] == ("shallow" if ch <= EDGE_WINDOW else "deep")
+    if ch > EDGE_WINDOW:
+        assert g["chunks_per_block"] == 1 and g["edge_window"] == EDGE_WINDOW
+        assert g["smem_bytes"] == deep_smem(EDGE_WINDOW, min(tile_h, 8))
+    else:
+        cpb, rows = g["chunks_per_block"], g["window_rows"]
+        assert g["smem_bytes"] == k4_smem(ch, cpb, rows)
+        assert rows == min(tile_h, 8) and cpb == 8
+        assert g["grid_y"] == min(-(-tile_h // rows), 65_535)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k5_geometry(tile_h, 192, ch)

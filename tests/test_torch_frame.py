@@ -327,6 +327,40 @@ def test_end_matches_vgtpu_chunk_pools_over_32_edges(ss):
         assert live48(d["chunk_edges"][k:]) >= 2     # RAW: K1
 
 
+def _deep_tile(ctx, vg, font_data):
+    from vgtpu_torch.scenes.small import draw_deep_tile_scene
+
+    draw_deep_tile_scene(ctx, font_data, vg=vg)
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_end_matches_vgtpu_chunks_deeper_than_the_shallow_staging(ss):
+    """ContextConfig(chunk_pools=(2, 8, 2048)) on a scene that puts 2,000
+    edges of one path into one tile: the binner and the host path take the
+    pool, its chunk is deeper than the 1,808 edges a shallow K1 block
+    staged, and K1 (and at ss=2 K3, which the chunk's entry reaches) take
+    their deep forms for the launch (ops/coverage_cuda.k1_geometry,
+    ops/coverage_resolve_cuda.k3_geometry).  The twins of the path are
+    held to vgtpu."""
+    from vgtpu_torch.ops.coverage_cuda import k1_geometry
+    from vgtpu_torch.ops.coverage_resolve_cuda import k3_geometry
+
+    ctx = _end_both(_deep_tile, ss, w=WIDTH, h=HEIGHT, chunk_pools=(2, 8, 2048))
+    d = ctx.last_device_arrays
+    k = len(d["res"]["rparams"]) if ss > 1 else 0
+    th = ctx.last_plan.tile_h
+
+    def deepest(pools):
+        return max(int((ce.abs().sum(dim=2) > 0).sum(dim=1).max()) for ce in pools)
+
+    assert max(int(ce.shape[1]) for ce in d["chunk_edges"]) == 2048
+    assert deepest(d["chunk_edges"]) > 1_809
+    assert k1_geometry(th, 128, 2048)["form"] == "deep"
+    if ss > 1:
+        assert deepest(d["chunk_edges"][:k]) > 1_809          # a RES chunk: K3
+        assert k3_geometry(th, ss, 2048)["form"] == "deep"
+
+
 def _rounded_rect(ctx, vg, _font_data):
     vg.beginPath(ctx)
     vg.roundedRect(ctx, 10, 10, 150, 90, 18)

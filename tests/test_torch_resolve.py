@@ -253,20 +253,29 @@ def test_k3_geometry_windows_tall_tiles(tile_h, ch, ss):
 
 
 def test_k3_geometry_refuses_what_the_card_cannot_hold():
-    """Only a CH whose edge scalars leave no room for the masks is refused:
-    tiles of up to 64 sub-rows take one window (8 sub-rows hold 1,752 edges
-    a chunk, not 1,753), taller tiles windows of whole output rows (1,800
-    edges a chunk take windows of one output row at ss = 2, 1,801 do not
-    fit); and ss must divide the tile."""
-    from vgtpu_torch.ops.coverage_resolve_cuda import k3_geometry
+    """Edge windows lift K3's depth ceiling: a chunk deeper than one window
+    (EDGE_WINDOW = 512 edges) takes the deep form (one chunk a block, a
+    warp per output row and 128 columns, each sub-row walked over windows
+    of 512 edges, one window's scalars and 4 sub-rows' masks staged), so
+    every CH is admitted, 1,753 (over the 1,752 the static form held),
+    1,801 (over the 1,800 of the windowed form), 7,300 and 65,536 among
+    them, at every ss and tile height; the shallow forms keep every CH up
+    to the window.  Only ss not dividing the tile is refused."""
+    from vgtpu_torch.ops.coverage_cuda import EDGE_WINDOW, deep_smem
+    from vgtpu_torch.ops.coverage_resolve_cuda import SMEM_LIMIT, k3_geometry
 
     assert k3_geometry(7_256, 8, 2)["shared_bytes"] <= 232_448
-    assert k3_geometry(8, 1, 1_700)["window_rows"] == 8
-    assert k3_geometry(8, 1, 1_752)["window_rows"] == 8
-    with pytest.raises(ValueError, match="no room for 8 row"):
-        k3_geometry(8, 1, 1_753)
-    assert k3_geometry(128, 2, 1_800)["window_rows"] == 2
-    with pytest.raises(ValueError, match="no room for 2 row"):
-        k3_geometry(128, 2, 1_801)
+    assert k3_geometry(8, 1, 1_700)["form"] == "deep"
+    for tile_h, ss in ((8, 1), (64, 8), (128, 2), (16_384, 2)):
+        assert k3_geometry(tile_h, ss, EDGE_WINDOW)["form"] == "shallow"
+        assert k3_geometry(tile_h, ss, EDGE_WINDOW)["shared_bytes"] <= SMEM_LIMIT
+        for ch in (EDGE_WINDOW + 1, 1_753, 1_801, 1_809, 7_300, 65_536):
+            g = k3_geometry(tile_h, ss, ch)
+            assert g["form"] == "deep" and g["edge_window"] == EDGE_WINDOW
+            assert g["chunks_per_block"] == 1 and g["threads"] == 128
+            assert g["smem_bytes"] == g["shared_bytes"] == deep_smem(EDGE_WINDOW, 4)
+            assert g["smem_bytes"] <= SMEM_LIMIT
     with pytest.raises(ValueError, match="need ss"):
         k3_geometry(7_257, 8, 2)
+    with pytest.raises(ValueError, match="need ss"):
+        k3_geometry(130, 4, 2_048)

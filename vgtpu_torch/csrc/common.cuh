@@ -60,4 +60,17 @@ inline void allow_dynamic_smem(Kernel kernel, unsigned* done) {
   }
 }
 
+// Launches kernel<<<grid, threads, smem_bytes, stream>>>(args...), first
+// raising its dynamic shared memory limit where smem_bytes needs it
+// (allow_dynamic_smem, `raised` its per-kernel device mask); returns
+// cudaGetLastError().
+template <class Kernel, class... Args>
+inline int launch_kernel(Kernel kernel, unsigned* raised, dim3 grid,
+                         int threads, int smem_bytes, cudaStream_t stream,
+                         Args... args) {
+  if (smem_bytes > 48 * 1024) allow_dynamic_smem(kernel, raised);
+  kernel<<<grid, threads, smem_bytes, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace vg

@@ -28,9 +28,10 @@
 //   edge's scalars (x0, y0, ymin, ymax, s, m, steep, s/m) in shared memory
 //   and takes one ballot per tile row of the edges with h > 0, computed with
 //   the kernel's own float expressions: a per-(chunk, row) mask, ceil(CH/32)
-//   words.  Any CH and any tile height: the staging is dynamic shared
-//   memory sized at launch for the launch's deepest pool and a window of
-//   W rows, kChunksPerBlock * (32 CH + 4 W ceil(CH/32)) bytes.  W is the
+//   words.  Any tile height: the staging is dynamic shared memory sized
+//   at launch for the launch's deepest pool (at most one edge window deep)
+//   and a window of W rows, kChunksPerBlock * (32 CH + 4 W ceil(CH/32))
+//   bytes.  W is the
 //   whole tile where that fits in the card's 227 KB (every tile up to
 //   14,512 rows at CH = 2, 7,072 at CH = 48), else the most rows that fit:
 //   the block stages the masks of one window, walks it, and restages the
@@ -41,7 +42,7 @@
 //   The warp walks only its row's set bits, in edge order (__ffs): per live
 //   edge it reads the 8 scalars as two broadcast float4 loads, computes
 //   ytop, h and x(ytop) once, then each lane its 4 columns' G-form (or steep
-//   form) with edge_contribution's roundings in its order
+//   form) with the twin's roundings in its order
 //   (vg::add_edge_row).  The mask is the warp's, so culling costs no
 //   divergence.  Tiles with more rows (or column groups) than warps loop the
 //   warps over them.  Each lane stores one float4: a row of 128 columns is
@@ -53,6 +54,17 @@
 //   splits a tuple of more than kMaxPools pools into several launches.  The
 //   dead row of cov_all is a pool of one chunk with no edges: its block
 //   writes zeros, so no separate fill runs.
+// - Edge windows (csrc/edge_coverage.cuh): the staging above holds all of
+//   a block's edges, 32 bytes an edge, so it has a depth ceiling (1,808
+//   edges a chunk).  A launch whose deepest pool is deeper than one edge
+//   window (ew edges, ops/coverage_cuda.EDGE_WINDOW) takes the deep form,
+//   coverage_chunks_deep_kernel: a block owns one chunk and 4 of its
+//   (row, 128-column) units, a warp each, and walks the chunk's edges a
+//   window at a time (vg::walk_deep), each warp's 4 sums in registers
+//   across windows, so every CH runs.  The sum still runs in edge order,
+//   so the deep form equals the twin bit for bit too.  Shallow launches
+//   (every pool of the default configurations) keep the form above and
+//   its source.
 //
 // Rounding: IEEE division is kept (no --use_fast_math), and the library is
 // built with -fmad=false, so nvcc contracts no a*b+c into an FMA on its own.
@@ -118,32 +130,75 @@ coverage_chunks_kernel(const vg::Pools P, int th, int tile_w, int win) {
   }
 }
 
+// The deep form: block (x, y) owns chunk x - block0 of its pool (one chunk
+// a block) and the units y * 4 .. y * 4 + 3 of its tile (strided by
+// gridDim.y * 4); windows of ew edges.
+__global__ void __launch_bounds__(kThreads)
+coverage_chunks_deep_kernel(const vg::Pools P, int th, int tile_w, int ew) {
+  extern __shared__ __align__(16) float smem[];
+  const vg::PoolDesc d = vg::pick_pool(P);
+  const int c = static_cast<int>(blockIdx.x) - d.block0;
+  const int groups = tile_w / kGroupCols;
+  const int npx = th * tile_w;
+  const float* edges = d.edges + static_cast<size_t>(c) * d.ch * 4;
+  for (int u0 = blockIdx.y * (kThreads / 32); u0 < th * groups;
+       u0 += gridDim.y * (kThreads / 32)) {
+    float acc[4];
+    int r, px0;
+    if (vg::walk_deep(edges, d.ch, ew, th, groups, u0, smem, acc, &r,
+                      &px0)) {
+      *reinterpret_cast<float4*>(d.out + static_cast<size_t>(c) * npx +
+                                 r * tile_w + px0) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
+  }
+}
+
 }  // namespace
 
 // desc: npools descriptors, vg::kDescWords 64-bit words each (edges, rp
 // (unused), out, nc, ch, block0: ops/coverage_cuda.pack_pools), read on the
 // host; each pool's edges (nc, ch, 4) f32 and its output rows (nc, th *
 // tile_w) f32, 16-byte aligned, all on `device`.  tile_w a multiple of 128.
-// win: the rows a window stages (>= 1); smem_bytes: the launch's dynamic
-// shared memory; both as the wrapper computed them (ops/coverage_cuda.
+// ew: 0 for the shallow form (blocks of kChunksPerBlock chunks), else the
+// deep form's edge window (a multiple of 32; one chunk a block).  win: the
+// rows a shallow window stages (>= 1); smem_bytes: the launch's dynamic
+// shared memory; all as the wrapper computed them (ops/coverage_cuda.
 // k1_geometry for the call's deepest pool).  A smem_bytes below this
-// file's sizing of min(win, th) rows for the launch's deepest pool, or a
-// malformed descriptor, is refused.  Launches on `stream`, does not
-// synchronise; returns cudaGetLastError().
+// file's sizing (shallow: min(win, th) rows for the launch's deepest pool;
+// deep: one window of ew edges and min(th, 4) rows), or a malformed
+// descriptor, is refused.  Launches on `stream`, does not synchronise;
+// returns cudaGetLastError().
 extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
-                                  int tile_w, int win, int smem_bytes,
+                                  int tile_w, int win, int ew, int smem_bytes,
                                   int device, cudaStream_t stream) {
   vg::Pools pools;
   int max_ch = 0;
-  const int blocks =
-      vg::read_pools(desc, npools, kChunksPerBlock, &pools, &max_ch);
+  const bool deep = ew != 0;
+  const int blocks = vg::read_pools(desc, npools, deep ? 1 : kChunksPerBlock,
+                                    &pools, &max_ch);
   if (win > th) win = th;
+  const size_t need =
+      deep ? vg::deep_smem(ew, th < kThreads / 32 ? th : kThreads / 32)
+           : block_smem(max_ch, win);
   if (blocks < 0 || th < 1 || win < 1 || tile_w < kGroupCols ||
-      tile_w % kGroupCols || smem_bytes < 0 ||
-      static_cast<size_t>(smem_bytes) < block_smem(max_ch, win)) {
+      tile_w % kGroupCols || (deep && (ew < 32 || ew % 32)) ||
+      smem_bytes < 0 || static_cast<size_t>(smem_bytes) < need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const vg::DeviceScope scope(device);
+  if (deep) {
+    static unsigned raised = 0;
+    if (smem_bytes > 48 * 1024) {
+      vg::allow_dynamic_smem(coverage_chunks_deep_kernel, &raised);
+    }
+    const long long units = static_cast<long long>(th) * (tile_w / kGroupCols);
+    const long long ys = (units + kThreads / 32 - 1) / (kThreads / 32);
+    coverage_chunks_deep_kernel<<<dim3(blocks, ys < 65535 ? ys : 65535),
+                                  kThreads, smem_bytes, stream>>>(
+        pools, th, tile_w, ew);
+    return static_cast<int>(cudaGetLastError());
+  }
   static unsigned raised = 0;
   if (smem_bytes > 48 * 1024) {
     vg::allow_dynamic_smem(coverage_chunks_kernel, &raised);

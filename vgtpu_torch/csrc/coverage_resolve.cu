@@ -66,6 +66,19 @@
 // - One launch over all RES pools: by-value pool descriptors (edges,
 //   rparams, output row, NC, CH, first block) as in K1, packed by
 //   ops/coverage_cuda.pack_pools.
+// - Edge windows (csrc/edge_coverage.cuh): a launch whose deepest pool is
+//   deeper than one edge window (ew edges, ops/coverage_cuda.EDGE_WINDOW)
+//   takes the deep form, coverage_res_deep_kernel, so every CH runs.  A
+//   block owns one chunk and 4 (output row, 128-column group) units, a
+//   warp each.  For each sub-row k = 0..ss-1 in turn it stages the
+//   chunk's edges a window at a time (vg::stage_edges: the scalars and the
+//   masks of sub-row k of its output rows), each warp carrying its 4
+//   windings in registers from window to window; after the last window it
+//   resolves them (resolve_sub) and adds them to the sub-row sum in order
+//   k.  The resolve comes after the whole edge-order sum, so the deep form
+//   equals the twin bit for bit.  The rparams are read from device memory
+//   (a few broadcast loads a warp).  Shallow launches keep the forms above
+//   and their sources.
 //
 // Rounding: as K1 (the two explicit __fmaf_rn, -fmad=false, IEEE division);
 // 1/ss is a power of two, so the final product is exact.
@@ -268,6 +281,75 @@ coverage_res_windowed_kernel(const vg::Pools P, int tile_w, int ss, int th_out,
   }
 }
 
+// The deep form: block (x, y) owns chunk x - block0 of its pool and the
+// units y * 4 .. y * 4 + 3 of its tile's (output row, group) units
+// (strided by gridDim.y * 4); windows of ew edges.  Its shared memory is
+// one window's scalars and the masks of 4 sub-rows.
+__global__ void __launch_bounds__(kThreads)
+coverage_res_deep_kernel(const vg::Pools P, int tile_w, int ss, int th_out,
+                         int ew) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kWarps = kThreads / 32;
+  const vg::PoolDesc d = vg::pick_pool(P);
+  const int nc = d.nc, ch = d.ch;
+  const int c = static_cast<int>(blockIdx.x) - d.block0;
+  float* sp = smem;
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + ew * vg::kEdgeScalars);
+  const float* edges = d.edges + static_cast<size_t>(c) * ch * 4;
+  const float* rp = d.rp;
+  auto param = [&](int k) { return __ldg(rp + static_cast<size_t>(k) * nc + c); };
+  const ResolveParams r{param(RP_EO),     param(RP_NOAA),   param(RP_TEXF),
+                        param(RP_SC),     param(RP_SC + 1), param(RP_SC + 2),
+                        param(RP_SC + 3)};
+  const int lane = threadIdx.x & 31;
+  const int groups = tile_w / kGroupCols;
+  const int units = th_out * groups;
+  const int npx_out = th_out * tile_w;
+  const int nwin = (ch + ew - 1) / ew;
+  const float inv_ss = 1.f / static_cast<float>(ss);
+  for (int u0 = blockIdx.y * kWarps; u0 < units; u0 += gridDim.y * kWarps) {
+    const int u = u0 + (threadIdx.x >> 5);
+    const int ulast = (u0 + kWarps < units ? u0 + kWarps : units) - 1;
+    const int ro0 = u0 / groups;
+    const int nro = ulast / groups - ro0 + 1;
+    const int ro = u / groups;
+    const int px0 = (u - ro * groups) * kGroupCols + lane * 4;
+    float c_sum[4];
+    for (int k = 0; k < ss; ++k) {
+      const int sr = ro * ss + k;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int w = 0; w < nwin; ++w) {
+        const int e0 = w * ew;
+        const int n = ch - e0 < ew ? ch - e0 : ew;
+        __syncthreads();  // every warp is done with the last window
+        vg::stage_edges(edges + static_cast<size_t>(e0) * 4, 0, 1, n, ew,
+                        ro0 * ss + k, ss, nro, sp, masks);
+        if (u < units) {
+          const int nwords = (n + 31) >> 5;
+          vg::add_live_edges<4>(sp, masks + (ro - ro0) * nwords, nwords,
+                                static_cast<float>(sr), px0, acc);
+        }
+      }
+      if (u < units) {
+        const float bd = param(RP_BD + sr);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float cv = resolve_sub(acc[j] + bd, r,
+                                       static_cast<float>(px0 + j) + 0.5f,
+                                       static_cast<float>(sr) + 0.5f);
+          c_sum[j] = k == 0 ? cv : c_sum[j] + cv;
+        }
+      }
+    }
+    if (u < units) {
+      *reinterpret_cast<float4*>(d.out + static_cast<size_t>(c) * npx_out +
+                                 ro * tile_w + px0) =
+          make_float4(c_sum[0] * inv_ss, c_sum[1] * inv_ss, c_sum[2] * inv_ss,
+                      c_sum[3] * inv_ss);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kRowsThreads)
 resolve_rows_kernel(const float* __restrict__ cov_sub,
                     const int* __restrict__ ids, const float* __restrict__ rp,
@@ -303,30 +385,47 @@ resolve_rows_kernel(const float* __restrict__ cov_sub,
 // each pool's edges (nc, ch, 4) f32, rparams (RP_BD + th rows padded, nc)
 // f32 (row stride nc) and output rows (nc, th_out * tile_w) f32, 16-byte
 // aligned (a row range of the caller's cov_final), all on `device`.
-// tile_w a multiple of 128.  win_out: the output rows a window stages (>=
-// 1);
-// smem_bytes: the launch's dynamic shared memory; both as the wrapper
-// computed them (ops/coverage_resolve_cuda.k3_geometry for the call's
-// deepest pool).  A smem_bytes below this file's sizing for the launch's
-// deepest pool, or a malformed descriptor, is refused.  Launches on
-// `stream`, does not synchronise; returns cudaGetLastError().
+// tile_w a multiple of 128.  ew: 0 for the shallow forms (blocks of
+// kChunksPerBlock chunks), else the deep form's edge window (a multiple of
+// 32; one chunk a block).  win_out: the output rows a shallow window
+// stages (>= 1); smem_bytes: the launch's dynamic shared memory; all as
+// the wrapper computed them (ops/coverage_resolve_cuda.k3_geometry for the
+// call's deepest pool).  A smem_bytes below this file's sizing for the
+// launch's deepest pool (deep: one window of ew edges and 4 sub-rows), or
+// a malformed descriptor, is refused.  Launches on `stream`, does not
+// synchronise; returns cudaGetLastError().
 extern "C" int vg_coverage_chunks_res(const long long* desc, int npools,
                                       int tile_w, int ss, int th_out,
-                                      int win_out, int smem_bytes, int device,
-                                      cudaStream_t stream) {
+                                      int win_out, int ew, int smem_bytes,
+                                      int device, cudaStream_t stream) {
   vg::Pools pools;
   int max_ch = 0;
-  const int blocks =
-      vg::read_pools(desc, npools, kChunksPerBlock, &pools, &max_ch);
+  const bool deep = ew != 0;
+  const int blocks = vg::read_pools(desc, npools, deep ? 1 : kChunksPerBlock,
+                                    &pools, &max_ch);
   const int th = th_out * ss;
   if (th <= kStaticTh || win_out > th_out) win_out = th_out;  // static: one window
+  const size_t need = deep ? vg::deep_smem(ew, kThreads / 32)
+                           : block_smem(max_ch, th, win_out * ss);
   if (blocks < 0 || ss < 1 || th_out < 1 || win_out < 1 ||
-      tile_w < kGroupCols || tile_w % kGroupCols || smem_bytes < 0 ||
-      static_cast<size_t>(smem_bytes) < block_smem(max_ch, th, win_out * ss)) {
+      tile_w < kGroupCols || tile_w % kGroupCols ||
+      (deep && (ew < 32 || ew % 32)) || smem_bytes < 0 ||
+      static_cast<size_t>(smem_bytes) < need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const vg::DeviceScope scope(device);
-  if (th <= kStaticTh) {
+  if (deep) {
+    static unsigned raised = 0;
+    if (smem_bytes > 48 * 1024) {
+      vg::allow_dynamic_smem(coverage_res_deep_kernel, &raised);
+    }
+    const long long units =
+        static_cast<long long>(th_out) * (tile_w / kGroupCols);
+    const long long ys = (units + kThreads / 32 - 1) / (kThreads / 32);
+    coverage_res_deep_kernel<<<dim3(blocks, ys < 65535 ? ys : 65535),
+                               kThreads, smem_bytes, stream>>>(
+        pools, tile_w, ss, th_out, ew);
+  } else if (th <= kStaticTh) {
     static unsigned raised = 0;
     if (smem_bytes > 48 * 1024) {
       vg::allow_dynamic_smem(coverage_res_kernel<RP_BD + kStaticTh>, &raised);

@@ -41,9 +41,9 @@
 //   with warps of 32-column units, against this design's 0.0363 and K1's
 //   0.0326 on the frame's pools; chip_smoke.py [6], NVIDIA H100 80GB HBM3,
 //   700 W.)
-// - Chunks per block: cpb = 8 where the staging fits the card's 227 KB,
-//   else 4, 2, 1 (deep chunks), so every CH the parent took (227) and many
-//   more run; cpb is uniform over a launch.
+// - Chunks per block: cpb = 8 where the staging fits the card's 227 KB
+//   (every CH up to the edge window), else 4, 2, 1; cpb is uniform over a
+//   launch.
 // - Windows of rows: a block owns cpb chunks and a window of W rows (at
 //   most kRowsPerBlock, the default tile's 8, fewer where the masks would
 //   not fit), blocks along grid.y stride over the tile's windows, so the
@@ -52,6 +52,14 @@
 // - One launch over all pools: by-value descriptors (edges, output, NC, CH,
 //   first block; vg::Pools), deepest pool first, as K1; each pool writes its
 //   own (NPX, NC_pool) output.
+// - Edge windows (csrc/edge_coverage.cuh): a launch whose deepest pool is
+//   deeper than one edge window (ew edges, ops/coverage_cuda.EDGE_WINDOW)
+//   takes the deep form, coverage_chunks_t_deep_kernel: K1's deep walk
+//   (vg::walk_deep: one chunk a block, a warp per (row, 128 columns) unit,
+//   the edges staged a window at a time, the sums in registers across
+//   windows), so every CH runs.  One chunk a block stores one float a
+//   pixel, 4 bytes strided by NC: no transpose.  Shallow launches keep the
+//   form above.
 // Rounding: as K1 (-fmad=false, the two explicit __fmaf_rn sites; the
 // per-column expressions are add_edge_row's).
 
@@ -126,37 +134,78 @@ coverage_chunks_t_kernel(const vg::Pools P, int th, int tile_w, int cpb,
   }
 }
 
+// The deep form: block (x, y) owns chunk x - block0 of its pool and the
+// units y * 8 .. y * 8 + 7 of its tile (strided by gridDim.y * 8);
+// windows of ew edges; each lane stores its 4 pixels' floats of the chunk.
+__global__ void __launch_bounds__(kThreads)
+coverage_chunks_t_deep_kernel(const vg::Pools P, int th, int tile_w, int ew) {
+  extern __shared__ __align__(16) float smem[];
+  const vg::PoolDesc d = vg::pick_pool(P);
+  const int c = static_cast<int>(blockIdx.x) - d.block0;
+  const int groups = tile_w / kGroupCols;
+  const float* edges = d.edges + static_cast<size_t>(c) * d.ch * 4;
+  for (int u0 = blockIdx.y * (kThreads / 32); u0 < th * groups;
+       u0 += gridDim.y * (kThreads / 32)) {
+    float acc[4];
+    int r, px0;
+    if (vg::walk_deep(edges, d.ch, ew, th, groups, u0, smem, acc, &r,
+                      &px0)) {
+      float* o = d.out + static_cast<size_t>(r * tile_w + px0) * d.nc + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[static_cast<size_t>(j) * d.nc] = acc[j];
+    }
+  }
+}
+
 }  // namespace
 
 // desc: npools descriptors, vg::kDescWords 64-bit words each (edges, rp
 // (unused), out, nc, ch, block0: ops/coverage_cuda.pack_pools with cpb
 // chunks per block), read on the host; each pool's edges (nc, ch, 4) f32
 // and its own output (th * tile_w, nc) f32, all on `device`.  tile_w a
-// multiple of 128; cpb (a power of two, 1..8) chunks per block, win (1..
-// kRowsPerBlock) rows a window;
-// smem_bytes the launch's dynamic shared memory: all three as the wrapper
+// multiple of 128.  ew: 0 for the shallow form, else the deep form's edge
+// window (a multiple of 32; cpb must then be 1).  Shallow: cpb (a power of
+// two, 1..8) chunks per block, win (1..kRowsPerBlock) rows a window.
+// smem_bytes the launch's dynamic shared memory: all as the wrapper
 // computed them (ops/coverage_t_cuda.k4_geometry for the call's deepest
 // pool).  A smem_bytes below this file's sizing for the launch's deepest
-// pool, or a malformed descriptor, is refused.  Launches on `stream`, does
-// not synchronise; returns cudaGetLastError().
+// pool (deep: one window of ew edges and min(th, 8) rows), or a malformed
+// descriptor, is refused.  Launches on `stream`, does not synchronise;
+// returns cudaGetLastError().
 extern "C" int vg_coverage_chunks_t(const long long* desc, int npools, int th,
-                                    int tile_w, int cpb, int win,
+                                    int tile_w, int cpb, int win, int ew,
                                     int smem_bytes, int device,
                                     cudaStream_t stream) {
   vg::Pools pools;
   int max_ch = 0;
-  if (cpb < 1 || cpb > kMaxChunks || (cpb & (cpb - 1))) {
+  const bool deep = ew != 0;
+  if (cpb < 1 || cpb > kMaxChunks || (cpb & (cpb - 1)) || (deep && cpb != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = vg::read_pools(desc, npools, cpb, &pools, &max_ch);
   if (win > th) win = th;
+  const size_t need =
+      deep ? vg::deep_smem(ew, th < kThreads / 32 ? th : kThreads / 32)
+           : block_smem(max_ch, cpb, win);
   if (blocks < 0 || max_ch < 1 || th < 1 || win < 1 ||
       win > kRowsPerBlock || tile_w < kGroupCols || tile_w % kGroupCols ||
-      smem_bytes < 0 ||
-      static_cast<size_t>(smem_bytes) < block_smem(max_ch, cpb, win)) {
+      (deep && (ew < 32 || ew % 32)) || smem_bytes < 0 ||
+      static_cast<size_t>(smem_bytes) < need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const vg::DeviceScope scope(device);
+  if (deep) {
+    static unsigned raised = 0;
+    if (smem_bytes > 48 * 1024) {
+      vg::allow_dynamic_smem(coverage_chunks_t_deep_kernel, &raised);
+    }
+    const long long units = static_cast<long long>(th) * (tile_w / kGroupCols);
+    const long long ys = (units + kThreads / 32 - 1) / (kThreads / 32);
+    coverage_chunks_t_deep_kernel<<<dim3(blocks, ys < 65535 ? ys : 65535),
+                                    kThreads, smem_bytes, stream>>>(
+        pools, th, tile_w, ew);
+    return static_cast<int>(cudaGetLastError());
+  }
   int ys = (th + win - 1) / win;
   if (ys > 65535) ys = 65535;
   static unsigned raised = 0;

@@ -81,12 +81,30 @@ def edge_row_live(chunk_edges: torch.Tensor, tile_h: int,
     return h > 0
 
 
+def _padding_chunks(chunk_edges: torch.Tensor):
+    """The indices of the chunks that hold a nonzero coordinate, or None
+    when every chunk does.  An all-zero chunk (a pool's padding) sums to +0
+    at every pixel: each zero edge adds s * h * c0 = +0 to a sum that
+    starts at +0.  So the twins evaluate only the others and leave +0 in
+    the rest, bit for bit the dense result, at a fraction of its cost for a
+    deep pool padded to 128 chunks."""
+    keep = chunk_edges.flatten(1).ne(0).any(dim=1).nonzero().flatten()
+    return None if keep.numel() == chunk_edges.shape[0] else keep
+
+
 def coverage_chunks_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
                           tile_w: int = 128) -> torch.Tensor:
     """(NC, CH, 4) edges -> (NC, TH, TW) summed winding contributions: the
     plain twin of vgtpu's coverage_chunks_body and of kernels K1 and K6.
     Edges are summed in slot order, as the scan does."""
     nc, ch, _ = chunk_edges.shape
+    keep = _padding_chunks(chunk_edges)
+    if keep is not None:
+        out = torch.zeros((nc, tile_h, tile_w), dtype=torch.float32,
+                          device=chunk_edges.device)
+        if keep.numel():
+            out[keep] = coverage_chunks_torch(chunk_edges[keep], tile_h, tile_w)
+        return out
     dev = chunk_edges.device
     px = torch.arange(tile_w, dtype=torch.float32, device=dev).expand(tile_h, tile_w)
     py = torch.arange(tile_h, dtype=torch.float32, device=dev)[:, None].expand(tile_h, tile_w)
@@ -107,6 +125,12 @@ def coverage_chunks_t_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
     equals the select form of _edge_contribution bit for bit."""
     nc, ch, _ = chunk_edges.shape
     dev = chunk_edges.device
+    keep = _padding_chunks(chunk_edges)
+    if keep is not None:
+        out = torch.zeros((tile_h * tile_w, nc), dtype=torch.float32, device=dev)
+        if keep.numel():
+            out[:, keep] = coverage_chunks_t_torch(chunk_edges[keep], tile_h, tile_w)
+        return out
     flat = torch.arange(tile_h * tile_w, device=dev)
     px = (flat % tile_w).to(torch.float32)[:, None]        # (NPX, 1)
     py = (flat // tile_w).to(torch.float32)[:, None]

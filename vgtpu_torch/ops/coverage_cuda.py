@@ -3,7 +3,9 @@
 Replaces vgtpu/ops/coverage_pallas.py::_kernel_t2_rt.  The plain twin is
 ops/coverage.py::coverage_chunks_torch; ops/coverage.py::cov_all routes CUDA
 tensors here and nowhere else.  pack_pools lays out the pool descriptors of
-K1's and K3's launches (csrc/edge_coverage.cuh vg::Pools).
+K1's, K3's and K4's launches (csrc/edge_coverage.cuh vg::Pools); EDGE_WINDOW
+and deep_smem size the deep form every coverage kernel takes for chunks
+deeper than one edge window.
 """
 
 from __future__ import annotations
@@ -24,11 +26,39 @@ MAX_POOLS = 8          # kMaxPools: pool descriptors a launch holds
 CHUNKS_PER_BLOCK = 4   # kPoolChunksPerBlock
 THREADS = 128          # kPoolThreads
 EDGE_SCALARS = 8       # kEdgeScalars: floats an edge stages
+# The coverage kernels' edge window (K1, K3-K6): a launch whose deepest
+# chunk holds more edges takes the deep form (one chunk a block, its edges
+# staged EDGE_WINDOW at a time, csrc/edge_coverage.cuh::walk_deep), so no
+# CH is refused; shallower launches keep the shallow form, which stages a
+# block's edges at once.  A multiple of 32 (whole mask words).
+EDGE_WINDOW = 512
 
 K1 = CudaKernel("coverage", {"vg_coverage_chunks": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
+
+
+def deep_smem(ew: int, rows: int) -> int:
+    """Dynamic shared bytes of a deep-form block (csrc/edge_coverage.cuh
+    vg::deep_smem): one window's per-edge scalars (8 floats an edge) and
+    the masks of `rows` rows (ceil(ew/32) words a row)."""
+    return 4 * EDGE_SCALARS * ew + 4 * rows * (-(-ew // 32))
+
+
+def deep_geometry(tile_h: int, tile_w: int, threads: int) -> dict:
+    """The deep form's launch geometry over tile_h x tile_w tiles for
+    blocks of `threads` threads: one chunk a block, a warp per (row, 128
+    columns) unit, a block's warps over consecutive units (at most one row
+    each), blocks along grid.y (at most 65,535) striding over a tile's
+    units; one window of EDGE_WINDOW edges staged at a time."""
+    warps = threads // 32
+    rows = min(tile_h, warps)
+    smem = deep_smem(EDGE_WINDOW, rows)
+    return {"form": "deep", "threads": threads, "chunks_per_block": 1,
+            "edge_window": EDGE_WINDOW, "window_rows": rows,
+            "grid_y": min(-(-tile_h * (tile_w // 128) // warps), 65535),
+            "smem_bytes": smem, "shared_bytes": smem}
 
 
 def edge_mask_bytes(ch: int, rows: int) -> int:
@@ -56,26 +86,27 @@ def window_rows(ch: int, tile_h: int, row_bytes: int, fixed_bytes: int,
 
 def k1_geometry(tile_h: int, tile_w: int, ch: int) -> dict:
     """vg_coverage_chunks's launch geometry for a pool of ch-edge chunks over
-    tile_h x tile_w tiles, mirroring csrc/coverage.cu: blocks of 128 threads
-    over 4 chunks, a warp per (chunk, row, 128-column group); the staging
-    (edge_mask_bytes) in dynamic shared memory over a window of
-    `window_rows` rows, the whole tile where it fits the card.  A launch
-    over several pools takes its deepest pool's geometry.  Raises
-    ValueError for a tile width that is not a multiple of 128 columns
-    (vgtpu admits 128 and 256) or a CH whose edges leave no room for one
-    row of masks (about 1,800 edges)."""
+    tile_h x tile_w tiles, mirroring csrc/coverage.cu.  Up to EDGE_WINDOW
+    edges the shallow form: blocks of 128 threads over 4 chunks, a warp per
+    (chunk, row, 128-column group); the staging (edge_mask_bytes) in
+    dynamic shared memory over a window of `window_rows` rows, the whole
+    tile where it fits the card.  Deeper chunks take the deep form
+    (deep_geometry: one chunk a block, edge windows).  A launch over
+    several pools takes its deepest pool's geometry.  Raises ValueError
+    only for a tile width that is not a multiple of 128 columns (vgtpu
+    admits 128 and 256)."""
     if tile_h < 1 or tile_w < 128 or tile_w % 128:
         raise ValueError(f"K1: tiles of {tile_h}x{tile_w} (need tile_h >= 1 "
                          f"and tile_w a multiple of 128)")
     if ch < 0:
         raise ValueError(f"K1: CH={ch}")
-    try:
-        win = window_rows(ch, tile_h, 4 * CHUNKS_PER_BLOCK * (-(-ch // 32)),
-                          edge_mask_bytes(ch, 0))
-    except ValueError as e:
-        raise ValueError(f"K1: {e}") from None
+    if ch > EDGE_WINDOW:
+        return deep_geometry(tile_h, tile_w, THREADS)
+    win = window_rows(ch, tile_h, 4 * CHUNKS_PER_BLOCK * (-(-ch // 32)),
+                      edge_mask_bytes(ch, 0))
     smem = edge_mask_bytes(ch, win)
-    return {"threads": THREADS, "chunks_per_block": CHUNKS_PER_BLOCK,
+    return {"form": "shallow", "threads": THREADS,
+            "chunks_per_block": CHUNKS_PER_BLOCK, "edge_window": 0,
             "window_rows": win, "windows": -(-tile_h // win),
             "smem_bytes": smem, "shared_bytes": smem}
 
@@ -106,24 +137,24 @@ def pack_pools(shapes: list, chunks_per_block: int = CHUNKS_PER_BLOCK) -> list:
     return launches
 
 
-_packed = functools.lru_cache(maxsize=256)(pack_pools)   # keyed by shapes
+_packed = functools.lru_cache(maxsize=256)(pack_pools)   # keyed by shapes, cpb
 
 
 def launch_pools(kernel: CudaKernel, symbol: str, pools: list, rps, out:
-                 torch.Tensor, row_floats: int, smem: int, *args) -> None:
+                 torch.Tensor, row_floats: int, geo: dict, *args) -> None:
     """Launch `symbol` of `kernel` over pools (each (NC, CH, 4), or None for
     a chunk without edges), their rparams (K3; None for K1) and their rows
-    of `out` (row_floats floats a row), as pack_pools lays them out: one
-    launch per MAX_POOLS pools, each with smem dynamic shared bytes (the
-    deepest pool's).  The descriptors go to the entry point as a host array
-    of 64-bit words; args follow their count, then smem, the device and the
-    stream."""
+    of `out` (row_floats floats a row), as pack_pools lays them out with
+    geo's chunks per block: one launch per MAX_POOLS pools, each with geo's
+    dynamic shared bytes (the deepest pool's).  The descriptors go to the
+    entry point as a host array of 64-bit words; args follow their count,
+    then geo's edge window, its shared bytes, the device and the stream."""
     shapes = tuple([(1, 0) if ce is None else ce.shape for ce in pools])
     index = out.get_device()
     stream = current_stream(index)
     base = out.data_ptr()
     row_bytes = row_floats * 4
-    for descs in _packed(shapes):
+    for descs in _packed(shapes, geo["chunks_per_block"]):
         words = []   # csrc/edge_coverage.cuh kDescWords per pool
         for i, row, block0 in descs:
             ce = pools[i]
@@ -131,8 +162,8 @@ def launch_pools(kernel: CudaKernel, symbol: str, pools: list, rps, out:
                       0 if rps is None else rps[i].data_ptr(),
                       base + row * row_bytes, shapes[i][0], shapes[i][1], block0)
         desc = array.array("q", words)
-        kernel.launch(symbol, desc.buffer_info()[0], len(descs), *args, smem,
-                      index, stream)
+        kernel.launch(symbol, desc.buffer_info()[0], len(descs), *args,
+                      geo["edge_window"], geo["smem_bytes"], index, stream)
 
 
 def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
@@ -152,8 +183,9 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
         if ce.dtype != torch.float32 or ce.dim() != 3 or ce.shape[2] != 4:
             raise ValueError(f"cov_all_cuda: pool must be (NC, CH, 4) float32, "
                              f"got {tuple(ce.shape)} {ce.dtype}")
-        if not ce.is_contiguous():
-            raise ValueError("cov_all_cuda: pool must be contiguous")
+        if not ce.is_contiguous() or ce.data_ptr() % 16:
+            raise ValueError("cov_all_cuda: pool must be contiguous and "
+                             "16-byte aligned")
         if ce.shape[1] < 1:
             raise ValueError(f"cov_all_cuda: CH={ce.shape[1]}")
         total += ce.shape[0]
@@ -162,5 +194,5 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
     npx = tile_h * tile_w
     out = torch.empty((total + 1, npx), dtype=torch.float32, device=dev)
     launch_pools(K1, "vg_coverage_chunks", [*chunk_edges, None], None, out, npx,
-                 geo["smem_bytes"], tile_h, tile_w, geo["window_rows"])
+                 geo, tile_h, tile_w, geo["window_rows"])
     return out

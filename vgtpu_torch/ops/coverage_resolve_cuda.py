@@ -15,7 +15,9 @@ import torch
 
 from vgtpu_torch.ops.coverage_cuda import (
     CHUNKS_PER_BLOCK,
+    EDGE_WINDOW,
     THREADS,
+    deep_smem,
     edge_mask_bytes,
     launch_pools,
     window_rows,
@@ -33,44 +35,50 @@ _STATIC_TH = 64        # csrc/coverage_resolve.cu kStaticTh
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 K3 = CudaKernel("coverage_resolve", {
-    "vg_coverage_chunks_res": [_vp, _i, _i, _i, _i, _i, _i, _i, _vp],
+    "vg_coverage_chunks_res": [_vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp],
     "vg_resolve_rows": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
 })
 
 
 def k3_geometry(tile_h: int, ss: int, ch: int) -> dict:
     """vg_coverage_chunks_res's launch geometry for a pool of ch-edge chunks
-    over tiles of tile_h sub-rows at ss, mirroring csrc/coverage_resolve.cu:
-    128 threads per block of 4 chunks; in dynamic shared memory each chunk's
-    per-edge scalars and the sub-row masks of a window of `window_rows`
-    sub-rows (coverage_cuda.edge_mask_bytes).  Tiles of up to 64 sub-rows
-    take the static form: one window, each chunk's rparams column (RP_BD +
-    64 rows) in static shared memory.  Taller tiles take the windowed form:
-    windows of whole output rows (a multiple of ss sub-rows), the whole tile
-    where it fits the card, and RP_BD + the window's sub-rows of rparams
-    after the masks in the dynamic shared memory (smem_bytes).  A launch
-    over several pools takes its deepest pool's geometry.  Raises
-    ValueError for ss not dividing tile_h, or a CH whose edges leave no
-    room for the masks (at 64 sub-rows or fewer, of the whole tile; taller,
-    of one output row: about 1,800 edges)."""
+    over tiles of tile_h sub-rows at ss, mirroring csrc/coverage_resolve.cu.
+    Up to coverage_cuda.EDGE_WINDOW edges the shallow forms: 128 threads per
+    block of 4 chunks; in dynamic shared memory each chunk's per-edge
+    scalars and the sub-row masks of a window of `window_rows` sub-rows
+    (coverage_cuda.edge_mask_bytes).  Tiles of up to 64 sub-rows take the
+    static form: one window, each chunk's rparams column (RP_BD + 64 rows)
+    in static shared memory.  Taller tiles take the windowed form: windows
+    of whole output rows (a multiple of ss sub-rows), the whole tile where
+    it fits the card, and RP_BD + the window's sub-rows of rparams after
+    the masks in the dynamic shared memory (smem_bytes).  Deeper chunks take
+    the deep form: one chunk a block, a warp per (output row, 128 columns),
+    its sub-rows walked one after another over windows of EDGE_WINDOW edges
+    (one window's scalars and 4 sub-rows' masks; the rparams read from
+    device memory).  A launch over several pools takes its deepest pool's
+    geometry.  Raises ValueError only for ss not dividing tile_h."""
     if ss < 1 or tile_h < ss or tile_h % ss:
         raise ValueError(f"K3: tile_h={tile_h} sub-rows with ss={ss} "
                          f"(need ss | tile_h)")
     if ch < 0:
         raise ValueError(f"K3: CH={ch}")
+    if ch > EDGE_WINDOW:
+        smem = deep_smem(EDGE_WINDOW, THREADS // 32)
+        return {"form": "deep", "threads": THREADS, "chunks_per_block": 1,
+                "edge_window": EDGE_WINDOW, "window_rows": tile_h,
+                "windows": 1, "staged_rows": 0, "smem_bytes": smem,
+                "shared_bytes": smem}
     static = tile_h <= _STATIC_TH
     # the static array: RP_BD + 64 rows a chunk, or the windowed kernel's none
     static_bytes = 4 * CHUNKS_PER_BLOCK * (RP_BD + _STATIC_TH) if static else 0
     row_bytes = 4 * CHUNKS_PER_BLOCK * (-(-ch // 32) + (0 if static else 1))
     fixed = (edge_mask_bytes(ch, 0) + static_bytes
              + (0 if static else 4 * CHUNKS_PER_BLOCK * RP_BD))
-    try:
-        win = window_rows(ch, tile_h, row_bytes, fixed,
-                          step=tile_h if static else ss)
-    except ValueError as e:
-        raise ValueError(f"K3: {e}") from None
+    win = window_rows(ch, tile_h, row_bytes, fixed,
+                      step=tile_h if static else ss)
     smem = fixed - static_bytes + row_bytes * win
-    return {"threads": THREADS, "chunks_per_block": CHUNKS_PER_BLOCK,
+    return {"form": "shallow", "threads": THREADS,
+            "chunks_per_block": CHUNKS_PER_BLOCK, "edge_window": 0,
             "window_rows": win, "windows": -(-tile_h // win),
             "staged_rows": RP_BD + (_STATIC_TH if static else win),
             "smem_bytes": smem, "shared_bytes": smem + static_bytes}
@@ -97,7 +105,7 @@ def coverage_chunks_res_cuda(pools: list, rparams: list, out: torch.Tensor,
         nc, ch = ce.shape[0], ce.shape[1]
         if ch < 1:
             raise ValueError(f"{fn}: CH={ch}")
-        check_tensor(fn, "edges", ce, torch.float32, (nc, ch, 4), index)
+        check_tensor(fn, "edges", ce, torch.float32, (nc, ch, 4), index, 16)
         check_tensor(fn, "rparams", rp, torch.float32, (rows, nc), index)
         total += nc
         max_ch = max(max_ch, ch)
@@ -105,8 +113,7 @@ def coverage_chunks_res_cuda(pools: list, rparams: list, out: torch.Tensor,
     npx_out = (tile_h // ss) * tile_w
     check_tensor(fn, "out", out, torch.float32, (total, npx_out), index, 16)
     launch_pools(K3, "vg_coverage_chunks_res", pools, rparams, out, npx_out,
-                 geo["smem_bytes"], tile_w, ss, tile_h // ss,
-                 geo["window_rows"] // ss)
+                 geo, tile_w, ss, tile_h // ss, geo["window_rows"] // ss)
 
 
 def resolve_rows_cuda(cov_sub: torch.Tensor, ids: torch.Tensor,

@@ -17,7 +17,12 @@ import functools
 
 import torch
 
-from vgtpu_torch.ops.coverage_cuda import EDGE_SCALARS, pack_pools
+from vgtpu_torch.ops.coverage_cuda import (
+    EDGE_SCALARS,
+    EDGE_WINDOW,
+    deep_geometry,
+    pack_pools,
+)
 from vgtpu_torch.utils.cuda_build import (
     SMEM_LIMIT,
     CudaKernel,
@@ -33,46 +38,48 @@ ROWS_PER_BLOCK = 8     # kRowsPerBlock: rows a window holds at most
 
 K4 = CudaKernel("coverage_t", {"vg_coverage_chunks_t": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
 def k4_smem(ch: int, cpb: int, rows: int) -> int:
-    """Dynamic shared bytes of a K4 block over cpb chunks of ch edges and a
-    window of `rows` rows: the edge scalars (8 floats an edge), the row
-    masks (ceil(ch/32) words a row) and each warp's transpose buffer
-    (GROUP_COLS pixels x (cpb + 1) floats)."""
+    """Dynamic shared bytes of a shallow K4 block over cpb chunks of ch
+    edges and a window of `rows` rows: the edge scalars (8 floats an edge),
+    the row masks (ceil(ch/32) words a row) and each warp's transpose
+    buffer (GROUP_COLS pixels x (cpb + 1) floats)."""
     return 4 * (cpb * (EDGE_SCALARS * ch + rows * (-(-ch // 32)))
                 + THREADS // 32 * GROUP_COLS * (cpb + 1))
 
 
 def k4_geometry(tile_h: int, tile_w: int, ch: int) -> dict:
     """vg_coverage_chunks_t's launch geometry for a pool of ch-edge chunks
-    over tile_h x tile_w tiles, mirroring csrc/coverage_t.cu: blocks of 256
+    over tile_h x tile_w tiles, mirroring csrc/coverage_t.cu.  Up to
+    coverage_cuda.EDGE_WINDOW edges the shallow form: blocks of 256
     threads over cpb chunks and a window of rows, a warp per (row, 128
-    columns); cpb is the largest of 8, 4, 2, 1 whose staging holds one
-    row, the window the most rows up to
+    columns); cpb is the largest of 8, 4, 2, 1 whose staging holds one row
+    (8 throughout the shallow range), the window the most rows up to
     ROWS_PER_BLOCK (and tile_h) that fit SMEM_LIMIT; blocks along grid.y
-    (at most 65,535) stride over the tile's windows.  A launch over several
-    pools takes its deepest pool's geometry.  Raises ValueError for a tile
-    width that is not a multiple of 128 or a CH no block can hold (over
-    7,000 edges)."""
+    (at most 65,535) stride over the tile's windows.  Deeper chunks take
+    the deep form (coverage_cuda.deep_geometry: one chunk a block, edge
+    windows, no transpose).  A launch over several pools takes its deepest
+    pool's geometry.  Raises ValueError only for a tile width that is not a
+    multiple of 128."""
     if tile_h < 1 or tile_w < 128 or tile_w % 128:
         raise ValueError(f"K4: tiles of {tile_h}x{tile_w} (need tile_h >= 1 "
                          f"and tile_w a multiple of 128)")
     if ch < 1:
         raise ValueError(f"K4: CH={ch}")
+    if ch > EDGE_WINDOW:
+        return deep_geometry(tile_h, tile_w, THREADS)
     cpb = MAX_CHUNKS
     while cpb > 1 and k4_smem(ch, cpb, 1) > SMEM_LIMIT:
         cpb //= 2
-    if k4_smem(ch, cpb, 1) > SMEM_LIMIT:
-        raise ValueError(f"K4: CH={ch} needs {k4_smem(ch, cpb, 1)} shared bytes "
-                         f"per block at one chunk, over the card's {SMEM_LIMIT}")
     rows = min(tile_h, ROWS_PER_BLOCK)
     while k4_smem(ch, cpb, rows) > SMEM_LIMIT:
         rows -= 1
     smem = k4_smem(ch, cpb, rows)
-    return {"threads": THREADS, "chunks_per_block": cpb, "window_rows": rows,
+    return {"form": "shallow", "threads": THREADS, "chunks_per_block": cpb,
+            "edge_window": 0, "window_rows": rows,
             "grid_y": min(-(-tile_h // rows), 65535), "smem_bytes": smem,
             "shared_bytes": smem}
 
@@ -112,8 +119,8 @@ def coverage_pools_t_cuda(chunk_edges: list, tile_h: int,
                       shapes[i][0], shapes[i][1], block0)
         desc = array.array("q", words)
         K4.launch("vg_coverage_chunks_t", desc.buffer_info()[0], len(descs),
-                  tile_h, tile_w, cpb, geo["window_rows"], geo["smem_bytes"],
-                  index, stream)
+                  tile_h, tile_w, cpb, geo["window_rows"], geo["edge_window"],
+                  geo["smem_bytes"], index, stream)
     return outs
 
 

@@ -152,3 +152,35 @@ def draw_deep_chunk_scene(ctx, font_data: bytes | None = None, vg=None) -> None:
             vg.lineTo(ctx, x + (i + 1) * w, y + 6.0)
         vg.closePath(ctx)
         vg.fillPath(ctx, vg.color4ub(*rgba), flags)
+
+
+DEEP_TILE_TEETH = 1_000   # draw_deep_tile_scene's comb: 2,001 edges in one tile
+
+
+def draw_deep_tile_scene(ctx, font_data: bytes | None = None, vg=None) -> None:
+    """A dense comb, one concave path of DEEP_TILE_TEETH teeth 0.12 px wide
+    (2,001 edges) inside one 8x128 tile (columns 4-124, rows 1-7), over a
+    rectangle and a triangle: with ContextConfig(chunk_pools=(2, 8, 2048))
+    the comb's entry is one chunk of the 2,048-edge pool, deeper than the
+    1,808 edges K1's shallow staging held (at ss = 2 its 16 sub-rows stay
+    in one tile), while the other entries fill the 2- and 8-edge pools."""
+    if vg is None:
+        import vgtpu_torch as vg
+
+    vg.beginPath(ctx)
+    vg.rect(ctx, 8.5, 20.25, 300.0, 90.5)
+    vg.fillPath(ctx, vg.color4ub(30, 160, 90, 255), vg.FillFlags.ConvexAA)
+    vg.beginPath(ctx)
+    vg.moveTo(ctx, 330.0, 30.0)
+    vg.lineTo(ctx, 480.0, 60.0)
+    vg.lineTo(ctx, 360.0, 200.0)
+    vg.closePath(ctx)
+    vg.fillPath(ctx, vg.color4ub(200, 60, 90, 200), vg.FillFlags.ConvexAA)
+    w = 120.0 / DEEP_TILE_TEETH
+    vg.beginPath(ctx)
+    vg.moveTo(ctx, 4.0, 7.0)
+    for i in range(DEEP_TILE_TEETH):
+        vg.lineTo(ctx, 4.0 + i * w + w / 2, 1.0)
+        vg.lineTo(ctx, 4.0 + (i + 1) * w, 7.0)
+    vg.closePath(ctx)
+    vg.fillPath(ctx, vg.color4ub(60, 60, 200, 220), vg.FillFlags.ConcaveNonZeroAA)
