@@ -117,6 +117,26 @@ Phases (any failure raises and the process exits non-zero):
      at n = 2, 4 and ss = 1, 2 against the phase 5 and 5b images; and
      VariantBatch.render_sharded of the phase 7 batch (K=6) over 4 shards
      (padded to 8) against each variant's full-path render.
+  10a. Device texture sampling: the 1080p tiger + demo UI plus
+     scenes.small.draw_pattern_panels (seeded RGBA patterns, repeat and
+     clamp, linear and nearest, one rotated: the gather fallback) through
+     end() with ContextConfig(device_sampling=True) against
+     device_sampling=False (the numpy sampler), within 1 u8 level; the
+     colour tiles against the same sampler on the CPU (CT_BOUND) and the
+     numpy sampler (CT_NUMPY_BOUND); the frame again (one ct_memo_hit, the
+     same image); the textures stage's host ms of both samplers and the
+     device sampler's device ms; the steady textured frame's CPU trace,
+     which must hold no host-side wait.
+  10b. The retained pan: the 1080p frame baked over PAN_SCENE at ss = 1 and
+     2 and the [10a] frame at ss=1 (RetainedScene.bake), each PAN_VIEWS
+     view through render() (K1 + the fold, K2 (a) at ss=1, (d) on every
+     bucket at ss=2) against the same body through the plain twins on the
+     card (K2_BOUND) and a direct end() of the translated frame (1 u8
+     level); render_views against per-view renders; update_paint_values
+     against a fresh bake; chunk_pools=(2, 8, 48); K2 (d) against its twin
+     on every bucket of the ss=2 scene and of the small resolve scene
+     baked at ss = 2 and 4 (every lane held).  Each path's launch counts
+     zeroed before and read after.
   6. Times (CUDA events, median of 12 runs after warm-up): the steady frame
      from resident arrays at ss=1 and ss=2, K1, K2 (each form) and K3 beside
      their plain twins; each kernel's device time per steady frame and the
@@ -146,8 +166,12 @@ Phases (any failure raises and the process exits non-zero):
      of 5 steady frames
      (ss=1, ss=2 and the layer frame), which must hold no host-side wait
      (a stream or device synchronise, a synchronous cudaMemcpy, a scalar
-     read back).
-     Phase 6 runs after phases 7 and 8, whose contexts it times.
+     read back); the pan scenes of [10b]: measure_pan_ms_per_frame, the
+     device's busy share, launches and K1's and K2's device ms per pan
+     frame, one render's host ms from call to return, the bake's host ms,
+     and the CPU trace of 5 pan frames (no host-side wait); the textures
+     stage of [10a].
+     Phase 6 runs after phases 7, 8, 10a and 10b, whose contexts it times.
   9. Cold start (vgtpu_torch.utils.cold_probe): torch's context and first
      cuBLAS call, K8's load and first launch, and the first 1080p frame,
      each in a fresh process with jax blocked, after phase 2 has built the
@@ -155,8 +179,8 @@ Phases (any failure raises and the process exits non-zero):
 
 The last two lines are the kernels' JSON record (K1, K2's forms (a)-(e),
 K3-K8: launches on the main paths, error against the twin, times, and the
-bound from this run's shapes; K2's pipeline depth and shared bytes) and
-the contract line
+bound from this run's shapes; K2's pipeline depth and shared bytes; K1's
+and K2's launches include the pan's) and the contract line
 {"ok": true, "device": {...}}.  Imports neither jax nor vgtpu.
 """
 
@@ -378,6 +402,320 @@ def k7_sweep_buckets(pool, sms: int) -> list:
                         ew_ent[:, :, idx].contiguous(), pp[:, :, idx].contiguous(),
                         ct[:, :, idx].contiguous() if flags[2] else None))
     return out
+
+
+# [10b]: the retained scene's bounds (beyond the 1080p view, so views pan
+# over content) and its views: integer, negative, fractional x, and one
+# partly off the scene
+PAN_SCENE = (2560, 1440)
+PAN_VIEWS = ((0, 0), (37, 5), (-45, -13), (128.5, 8), (1200, 900))
+# [10a] colour tiles, the device sampler against the same sampler on the
+# CPU: the same float32 roundings (explicit FMAs in both), the products'
+# accumulation order apart
+CT_BOUND = 2e-5
+# ... and against the numpy sampler, which computes texel coordinates in
+# float64: the device sampler's float32 u = m0*x + m4 cancels two terms
+# near 15-20 (x up to 1,900 px over a 96-px pattern), each within half an
+# ulp (9.5e-7), times the 64-texel width: ~1.2e-4 texel per axis, which the
+# bilinear weights turn into up to that much colour per unit texel step
+# (the random panels step by up to 1) on each axis
+CT_NUMPY_BOUND = 5e-4
+
+
+def textured_frame(c, images) -> None:
+    """[10a]'s frame: the tiger and demo UI plus the pattern panels."""
+    from vgtpu_torch.scenes import demo_ui
+    from vgtpu_torch.scenes.small import draw_pattern_panels
+
+    demo_ui.draw_benchmark_frame(c, 0.0)
+    draw_pattern_panels(c, images)
+
+
+def hold_pan_buckets(scene, view, label: str, flags_held: set) -> float:
+    """K2 against its twin on every bucket of a retained scene at one view,
+    on the pan's own inputs (shifted coverage, patched params, resampled
+    colour tiles); adds each bucket's lane flags to flags_held and returns
+    the largest difference (raises past K2_BOUND)."""
+    import torch
+    from vgtpu_torch.ops.composite import background_tensor, composite_bucket_into_torch
+    from vgtpu_torch.ops.composite_cuda import composite_bucket_cuda
+
+    _vx, _vy, rx, ry = scene._offsets(*view)
+    cov, ct_flat = scene._pan_inputs(rx, ry)
+    d, plan = scene.d, scene.plan
+    nt = plan.ntx * plan.nty
+    bg = background_tensor(scene.background, cov.device)
+    shape = (nt + 1, scene.tile_h // scene.ss, scene.tile_w, 4)
+    fa = bg.expand(*shape).clone()
+    fb = fa.clone()
+    worst = 0.0
+    for ids, pteb, pp, ctile, fl in zip(d["bucket_ids"], d["bucket_pteb"],
+                                        d["bucket_params"], d["bucket_ctile"],
+                                        d["bucket_flags"]):
+        kw = dict(tile_w=scene.tile_w, flags=fl, ss=scene.ss)
+        composite_bucket_cuda(fa, cov, pteb, pp, ct_flat, ctile, ids, scene.background, **kw)
+        composite_bucket_into_torch(fb, cov, pteb, pp, ct_flat, ctile, ids,
+                                    scene.background, **kw)
+        err = float((fa[ids.long()] - fb[ids.long()]).abs().max())
+        worst = max(worst, err)
+        flags_held.add((scene.ss, fl))
+        if not err <= K2_BOUND:
+            raise AssertionError(f"[10b] K2 disagrees with its twin on a {label} bucket "
+                                 f"at {view}, flags {fl}: {err}")
+    return worst
+
+
+def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
+    """[10a] device texture sampling on the card: the textured 1080p frame
+    through end() with device_sampling on, against device_sampling=False
+    (the numpy sampler) and, for the colour tiles, against the same sampler
+    on the CPU; the textures stage's times, the colour-tile memo and the
+    steady frame's host waits."""
+    import torch
+    from vgtpu_torch.ops.sampling_device import (
+        build_sampling_plan,
+        sample_color_tiles_device,
+    )
+    from vgtpu_torch.raster.sampling import fill_color_tiles
+    from vgtpu_torch.scenes import demo_ui
+    from vgtpu_torch.scenes.small import draw_pattern_panels, make_pattern_images
+
+    ctxs, imgs, stage_ms, plans = {}, {}, {}, {}
+    counts = None
+    for ds in (False, True):
+        c = vg.createContext(vg.ContextConfig(device_sampling=ds, frame_memo=False),
+                             device="cuda")
+        images = make_pattern_images(c)
+        vg.begin(c, 0, 1920, 1080, 1.0)
+        textured_frame(c, images)
+        if ds:
+            zero_counts()
+        imgs[ds] = vg.end(c, background=BG_APP)
+        if ds:
+            counts = read_counts()
+        plans[ds] = c.last_plan
+        t_first = c.profiler.times_ms["textures"]
+        vg.begin(c, 0, 1920, 1080, 1.0)        # the same frame again: a memo hit
+        textured_frame(c, images)
+        again = vg.end(c, background=BG_APP)
+        t_again = c.profiler.times_ms["textures"]
+        # the panels 3 px lower: every colour tile sampled anew, past the
+        # first frame's one-time costs (texture upload, library handles)
+        vg.begin(c, 0, 1920, 1080, 1.0)
+        demo_ui.draw_benchmark_frame(c, 0.0)
+        draw_pattern_panels(c, images, y0=43.0)
+        vg.end(c, background=BG_APP)
+        stage_ms[ds] = (t_first, t_again - t_first,
+                        c.profiler.times_ms["textures"] - t_again)
+        ctxs[ds] = (c, images, again)
+    cd, images_d, again_d = ctxs[True]
+    ch = ctxs[False][0]
+    # the first frame's plans (the third frame moved the panels)
+    ct_d, ct_h = plans[True].color_tiles, plans[False].color_tiles
+    if not (isinstance(ct_d, torch.Tensor) and ct_d.is_cuda and isinstance(ct_h, np.ndarray)):
+        raise AssertionError(f"[10a] colour tiles: {type(ct_d)}, {type(ct_h)}")
+    if not np.array_equal(plans[True].entry_color_tile, plans[False].entry_color_tile):
+        raise AssertionError("[10a] the two samplers assigned other colour-tile ids")
+    hits = cd.profiler.counters.get("ct_memo_hits", 0)
+    print(f"[10a] textured 1080p frame: {ct_d.shape[0]} colour tiles; ct_memo_hits "
+          f"{hits} after the frame rendered again and once with the panels moved "
+          f"(frame_memo off)")
+    if hits != 1:
+        raise AssertionError(f"[10a] {hits} colour-tile memo hits, not 1")
+    image_map = {i: (im.data, im.flags, im.generation) for i, im in cd.images.items()}
+    vg.begin(cd, 0, 1920, 1080, 1.0)      # the first frame's ops again
+    textured_frame(cd, images_d)
+    cd._finalize_ops()
+    sp = build_sampling_plan(plans[True], cd.ops, image_map)
+    tex = cd._device_textures(image_map, {g.image_id for g in sp.groups})
+    ct_cpu = sample_color_tiles_device(sp, {k: v.cpu() for k, v in tex.items()}, 8, 128)
+    err_cpu = float((ct_d.cpu() - ct_cpu).abs().max())
+    err_np = float(np.abs(ct_d.cpu().numpy() - ct_h).max())
+    groups = [(g.kind, g.separable, g.flags, len(g.ct)) for g in sp.groups]
+    print(f"[10a] sampling groups (kind, separable, flags, K): {groups}")
+    print(f"[10a] colour tiles: max|card - the same sampler on the CPU| = {err_cpu:.3e} "
+          f"(bound {CT_BOUND:.0e}); max|card - numpy sampler| = {err_np:.3e} (bound "
+          f"{CT_NUMPY_BOUND:.0e}, float32 texel coordinates)")
+    if not (err_cpu <= CT_BOUND and err_np <= CT_NUMPY_BOUND):
+        raise AssertionError(f"[10a] colour tiles off: {err_cpu}, {err_np}")
+    check_path("sampled frame", counts, ("K1", "K2", "K2 (a)"),
+               [(imgs[True], imgs[False]), (again_d, imgs[True])], tag="[10a]")
+
+    # the sampler alone: CUDA events around one run (its one upload of the
+    # group params included), the numpy sampler on the host clock
+    ms_dev = time_ms(lambda: sample_color_tiles_device(sp, tex, 8, 128))
+    plan_h = ch.last_plan
+    t_np = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fill_color_tiles(plan_h, ch.ops, {i: (im.data, im.flags, im.generation)
+                                          for i, im in ch.images.items()})
+        t_np.append((time.perf_counter() - t0) * 1e3)
+    for ds, name in ((False, "numpy sampler (device_sampling=False)"),
+                     (True, "device sampler (device_sampling=True)")):
+        print(f"[10a] textures stage, {name}: {stage_ms[ds][0]:.3f} ms host on the first "
+              f"frame, {stage_ms[ds][1]:.3f} on the same frame again (its memo), "
+              f"{stage_ms[ds][2]:.3f} with the panels moved (host clock; {card})")
+    print(f"[10a] sampler alone: device {ms_dev:.4f} ms (CUDA events, median of 12); "
+          f"numpy, no tile cache {statistics.median(t_np):.3f} ms host (median of 3; "
+          f"{card})")
+
+    # the steady textured frame (a frame-memo hit) holds no host-side wait
+    cm = vg.createContext(device="cuda")
+    images_m = make_pattern_images(cm)
+
+    def steady():
+        vg.begin(cm, 0, 1920, 1080, 1.0)
+        textured_frame(cm, images_m)
+        return vg.end(cm, background=BG_APP)
+
+    waits = host_waits(steady)
+    print(f"[10a] steady textured frame, CPU trace of 5 frames: host-side waits "
+          f"{waits['waits']}; {waits['launch_events'] / 5:g} kernel launches per frame")
+    if waits["waits"]:
+        raise AssertionError(f"[10a] the steady textured frame waits on the host: {waits}")
+    return {"stage_ms": stage_ms, "sampler_ms": ms_dev,
+            "numpy_ms": statistics.median(t_np), "ct_err": (err_cpu, err_np)}
+
+
+def phase_10b(vg, card, zero_counts, read_counts, check_path) -> dict:
+    """[10b] the retained pan at full width: the 1080p tiger + demo UI baked
+    over PAN_SCENE at ss = 1 and 2 and the [10a] textured frame at ss=1,
+    each view through render() (K1 + the fold, K2 (a) or (d) on every
+    bucket) against the same body through the plain twins on the card and
+    against a direct end() of the translated frame; render_views,
+    update_paint_values, chunk_pools=(2, 8, 48), and K2 against its twin on
+    every bucket of the ss=2 scene and of the small resolve scene at ss = 2
+    and 4.  Returns the scenes [6] times and the bake host ms."""
+    import torch
+    from vgtpu_torch.raster.retained import RetainedScene
+    from vgtpu_torch.scenes import demo_ui
+    from vgtpu_torch.scenes.small import (
+        HEIGHT,
+        WIDTH,
+        draw_resolve_scene,
+        make_pattern_images,
+    )
+
+    def bench(c, _st):
+        demo_ui.draw_benchmark_frame(c, 0.0)
+
+    def overlay(k):
+        def draw(c, _st):
+            demo_ui.draw_benchmark_frame(c, 0.0)
+            vg.beginPath(c)
+            vg.rect(c, 1800, 1000, 60, 40)
+            vg.fillPath(c, vg.color4ub(50 + 17 * k, 120, 200, 180), vg.FillFlags.ConvexAA)
+        return draw
+
+    def context(ss, setup, **cfg):
+        c = vg.createContext(vg.ContextConfig(coverage_supersample=ss, **cfg),
+                             device="cuda")
+        return c, (setup(c) if setup else None)
+
+    def bake(ss, draw, setup=None, size=PAN_SCENE, w=1920, h=1080, **cfg):
+        c, st = context(ss, setup, **cfg)
+        vg.begin(c, 0, w, h, 1.0)
+        draw(c, st)
+        t0 = time.perf_counter()
+        s = RetainedScene.bake(c, *size, background=BG_APP)
+        torch.cuda.synchronize()
+        return s, (time.perf_counter() - t0) * 1e3, c, st
+
+    def direct(view, ss, draw, setup=None, **cfg):
+        c, st = context(ss, setup, **cfg)
+        vg.begin(c, 0, 1920, 1080, 1.0)
+        vg.pushState(c)
+        vg.transformTranslate(c, -view[0], -view[1])
+        draw(c, st)
+        vg.popState(c)
+        return vg.end(c, background=BG_APP)
+
+    def textured(c, images):
+        textured_frame(c, images)
+
+    cases = (("ss=1", 1, bench, None, "K2 (a)"), ("ss=2", 2, bench, None, "K2 (d)"),
+             ("textured ss=1", 1, textured, make_pattern_images, "K2 (a)"))
+    scenes, bake_ms = {}, {}
+    for label, ss, draw, setup, form in cases:
+        t_case = time.perf_counter()
+        s, bake_ms[label], _c, _st = bake(ss, draw, setup)
+        p = s.plan
+        print(f"[10b] pan {label}: baked {p.ntx}x{p.nty} tiles over {PAN_SCENE} in "
+              f"{bake_ms[label]:.1f} ms host; pools "
+              f"{[tuple(ce.shape[:2]) for ce, _ in p.chunk_pools]}; "
+              f"{len(s.d['bucket_flags'])} buckets; sampling groups "
+              f"{len(s.samp_meta or ())} ({s.samp_nct} colour tiles)")
+        zero_counts()
+        imgs = [s.render(*v) for v in PAN_VIEWS]
+        counts = read_counts()
+        twins = [s.render(*v, plain=True) for v in PAN_VIEWS]
+        err = max(float((a - b).abs().max()) for a, b in zip(imgs, twins))
+        lv = max(u8_levels(a, b) for a, b in zip(imgs, twins))
+        print(f"[10b] pan {label}: {len(PAN_VIEWS)} views {PAN_VIEWS}, max|render - "
+              f"plain twins| = {err:.3e} (bound {K2_BOUND:.0e}), {lv} u8 levels")
+        if not err <= K2_BOUND:
+            raise AssertionError(f"[10b] pan {label} is {err} from its plain twins")
+        if form == "K2 (d)" and counts["K2 (a)"]:
+            raise AssertionError(f"[10b] pan {label} took form (a): {counts}")
+        check_path(f"pan {label}", counts, ("K1", "K2", form),
+                   [(a, direct(v, ss, draw, setup)) for a, v in zip(imgs, PAN_VIEWS)],
+                   tag="[10b]")
+        scenes[label] = s
+        print(f"[10b] pan {label} checked in {time.perf_counter() - t_case:.1f} s "
+              f"(host clock)")
+
+    # render_views against the per-view renders
+    s1 = scenes["ss=1"]
+    views = PAN_VIEWS[1:4]
+    zero_counts()
+    stack = s1.render_views(views)
+    counts = read_counts()
+    check_path("render_views ss=1", counts, ("K1", "K2", "K2 (a)"),
+               [(stack[k], s1.render(*v)) for k, v in enumerate(views)], tag="[10b]")
+    # update_paint_values against a fresh bake of the new values
+    sa, _ms, ca, _st = bake(1, overlay(0))
+    vg.begin(ca, 0, 1920, 1080, 1.0)
+    overlay(3)(ca, None)
+    sa.update_paint_values(ca)
+    sb = bake(1, overlay(3))[0]
+    zero_counts()
+    got = [sa.render(*v) for v in views]
+    counts = read_counts()
+    check_path("update_paint_values", counts, ("K1", "K2", "K2 (a)"),
+               [(g, sb.render(*v)) for g, v in zip(got, views)], tag="[10b]")
+    # chunks over 32 edges: the bake's ladder from ContextConfig.chunk_pools
+    s48 = bake(1, bench, chunk_pools=(2, 8, 48))[0]
+    view = (37, 5)
+    zero_counts()
+    img48 = s48.render(*view)
+    counts = read_counts()
+    err48 = float((img48 - s48.render(*view, plain=True)).abs().max())
+    print(f"[10b] chunk_pools=(2, 8, 48): pools "
+          f"{[tuple(ce.shape[:2]) for ce, _ in s48.plan.chunk_pools]}; max|render - "
+          f"plain twins| = {err48:.3e}")
+    if not err48 <= K2_BOUND:
+        raise AssertionError(f"[10b] chunk_pools=(2, 8, 48) pan is {err48} from the twins")
+    check_path("pan chunk_pools=(2, 8, 48)", counts, ("K1", "K2", "K2 (a)"),
+               [(img48, direct(view, 1, bench, chunk_pools=(2, 8, 48)))], tag="[10b]")
+    # K2 on every bucket: the ss=2 scene and the small resolve scene at
+    # ss = 2 and 4 (image pattern, gradient, triangles, clip, scissor, both
+    # rules, non-AA) take form (d) on every bucket
+    flags_held = set()
+    worst = hold_pan_buckets(scenes["ss=2"], (37, 5), "1080p ss=2", flags_held)
+    for ss in (2, 4):
+        sr = bake(ss, lambda c, _st: draw_resolve_scene(c), w=WIDTH, h=HEIGHT,
+                  size=(WIDTH, HEIGHT))[0]
+        for view in ((37.5, 5), (-45, -13)):
+            worst = max(worst, hold_pan_buckets(sr, view, f"resolve scene ss={ss}",
+                                                flags_held))
+    print(f"[10b] K2 (d) against its twin on every bucket of the pan scenes: "
+          f"max|K2 - plain| = {worst:.3e} (bound {K2_BOUND:.0e}); (ss, flags "
+          f"(grad, tri, tex, clip, eo, noaa, scissor)) held: {sorted(flags_held)}")
+    lanes = {i for _ss, fl in flags_held for i, f in enumerate(fl) if f}
+    if lanes != set(range(7)) or {ss for ss, _fl in flags_held} != {2, 4}:
+        raise AssertionError(f"[10b] the pan buckets left lanes out: {sorted(flags_held)}")
+    return {"scenes": scenes, "bake_ms": bake_ms}
 
 
 def card_line() -> str:
@@ -624,6 +962,7 @@ def main() -> int:
         coverage_chunks_res_torch,
         resolve_cov_rows_torch,
     )
+    from vgtpu_torch.raster.retained import measure_pan_ms_per_frame
     from vgtpu_torch.raster.batch import (
         VariantBatch,
         _batch_tables,
@@ -1664,6 +2003,12 @@ def main() -> int:
 
     stamp("[8]")
 
+    # ---- 10a. device texture sampling; 10b. the retained pan -------------
+    samp = phase_10a(vg, card, zero_counts, read_counts, check_path)
+    stamp("[10a]")
+    pan = phase_10b(vg, card, zero_counts, read_counts, check_path)
+    stamp("[10b]")
+
     # ---- 6. times -------------------------------------------------------
     pl, dv = ctx.last_plan, ctx.last_device_arrays
     nt = pl.ntx * pl.nty
@@ -2058,6 +2403,42 @@ def main() -> int:
         if waits["waits"]:
             raise AssertionError(f"[6] the steady {tag} frame waits on the host: "
                                  f"{waits}")
+    # the retained pan: ms per frame over vgtpu's scrolling sequence, the
+    # device's busy share and launches per pan frame, K1's and K2's device
+    # ms in it, one render's host ms from call to return, and its CPU trace
+    for label, sc in pan["scenes"].items():
+        pan_ms = measure_pan_ms_per_frame(sc, reps_hi=32, reps_lo=2)
+        tag = f"pan {label}"
+        by, busy, window = profiled(tag, lambda sc=sc: sc.render(37, 5))
+        rets = []
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.render(37, 5)
+            rets.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        waits = host_waits(lambda sc=sc: sc.render(37, 5))
+        ms[tag] = pan_ms
+        print(f"[6] {tag}: measure_pan_ms_per_frame {pan_ms:.4f} ms per frame (CUDA "
+              f"events, 32 - 2 frames); device busy {busy:.4f} of {window:.4f} ms per "
+              f"frame ({100 * busy / window:.1f}% busy; torch.profiler, 10 frames); "
+              f"{sum(dev_calls[tag].values()):g} device events and "
+              f"{waits['launch_events'] / 5:g} kernel launches per frame (K1 "
+              f"{dev_launched[tag]['K1']:g}, K2 {dev_launched[tag]['K2']:g}); host "
+              f"{statistics.median(rets[5:]):.3f} ms from call to return (median of "
+              f"20); bake {pan['bake_ms'][label]:.1f} ms host; {card}")
+        print(f"[6]    device ms per pan frame: " + ", ".join(
+            f"{key} {by.get(key, 0.0):.4f}" for key in ("K1", "K2 (a)/(d)"))
+            + "; the rest: " + ", ".join(
+                f"{key} {v:.4f}" for key, v in sorted(by.items(), key=lambda kv: -kv[1])
+                if key not in ("K1", "K2 (a)/(d)"))[:600])
+        if waits["waits"]:
+            raise AssertionError(f"[6] the {tag} frame waits on the host: {waits}")
+    print(f"[6] textures stage (host ms, first frame / same frame again / panels "
+          f"moved): numpy sampler "
+          f"{' / '.join(f'{t:.3f}' for t in samp['stage_ms'][False])}, device sampler "
+          f"{' / '.join(f'{t:.3f}' for t in samp['stage_ms'][True])}; the device "
+          f"sampler alone {samp['sampler_ms']:.4f} ms ({card})")
     if ms["K8"] > 1.1 * ms["K8_library"]:
         print(f"[6] note: K8 {ms['K8']:.4f} ms is over 1.1x torch.add's "
               f"{ms['K8_library']:.4f} ms (CUDA events)")
@@ -2199,7 +2580,7 @@ def main() -> int:
     def entry(name, key, source, replaces, err, t, t_plain, tag, dev_keys,
               **extra):
         """One kernel's record: launches summed over the main paths' runs
-        (phases 4e, 4f, 5, 5b, 5c, 7, 8 and 9), the bound from this run's
+        (phases 4e, 4f, 5, 5b, 5c, 7, 8, 9, 10a and 10b), the bound from this run's
         shapes (for the coverage kernels the live count; [6] prints the
         dense one beside it), its launches per call of the run `tag` that times
         it (the wrapper's count), its device ms per call (torch.profiler's ms per recorded

@@ -75,7 +75,7 @@ def _draw_variant(c, vg, font, p):
 
 def _oracle(draw, w=W, h=H, dpr=1.0, setup=None, **cfg):
     """vgtpu's end() of one frame: draw(ctx, vg, state)."""
-    ctx = vgj.createContext(vgj.ContextConfig(device_sampling=False, **cfg))
+    ctx = vgj.createContext(vgj.ContextConfig(**cfg))
     st = setup(ctx, vgj) if setup else None
     vgj.begin(ctx, 0, w, h, dpr)
     draw(ctx, vgj, st)
@@ -452,7 +452,7 @@ def test_render_sharded_matches_vgtpu_and_per_frame(n):
     imgs = vb.render_sharded(_cpu_mesh(n), background=BG)
     assert imgs.shape == (len(VARIANTS), H, W, 4) and imgs.device.type == "cpu"
 
-    ctx_j = vgj.createContext(vgj.ContextConfig(device_sampling=False))
+    ctx_j = vgj.createContext(vgj.ContextConfig())
     font_j = _font(ctx_j, vgj)
     vb_j = VariantBatchJ.bake(ctx_j, [lambda c, f=f: f(c, vgj, font_j) for f in draws],
                               W, H, background=BG)

@@ -24,7 +24,7 @@ import vgtpu_torch as vgt  # noqa: E402
 from tests.fontdata import FONT_DATA  # noqa: E402
 from vgtpu.raster.frame import image_to_u8 as image_to_u8_j  # noqa: E402
 from vgtpu_torch.raster.frame import image_to_u8  # noqa: E402
-from vgtpu_torch.raster.retained import RetainedScene  # noqa: E402
+from vgtpu_torch.raster.retained import PendingPanLayer  # noqa: E402
 from vgtpu_torch.scenes.small import HEIGHT, WIDTH, draw_small_scene  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,8 +155,8 @@ def test_create_context_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("call", [
     lambda ctx: vgt.createCommandList(ctx, 0),
     lambda ctx: vgt.clBeginPath(ctx, None),
-    lambda ctx: RetainedScene.bake(ctx),
-], ids=["createCommandList", "clBeginPath", "RetainedScene"])
+    lambda ctx: PendingPanLayer(None, (0, 0), (1.0, 1.0, 1.0, 1.0)),
+], ids=["createCommandList", "clBeginPath", "PendingPanLayer"])
 def test_unported_entry_points_raise(call):
     ctx = vgt.createContext(device="cpu")
     vgt.begin(ctx, 0, 64, 64, 1.0)

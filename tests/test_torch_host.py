@@ -21,16 +21,16 @@ from tests.fontdata import FONT_DATA  # noqa: E402
 
 def _plan(vg, draw, w, h, dpr, ss=1):
     """Record through `vg`, then bin, sample textures and bucket tiles with
-    that package's own host modules (vgtpu samples on the host too)."""
+    that package's own host modules (both sample on the host:
+    device_sampling=False)."""
     import importlib
 
     binning = importlib.import_module(f"{vg.__name__}.raster.binning")
+    cfg = vg.ContextConfig(device_sampling=False, coverage_supersample=ss)
     if vg is vgj:
-        ctx = vg.createContext(vg.ContextConfig(device_sampling=False,
-                                                coverage_supersample=ss))
+        ctx = vg.createContext(cfg)
     else:
-        ctx = vg.createContext(vg.ContextConfig(coverage_supersample=ss),
-                               device="cpu")
+        ctx = vg.createContext(cfg, device="cpu")
     cfg = ctx.cfg
     vg.begin(ctx, 0, w, h, dpr)
     draw(ctx, vg)

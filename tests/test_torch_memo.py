@@ -2,7 +2,9 @@
 
 Every frame of a sequence goes through three contexts: the port with its
 memos on, the port with frame_memo=False (every end() takes the full path:
-bin, sample, upload, render), and vgtpu's end() on the same sequence.  The
+bin, sample, upload, render), and vgtpu's end() on the same sequence, all
+three sampling textures on the device (device_sampling, both packages'
+default).  The
 memo frame is held to both at atol=1e-5 and 1 u8 level after image_to_u8
 (vgtpu renders its XLA scan on the CPU, the port its fused twins; the fold's
 index_add_ can reorder against the full path), and the profiler counters
@@ -48,8 +50,7 @@ class Trio:
         self.ctxs = [
             (vgt.createContext(vgt.ContextConfig(**cfg), device="cpu"), vgt),
             (vgt.createContext(vgt.ContextConfig(**full), device="cpu"), vgt),
-            (vgj.createContext(vgj.ContextConfig(device_sampling=False, **cfg)),
-             vgj),
+            (vgj.createContext(vgj.ContextConfig(**cfg)), vgj),
         ]
         self.state = [setup(c, vg) if setup else None for c, vg in self.ctxs]
         self.port = self.ctxs[0][0]

@@ -1,7 +1,7 @@
 # Copied from vgtpu/api/config.py: the jax-free host half of the PyTorch port.
-# The fields are vgtpu's; in the port use_pallas and device_sampling have no
-# effect (the port always runs its own kernels and samples textures with the
-# numpy sampler; device sampling is ROADMAP.md Q1).
+# The fields are vgtpu's.  In the port use_pallas has no effect (the port
+# always runs its own kernels); device_sampling samples textures on the
+# context's device (ops/sampling_device.py), False on the host with numpy.
 """Runtime configuration (reference: ContextConfig, include/vg/vg.h:325-337,
 defaults at vg.cpp:719-730) plus TPU-specific knobs.
 
@@ -48,8 +48,8 @@ class ContextConfig:
     tess_tol: float = 0.25                 # tessellation tolerance in px (vg.cpp:763)
     fringe: float = 1.0                    # AA fringe reference width in px (vg.cpp:764)
     use_pallas: bool = True                # Pallas fine raster (False = pure-XLA path)
-    device_sampling: bool = True           # textures sampled on device (MXU hat-weight
-                                           # matmuls); False = host numpy sampler
+    device_sampling: bool = True           # textures sampled on device (hat-weight
+                                           # float32 matmuls); False = host numpy sampler
     frame_memo: bool = True                # re-recorded identical frames reuse the
                                            # resident device plan (skip bin/sample/upload)
     paint_memo: bool = True                # re-recorded frames whose ONLY delta is

@@ -16,9 +16,11 @@ memo (an identical re-record re-renders the resident plan), the paint memo
 (a values-only delta patches the resident paint rows in place) and the layer
 memo (a stable op prefix bakes once into resident tiles the suffix
 composites over, K2 form (b)).  end(dispatch=False) + renderFrames serve
-several contexts back to back.  use_pallas and device_sampling have no
-effect: the port always runs its CUDA kernels (or their plain twins on the
-CPU) and samples textures with the numpy sampler.
+several contexts back to back.  ContextConfig.device_sampling (default
+True, as in vgtpu) samples textures on the context's device
+(ops/sampling_device.py), with False the numpy sampler on the host;
+use_pallas has no effect: the port always runs its CUDA kernels (or their
+plain twins on the CPU).
 """
 
 from __future__ import annotations
@@ -251,6 +253,9 @@ class Context:
         # never mutate paint rows; gradients copy before modulating)
         self._solid_paint_cache: dict[int, np.ndarray] = {}
 
+        self._ct_memo = {}           # device colour tiles by sampling payload (LRU of 4)
+        self._tex_dev_cache = {}     # image id -> ((generation, shape), f32 texture)
+
         self.frame_image = None      # premultiplied (H,W,4) device tensor after end()
         self.last_plan = None
         self.last_device_arrays = None
@@ -319,7 +324,8 @@ class Context:
 
         In vgtpu's order: fingerprint -> frame-memo hit (re-render the
         resident plan) -> paint patch (values-only delta) -> finalize ->
-        layer split -> bin -> textures (numpy sampler) -> upload -> dispatch.
+        layer split -> bin -> textures (device or numpy sampler) -> upload
+        -> dispatch.
 
         dispatch=False prepares the resident plan but skips the device render
         and returns None: end(dispatch=False) each context, then one
@@ -603,9 +609,10 @@ class Context:
           patch is only taken when every changed solid row keeps its opacity
           class.
         - texture/pattern rows (text colour, pattern transform/tint) feed
-          the TEXTURES stage: the patch re-runs the numpy sampler against
-          the resident plan and swaps the colour tiles (ct_flat), giving up
-          when the entry -> colour-tile map changed.
+          the TEXTURES stage: the patch re-runs the sampler (device or
+          numpy, as cfg.device_sampling says) against the resident plan and
+          swaps the colour tiles (ct_flat), giving up when the entry ->
+          colour-tile map changed.
 
         The resident params hold the paint on the device (built on the host
         by build_bucket_aux), so the patch uploads the patched (NE, 18)
@@ -698,16 +705,19 @@ class Context:
             patch_bucket_paint(d["bucket_params"], d["bucket_te"], entry_paint)
             nbytes = plan.entry_paint.nbytes
             if ct_flat is not None:
+                if isinstance(ct_flat, np.ndarray):
+                    nbytes += ct_flat.nbytes
                 d["ct_flat"] = torch.as_tensor(ct_flat).to(self.device)
-                nbytes += ct_flat.nbytes
         prof.count("upload_bytes", nbytes)
         return True
 
     def _fill_textures(self, plan, ops=None) -> None:
-        """Color tiles for textured entries, always from the numpy sampler
-        (device sampling, ops/sampling_device.py, is a later port item)."""
-        from vgtpu_torch.raster.sampling import fill_color_tiles
-
+        """Colour tiles for the plan's textured entries: with
+        cfg.device_sampling on the context's device (plan.color_tiles
+        becomes a tensor there, which the upload passes through), else from
+        the numpy sampler.  ops: the list the plan was binned from (a
+        suffix slice when the layer memo split the frame: plan.entry_op
+        indexes into it)."""
         if ops is None:
             ops = self.ops
         image_map = {
@@ -716,9 +726,92 @@ class Context:
         }
         if self.font_system is not None:
             image_map.update(self.font_system.atlas_image_map())
+        if self.cfg.device_sampling:
+            self._sample_on_device(plan, ops, image_map)
+            return
+        from vgtpu_torch.raster.sampling import fill_color_tiles
+
         if not hasattr(self, "_tile_sample_cache"):
             self._tile_sample_cache = {}
         fill_color_tiles(plan, ops, image_map, cache=self._tile_sample_cache)
+
+    def _sample_on_device(self, plan, ops, image_map: dict) -> None:
+        """vgtpu's device-sampling branch of _fill_textures: the sampling
+        plan on the host, then one sampler run on self.device, skipped when
+        the 4-entry LRU _ct_memo holds the same sampling payload (text and
+        pattern tiles of a steady UI loop are frame-static even when the
+        geometry around them animates; ct_memo_hits counts the hits)."""
+        import zlib
+
+        from vgtpu_torch.ops.sampling_device import (
+            build_sampling_plan,
+            sample_color_tiles_device,
+        )
+
+        sp = build_sampling_plan(plan, ops, image_map)
+        if not sp.num_tiles:
+            if len(ops) == len(self.ops):
+                # the plan covers the WHOLE frame and draws no textures:
+                # the memo's tiles can never hit again, release them.  A
+                # texture-less SUFFIX plan under a layer split keeps the
+                # memo: the layer plan's entry is still live
+                self._ct_memo = {}
+            return
+        needed = {g.image_id for g in sp.groups}
+
+        def _crc(a):
+            return 0 if a is None else zlib.crc32(np.ascontiguousarray(a))
+
+        # keyed on the FULL group payload (ct ids, params incl. tile
+        # origins, modulation colours) and every source generation, so any
+        # layout shift or paint change misses
+        key = (
+            sp.num_tiles, plan.tile_h, plan.tile_w, plan.supersample,
+            tuple(sorted(
+                (i, image_map[i][2] if len(image_map[i]) > 2 else 0)
+                for i in needed)),
+            tuple((g.image_id, g.flags, g.kind, g.separable,
+                   _crc(g.ct), _crc(g.params), _crc(g.color))
+                  for g in sp.groups),
+            _crc(sp.tex_tile_mask),
+        )
+        # a small LRU, not one slot: a frame whose baked layer AND dynamic
+        # suffix both carry textures samples two plans per frame
+        memo = self._ct_memo
+        hit = memo.pop(key, None)
+        if hit is not None:
+            memo[key] = hit       # move to the end (dict insert order)
+            plan.color_tiles = hit
+            self.profiler.count("ct_memo_hits", 1)
+            return
+        tex = self._device_textures(image_map, needed)
+        ct = sample_color_tiles_device(
+            sp, tex, plan.tile_h // plan.supersample, plan.tile_w)
+        plan.color_tiles = ct
+        memo[key] = ct
+        while len(memo) > 4:
+            memo.pop(next(iter(memo)))
+
+    def _device_textures(self, image_map: dict, needed: set) -> dict:
+        """f32 textures in [0, 1] on self.device, (h, w, C) with C=1 for A8,
+        uploaded again only when the source's (generation, shape) changes
+        (updateImage bumps an image's generation, an atlas bake its
+        revision)."""
+        cache = self._tex_dev_cache
+        out = {}
+        for img_id in needed:
+            rec = image_map[img_id]
+            data = rec[0]
+            key = (rec[2] if len(rec) > 2 else 0, data.shape)
+            hit = cache.get(img_id)
+            if hit is None or hit[0] != key:
+                arr = np.asarray(data)
+                if arr.ndim == 2:
+                    arr = arr[..., None]
+                dev = torch.as_tensor(arr).to(self.device).to(torch.float32) / 255.0
+                hit = cache[img_id] = (key, dev)
+            out[img_id] = hit[1]
+        return out
 
     def frame(self) -> None:
         """Per-app-frame housekeeping (reference: font-atlas GC, vg.cpp:1290)."""

@@ -1,0 +1,401 @@
+# Copied from vgtpu/ops/sampling_device.py: build_sampling_plan and its
+# dataclasses are the jax-free host half; the sampler is rewritten in torch.
+"""Device-side texture sampling: colour tiles for image-pattern fills and
+textured text quads computed on the plan's device (the counterpart of
+vgtpu/ops/sampling_device.py).
+
+The reference computes pattern UVs in-shader from the inverse paint matrix
+(src/shaders/vs_image_pattern.sc, rationale vg.cpp:104-111) and samples per
+fragment; here, as in vgtpu, each tile or quad samples through a bilinear
+SAMPLING MATRIX pair — hat-function interpolation weights contracted
+against the texture with two matrix products:
+
+    tile(r, c) = sum_h sum_w  Wr[r, h] * tex[h, w] * Wc[c, w]
+
+The separable form needs an axis-aligned UV mapping (unrotated text and
+patterns); rotated content takes an exact per-pixel gather, chosen per group
+when the plan is built.  This is plain torch, as vgtpu's sampler is plain
+XLA: no kernel of the TPU port is involved.  The products stay in float32
+(the hat weights sum to one only there): run with torch's default float32
+matmul precision ("highest"), never TF32.  The a*b+c sites that XLA on the
+CPU contracts into fused multiply-adds (the texel coordinates) are explicit
+FMAs (ops/coverage.fma), so the tiles track vgtpu's rounding: a texel
+coordinate near 100 has an ulp of ~8e-6, which the bilinear weights carry
+into the colour.
+
+The host sampler (raster/sampling.py) stays the oracle: tests hold the two
+to the same tolerance vgtpu's own test does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from vgtpu_torch.core import ImageFlags
+from vgtpu_torch.ops.coverage import fma
+from vgtpu_torch.raster.binning import P_IMAGE, P_TEXTURE, FramePlan, _bucket
+
+_IW_CHUNK = 1024      # weight-matrix lane chunk: caps the (K, TH, chunk, C) product
+
+
+@dataclass
+class SampleGroup:
+    """One statically-shaped sampling batch: same image, same flags, same
+    kind (quad / pattern), same path (separable / gather)."""
+
+    image_id: int
+    flags: int
+    kind: int                   # P_TEXTURE (quads) or P_IMAGE (pattern)
+    separable: bool
+    ct: np.ndarray              # (K,) i32 target color-tile index
+    params: np.ndarray          # (K, 12) f32, see build_sampling_plan
+    color: np.ndarray           # (K, 4) f32 straight-alpha modulation color
+
+
+@dataclass
+class SamplingPlan:
+    groups: list = field(default_factory=list)
+    num_tiles: int = 0          # NCT
+    tex_tile_mask: np.ndarray | None = None   # (NCT,) tiles that clip to 1
+
+
+def build_sampling_plan(plan: FramePlan, ops, images,
+                        pan_margin: bool = False) -> SamplingPlan:
+    """Host pass (no sampling): assigns entry_color_tile and produces padded
+    per-group parameter arrays for the device sampler.  `images` maps
+    image id -> (data u8, flags[, generation]).
+
+    pan_margin: generate (entry, quad) pairs for the tile's whole REACHABLE
+    sample window [ox, ox+2*tw) x [oy, oy+2*th) — retained-pan scenes shift
+    content left/up by sub-tile residuals (raster/retained.py), so a quad
+    can enter a tile it does not overlap at rest."""
+    ss = plan.supersample
+    th, tw = plan.tile_h // ss, plan.tile_w   # OUTPUT-space tile rows
+    n = plan.n_real_entries
+    pk = plan.entry_paint_kind[:n]
+    need = np.nonzero((pk == P_IMAGE) | (pk == P_TEXTURE))[0]
+    sp = SamplingPlan()
+    if len(need) == 0:
+        return sp
+
+    # color-tile ids in `need` order
+    nct = len(need)
+    plan.entry_color_tile[need] = np.arange(nct, dtype=np.int32)
+    sp.num_tiles = nct
+    sp.tex_tile_mask = pk[need] == P_TEXTURE
+
+    raw: dict = {}   # (img, flags, kind, separable) -> [(ct, params, color)]
+    tiles = plan.entry_tile[need]
+    oxs = ((tiles % plan.ntx) * tw).astype(np.float64)
+    oys = ((tiles // plan.ntx) * th).astype(np.float64)
+    eop = plan.entry_op[need]
+    # entries are op-major, so one pass per textured OP keeps the original
+    # (entry, quad) row order
+    starts = np.concatenate([[0], np.nonzero(np.diff(eop))[0] + 1, [len(need)]])
+    for si in range(len(starts) - 1):
+        a, b = int(starts[si]), int(starts[si + 1])
+        ei0 = need[a]
+        kind = int(pk[ei0])
+        img_id = int(plan.entry_image[ei0])
+        flags = int(images[img_id][1]) if img_id in images else 0
+        paint = plan.entry_paint[ei0]
+        col = np.asarray(paint[10:14], np.float32)
+        cts = np.arange(a, b, dtype=np.int64)
+        ox = oxs[a:b]
+        oy = oys[a:b]
+
+        if kind == P_IMAGE:
+            m = np.asarray(paint[0:6], np.float64)
+            separable = abs(float(m[1])) < 1e-12 and abs(float(m[2])) < 1e-12
+            pr = np.zeros((b - a, 12), np.float64)
+            pr[:, 0] = ox
+            pr[:, 1] = oy
+            pr[:, 2:8] = m[None, :]
+            key = (img_id, flags, P_IMAGE, separable)
+            g = raw.setdefault(key, {"ct": [], "params": [], "color": []})
+            g["ct"].append(cts)
+            g["params"].append(pr)
+            g["color"].append(np.broadcast_to(col, (b - a, 4)))
+            continue
+
+        # P_TEXTURE: (entry, quad) pairs by bbox overlap.  These are the
+        # caller's ORIGINAL ops (y unscaled): only tile origins needed
+        # output-space correction under supersampling
+        q = np.asarray(ops[int(eop[a])].tex_quads, np.float64)
+        cxs = np.stack([q[:, 0], q[:, 0] + q[:, 2], q[:, 0] + q[:, 4],
+                        q[:, 0] + q[:, 2] + q[:, 4]])
+        cys = np.stack([q[:, 1], q[:, 1] + q[:, 3], q[:, 1] + q[:, 5],
+                        q[:, 1] + q[:, 3] + q[:, 5]])
+        qx0, qx1 = cxs.min(axis=0), cxs.max(axis=0)
+        qy0, qy1 = cys.min(axis=0), cys.max(axis=0)
+        exx, exy, eyx, eyy = q[:, 2], q[:, 3], q[:, 4], q[:, 5]
+        q_ok = np.abs(exx * eyy - exy * eyx) >= 1e-12
+        reach = 2 if pan_margin else 1
+        overlap = (
+            (qx0[None, :] < (ox + reach * tw + 1)[:, None])
+            & (qx1[None, :] > (ox - 1)[:, None])
+            & (qy0[None, :] < (oy + reach * th + 1)[:, None])
+            & (qy1[None, :] > (oy - 1)[:, None])
+            & q_ok[None, :]
+        )
+        pe, pq = np.nonzero(overlap)             # row-major = entry-major
+        if not len(pe):
+            continue
+        q_sep = (np.abs(exy) < 1e-12) & (np.abs(eyx) < 1e-12)
+        for separable in (False, True):
+            m2 = q_sep[pq] == separable
+            if not m2.any():
+                continue
+            e2, q2 = pe[m2], pq[m2]
+            pr = np.zeros((len(e2), 12), np.float64)
+            pr[:, 0] = ox[e2]
+            pr[:, 1] = oy[e2]
+            pr[:, 2:12] = q[q2, 0:10]
+            key = (img_id, flags, P_TEXTURE, bool(separable))
+            g = raw.setdefault(key, {"ct": [], "params": [], "color": []})
+            g["ct"].append(cts[e2])
+            g["params"].append(pr)
+            g["color"].append(np.broadcast_to(col, (len(e2), 4)))
+
+    for (img_id, flags, kind, separable), g in sorted(raw.items()):
+        cti = np.concatenate(g["ct"])
+        k = len(cti)
+        kp = _bucket(k, minimum=8)
+        ct = np.full(kp, nct, np.int32)          # pad -> scratch tile row NCT
+        ct[:k] = cti
+        params = np.zeros((kp, 12), np.float32)
+        params[:k] = np.concatenate(g["params"]).astype(np.float32)
+        if kind == P_TEXTURE:
+            params[k:, 4] = 1.0                  # exx/eyy nonzero on pad rows
+            params[k:, 7] = 1.0
+        else:
+            params[k:, 2] = 1.0                  # m0/m3
+            params[k:, 5] = 1.0
+        color = np.zeros((kp, 4), np.float32)
+        color[:k] = np.concatenate(g["color"])
+        sp.groups.append(SampleGroup(img_id, flags, kind, separable, ct, params, color))
+    return sp
+
+
+# ---------------------------------------------------------------------------
+# device sampler
+# ---------------------------------------------------------------------------
+
+def _nearest(flags: int) -> bool:
+    return (not (flags & ImageFlags.Filter_LinearUV)) and bool(flags & ImageFlags.Filter_NearestUV)
+
+
+def _axis_weights(t, size: int, w0: int, wn: int, flags: int, clamp_flag: int,
+                  nearest: bool):
+    """Hat (bilinear) or indicator (nearest) weights of texel coordinates t
+    (K, P) against texel indices [w0, w0+wn): returns (K, P, wn).
+
+    Matches raster/sampling.py's _bilinear: x = t - 0.5; taps floor(x),
+    floor(x)+1 with clamp or repeat wrap.  torch.remainder takes the
+    divisor's sign, as jnp.mod does (torch.fmod would not)."""
+    x = t - 0.5
+    tx = (w0 + torch.arange(wn, dtype=torch.float32, device=t.device))[None, None, :]
+    if nearest:
+        xr = torch.round(x)
+        if flags & clamp_flag:
+            xr = torch.clamp(xr, 0.0, size - 1.0)
+            d = xr[..., None] - tx
+            return (torch.abs(d) < 0.5).to(torch.float32)
+        d = torch.remainder(xr[..., None] - tx, float(size))
+        return ((d < 0.5) | (d > size - 0.5)).to(torch.float32)
+    if flags & clamp_flag:
+        xc = torch.clamp(x, 0.0, size - 1.0)
+        d = xc[..., None] - tx
+        # at xc integer the hat gives weight 1 at one texel and 0 elsewhere,
+        # the same as the two-tap form
+        return torch.clamp_min(1.0 - torch.abs(d), 0.0)
+    d = torch.remainder(x[..., None] - tx, float(size))
+    return torch.clamp_min(1.0 - d, 0.0) + torch.clamp_min(1.0 - (float(size) - d), 0.0)
+
+
+def _sample_separable(tex, tu, tv, flags: int):
+    """tu (K, TW), tv (K, TH) texel coords -> (K, TH, TW, C) samples (quad
+    coverage is applied by the caller): two float32 products per column
+    chunk of the texture."""
+    ih, iw = tex.shape[0], tex.shape[1]
+    nearest = _nearest(flags)
+    wr = _axis_weights(tv, ih, 0, ih, flags, ImageFlags.Clamp_V, nearest)  # (K,TH,IH)
+    out = None
+    for w0 in range(0, iw, _IW_CHUNK):
+        wn = min(_IW_CHUNK, iw - w0)
+        wc = _axis_weights(tu, iw, w0, wn, flags, ImageFlags.Clamp_U, nearest)  # (K,TW,wn)
+        t = torch.einsum("krh,hwc->krwc", wr, tex[:, w0 : w0 + wn])
+        part = torch.einsum("kcw,krwz->krcz", wc, t)
+        out = part if out is None else out + part
+    return out  # (K, TH, TW, C)
+
+
+def _sample_gather(tex, u, v, flags: int):
+    """Exact per-pixel bilinear/nearest gather (the rotated fallback)."""
+    ih, iw = tex.shape[0], tex.shape[1]
+    x = u - 0.5
+    y = v - 0.5
+
+    def wrapx(i):
+        return torch.clamp(i, 0, iw - 1) if (flags & ImageFlags.Clamp_U) else torch.remainder(i, iw)
+
+    def wrapy(i):
+        return torch.clamp(i, 0, ih - 1) if (flags & ImageFlags.Clamp_V) else torch.remainder(i, ih)
+
+    if _nearest(flags):
+        return tex[wrapy(torch.round(y).long()), wrapx(torch.round(x).long())]
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    p00 = tex[wrapy(y0), wrapx(x0)]
+    p10 = tex[wrapy(y0), wrapx(x0 + 1)]
+    p01 = tex[wrapy(y0 + 1), wrapx(x0)]
+    p11 = tex[wrapy(y0 + 1), wrapx(x0 + 1)]
+    # XLA's contraction: each later product's last multiply fused into the
+    # running sum
+    acc = p00 * (1 - fx) * (1 - fy)
+    acc = fma(p10 * fx, 1 - fy, acc)
+    acc = fma(p01 * (1 - fx), fy, acc)
+    return fma(p11 * fx, fy, acc)
+
+
+def upload_groups(sp: SamplingPlan, device) -> tuple:
+    """The plan's groups on `device` as (params (K, 12), color (K, 4), ct
+    (K,) int64) tensor triples, from ONE host-to-device copy of all groups
+    packed side by side (ct ids travel as exact float32)."""
+    if not sp.groups:
+        return ()
+    packed = np.concatenate([
+        np.concatenate([g.params, g.color, g.ct[:, None].astype(np.float32)], axis=1)
+        for g in sp.groups])
+    dev = torch.as_tensor(packed).to(device)
+    out, k0 = [], 0
+    for g in sp.groups:
+        blk = dev[k0 : k0 + len(g.ct)]
+        out.append((blk[:, 0:12], blk[:, 12:16], blk[:, 16].long()))
+        k0 += len(g.ct)
+    return tuple(out)
+
+
+def sample_groups(arrs, texs, clipmask, *, meta, th: int, tw: int,
+                  num_tiles: int, shift=(0.0, 0.0)) -> torch.Tensor:
+    """The body of vgtpu's _sample_jit on tensors: every group's tiles ->
+    (NCT, TH, TW, 4) premultiplied colour tiles on the groups' device.
+
+    arrs: per group (params (K, 12), color (K, 4), ct (K,)); texs: per group
+    its f32 texture (h, w, C in [0, 1]; C=1 for A8); clipmask: (NCT+1,)
+    bool of the tiles that saturate (textured quads), or None; meta: per
+    group (kind, separable, flags).  shift (sx, sy): float32 amounts added
+    to every tile origin (params columns 0 and 1), the retained pan's
+    residual — the same sums as vgtpu's params + shift12, whose other ten
+    entries are zero.  Tiles of duplicate ct ids (text quads sharing a
+    tile) sum through index_add_, which is atomic on CUDA."""
+    dev = texs[0].device if texs else torch.device("cpu")
+    tiles = torch.zeros((num_tiles + 1, th, tw, 4), dtype=torch.float32, device=dev)
+    ixc = torch.arange(tw, dtype=torch.float32, device=dev) + 0.5
+    iyc = torch.arange(th, dtype=torch.float32, device=dev) + 0.5
+    sx, sy = shift
+
+    for (kind, separable, flags), (p, col, ct), tex in zip(meta, arrs, texs):
+        ih, iw = tex.shape[0], tex.shape[1]
+        a8 = tex.shape[-1] == 1
+        ox, oy = p[:, 0:1], p[:, 1:2]
+        if sx or sy:
+            ox, oy = ox + sx, oy + sy
+
+        if kind == P_TEXTURE:
+            p0x, p0y = p[:, 2:3], p[:, 3:4]
+            exx, exy, eyx, eyy = p[:, 4], p[:, 5], p[:, 6], p[:, 7]
+            u0, v0, u1, v1 = p[:, 8:9], p[:, 9:10], p[:, 10:11], p[:, 11:12]
+            det = exx * eyy - exy * eyx
+            i00 = (eyy / det)[:, None]
+            i01 = (-eyx / det)[:, None]
+            i10 = (-exy / det)[:, None]
+            i11 = (exx / det)[:, None]
+            wa = torch.clamp_min(torch.hypot(i00, i01), 1e-9)
+            wb = torch.clamp_min(torch.hypot(i10, i11), 1e-9)
+            if separable:
+                rx = ox + ixc[None, :] - p0x                 # (K, TW)
+                ry = oy + iyc[None, :] - p0y                 # (K, TH)
+                a = i00 * rx                                 # i01 == 0
+                b = i11 * ry                                 # i10 == 0
+                cov_a = torch.clamp((0.5 - torch.abs(a - 0.5)) / wa + 0.5, 0.0, 1.0)
+                cov_b = torch.clamp((0.5 - torch.abs(b - 0.5)) / wb + 0.5, 0.0, 1.0)
+                tu = fma(torch.clamp(a, 0, 1), u1 - u0, u0) * iw
+                tv = fma(torch.clamp(b, 0, 1), v1 - v0, v0) * ih
+                s = _sample_separable(tex, tu, tv, flags)
+                qcov = cov_b[:, :, None] * cov_a[:, None, :]
+            else:
+                rx = ox[..., None] + ixc[None, None, :] - p0x[..., None]   # (K,1,TW)
+                ry = oy[..., None] + iyc[None, :, None] - p0y[..., None]   # (K,TH,1)
+                a = i00[..., None] * rx + i01[..., None] * ry              # (K,TH,TW)
+                b = i10[..., None] * rx + i11[..., None] * ry
+                cov_a = torch.clamp((0.5 - torch.abs(a - 0.5)) / wa[..., None] + 0.5, 0.0, 1.0)
+                cov_b = torch.clamp((0.5 - torch.abs(b - 0.5)) / wb[..., None] + 0.5, 0.0, 1.0)
+                tu = fma(torch.clamp(a, 0, 1), (u1 - u0)[..., None], u0[..., None]) * iw
+                tv = fma(torch.clamp(b, 0, 1), (v1 - v0)[..., None], v0[..., None]) * ih
+                s = _sample_gather(tex, tu, tv, flags)
+                qcov = cov_a * cov_b
+            if a8:
+                alpha = s[..., 0]
+                rgb = col[:, None, None, 0:3].expand(*alpha.shape, 3)
+                av = alpha * col[:, None, None, 3]
+            else:
+                rgba = s * col[:, None, None, :]
+                rgb = rgba[..., 0:3]
+                av = rgba[..., 3]
+            aq = av * qcov
+            contrib = torch.cat([rgb * aq[..., None], aq[..., None]], dim=-1)
+            tiles.index_add_(0, ct, contrib)
+        else:  # P_IMAGE pattern fill
+            m0, m1, m2 = p[:, 2], p[:, 3], p[:, 4]
+            m3, m4, m5 = p[:, 5], p[:, 6], p[:, 7]
+            if separable:
+                tu = fma(m0[:, None], ox + ixc[None, :], m4[:, None]) * iw  # (K,TW)
+                tv = fma(m3[:, None], oy + iyc[None, :], m5[:, None]) * ih  # (K,TH)
+                s = _sample_separable(tex, tu, tv, flags)
+            else:
+                pxc = ox[..., None] + ixc[None, None, :]
+                pyc = oy[..., None] + iyc[None, :, None]
+                tu = (fma(m0[:, None, None], pxc, m2[:, None, None] * pyc)
+                      + m4[:, None, None]) * iw
+                tv = (fma(m1[:, None, None], pxc, m3[:, None, None] * pyc)
+                      + m5[:, None, None]) * ih
+                k = tu.shape[0]
+                s = _sample_gather(tex, tu.expand(k, th, tw), tv.expand(k, th, tw), flags)
+            if a8:
+                s = torch.cat([torch.ones((*s.shape[:-1], 3), dtype=torch.float32,
+                                          device=dev), s], dim=-1)
+            rgba = s * col[:, None, None, :]
+            tiles[ct] = torch.cat([rgba[..., 0:3] * rgba[..., 3:4], rgba[..., 3:4]], dim=-1)
+
+    # textured-quad tiles saturate like the host sampler (sum then clip)
+    if clipmask is not None:
+        cm = clipmask[:, None, None, None]
+        tiles = torch.where(cm, torch.clamp(tiles, 0.0, 1.0), tiles)
+    return tiles[:num_tiles]
+
+
+def clipmask_tensor(sp: SamplingPlan, device):
+    """(NCT+1,) bool tensor of the tiles that saturate, or None."""
+    if sp.tex_tile_mask is None:
+        return None
+    return torch.as_tensor(np.concatenate([sp.tex_tile_mask, [False]])).to(device)
+
+
+def sample_color_tiles_device(sp: SamplingPlan, textures: dict,
+                              tile_h: int, tile_w: int) -> torch.Tensor | None:
+    """Run all sample groups on the textures' device -> (NCT, TH, TW, 4)
+    premultiplied color tiles.  `textures` maps image id -> f32 tensor (h,
+    w, C in [0,1]; C=1 for A8).  Scratch row NCT absorbs pad lanes."""
+    if sp.num_tiles == 0:
+        return None
+    texs = tuple(textures[g.image_id] for g in sp.groups)
+    dev = texs[0].device
+    return sample_groups(upload_groups(sp, dev), texs, clipmask_tensor(sp, dev),
+                         meta=tuple((g.kind, g.separable, g.flags) for g in sp.groups),
+                         th=tile_h, tw=tile_w, num_tiles=sp.num_tiles)

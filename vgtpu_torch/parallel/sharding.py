@@ -100,9 +100,16 @@ def plan_dense_arrays(plan) -> dict:
         "entry_paint": plan.entry_paint,
         "entry_scissor": plan.entry_scissor,
         "entry_color_tile": plan.entry_color_tile,
-        "color_tiles": np.asarray(plan.color_tiles),
+        "color_tiles": _tiles(plan.color_tiles),
         "tile_entries": plan.tile_entries,
     }
+
+
+def _tiles(ct):
+    """Colour tiles as they are: a tensor the device sampler left on a
+    device stays a tensor (each shard copies it device to device), anything
+    else becomes a numpy array."""
+    return ct if isinstance(ct, torch.Tensor) else np.asarray(ct)
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +249,7 @@ def partition_plan_for_mesh(d: dict, plan, n: int) -> tuple[dict, dict]:
         "entry_paint": scatter_entries(d["entry_paint"]),
         "entry_scissor": scatter_entries(d["entry_scissor"]),
         "entry_color_tile": scatter_entries(d["entry_color_tile"]),
-        "color_tiles": np.asarray(d["color_tiles"]),      # replicated
+        "color_tiles": _tiles(d["color_tiles"]),          # replicated
         "tile_entries": te_local,
         "tile_ids": tile_ids,
     }
@@ -308,6 +315,8 @@ class ShardedFrame:
 
 
 def _put(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device).contiguous()
     return torch.as_tensor(np.ascontiguousarray(x)).to(device)
 
 

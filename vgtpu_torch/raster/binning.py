@@ -161,7 +161,8 @@ def plan_from_numpy(fields: dict) -> FramePlan:
     """A FramePlan of this package from the numpy fields of any FramePlan —
     this package's or vgtpu's, e.g. dataclasses.asdict(plan) or vars(plan).
     Arrays are copied, so the two plans never share mutable state; unknown
-    field names raise."""
+    field names raise.  Colour tiles the device sampler left on a device (a
+    torch tensor) come back to the host as numpy."""
     import dataclasses
 
     names = {f.name for f in dataclasses.fields(FramePlan)}
@@ -170,7 +171,11 @@ def plan_from_numpy(fields: dict) -> FramePlan:
         raise ValueError(f"plan_from_numpy: unknown FramePlan fields {sorted(unknown)}")
 
     def arr(x):
-        return None if x is None else np.array(x)
+        if x is None:
+            return None
+        if hasattr(x, "detach"):          # a torch tensor, on any device
+            x = x.detach().cpu().numpy()
+        return np.array(x)
 
     kw = {}
     for k, v in fields.items():
@@ -184,7 +189,7 @@ def plan_from_numpy(fields: dict) -> FramePlan:
             v = None if v is None else {pk: np.array(pv) for pk, pv in v.items()}
         elif k == "stats":
             v = dict(v)
-        elif isinstance(v, np.ndarray) or v is None:
+        elif isinstance(v, np.ndarray) or v is None or hasattr(v, "detach"):
             v = arr(v)
         kw[k] = v
     return FramePlan(**kw)

@@ -105,12 +105,13 @@ def _prepare_plan(plan: FramePlan):
 
 
 def plan_host_arrays(plan: FramePlan) -> dict:
-    """The fused path's host arrays for one plan (numpy): tile buckets,
-    chunk compaction, the resolve split (ss > 1), the chunk->entry gather
-    map, and per bucket its padded framebuffer rows, padded entry table
-    (entry ids, 0 where no entry: the rows build_bucket_aux reads the paint
-    from), coverage-row ids, params, colour-tile ids and (split plans)
-    resolved-backdrop rows.
+    """The fused path's host arrays for one plan (numpy; ct_flat stays a
+    tensor on its device when the device sampler left the colour tiles
+    there): tile buckets, chunk compaction, the resolve split (ss > 1), the
+    chunk->entry gather map, and per bucket (bucket_rows) its padded
+    framebuffer rows, padded entry table (entry ids, 0 where no entry: the
+    rows build_bucket_aux reads the paint from), coverage-row ids, params,
+    colour-tile ids and (split plans) resolved-backdrop rows.
 
     With a split, "res" holds the K3 inputs and the extras/XE tables against
     the RAW rows, and bucket_pteb indexes cov_sub (clip buckets) or
@@ -119,28 +120,10 @@ def plan_host_arrays(plan: FramePlan) -> dict:
     the one folded coverage array."""
     split = _prepare_plan(plan)
     ne = plan.entry_backdrop.shape[0]
-    num_tiles = plan.ntx * plan.nty
     m = build_cov_gather_map(plan.chunk_pools, ne)
     dead_id = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
-    nct = plan.color_tiles.shape[0]
-    ids_l, te_l, pp_l, ctile_l, flags_l = [], [], [], [], []
-    for te_b, ids_b, flags in plan.tile_buckets:
-        pp, _unused = build_bucket_aux(plan, te_b, need_ct=False)
-        nbp = _pad_tiles(te_b.shape[0])
-        ids = np.full(nbp, num_tiles, np.int32)
-        ids[: len(ids_b)] = ids_b
-        te_p = np.full((nbp, te_b.shape[1]), -1, np.int32)
-        te_p[: len(te_b)] = te_b
-        te = np.maximum(te_p, 0)
-        te_l.append(te)
-        ctile = None
-        if flags[2]:
-            ct = np.where(te_p >= 0, plan.entry_color_tile[te], -1)
-            ctile = np.where(ct >= 0, ct, nct).astype(np.int32)
-        ids_l.append(ids)
-        pp_l.append(pp)
-        ctile_l.append(ctile)
-        flags_l.append(tuple(bool(f) for f in flags))
+    rows = bucket_rows(plan, plan.color_tiles.shape[0])
+    flags_l = rows["flags"]
     if split is None:
         res = None
         cov_map = {"extra_chunk": m["extra_chunk"],
@@ -162,41 +145,84 @@ def plan_host_arrays(plan: FramePlan) -> dict:
             if res[k].size and (res[k].min() < 0 or res[k].max() > split["nraw"]):
                 raise ValueError(f"plan_to_device: {k} outside the raw rows")
     # indices come from the host binner: check them here, the kernels don't
-    for ids in ids_l:
-        if ids.size and (ids.min() < 0 or ids.max() > num_tiles):
-            raise ValueError("plan_to_device: bucket tile id outside the framebuffer")
     for pteb, n in zip(pteb_l, ncr):
         if pteb.size and (pteb.min() < 0 or pteb.max() >= n):
             raise ValueError("plan_to_device: chunk id outside coverage rows")
-    for ctile in ctile_l:
-        if ctile is not None and ctile.size and (ctile.min() < 0 or ctile.max() > nct):
-            raise ValueError("plan_to_device: colour-tile id out of range")
-    ct_flat = color_tiles_flat(plan)
     return {
         "chunk_edges": [np.ascontiguousarray(ce, np.float32)
                         for ce, _cent in plan.chunk_pools],
         "cov_map": cov_map,
         "res": res,
-        "bucket_ids": ids_l,
-        "bucket_te": te_l,
+        "bucket_ids": rows["ids"],
+        "bucket_te": [np.maximum(te, 0) for te in rows["te"]],
         "bucket_pteb": pteb_l,
-        "bucket_params": pp_l,
-        "bucket_ctile": ctile_l,
+        "bucket_params": rows["params"],
+        "bucket_ctile": rows["ctile"],
         "bucket_rbd": rbd_l,
-        "ct_flat": ct_flat,
-        "bucket_flags": tuple(flags_l),
+        "ct_flat": color_tiles_flat(plan),
+        "bucket_flags": flags_l,
     }
 
 
-def color_tiles_flat(plan: FramePlan) -> np.ndarray:
+def bucket_rows(plan: FramePlan, nct: int) -> dict:
+    """Per tile bucket, padded to _pad_tiles rows: "ids", the framebuffer
+    rows (pad rows: the scratch row T); "te", the entry table (-1 where no
+    entry); "params", the host-built params (build_bucket_aux, bit-identical
+    to vgtpu's device-side build_bucket_params_jnp); "ctile", a texture
+    bucket's colour-tile ids (untextured and pad slots: row nct, the zeros
+    row color_tiles_flat appends), else None; and "flags", the lane flags.
+    Tile and colour-tile ids come from the host binner and are checked here:
+    the kernels index without bounds checks."""
+    num_tiles = plan.ntx * plan.nty
+    out = {"ids": [], "te": [], "params": [], "ctile": [], "flags": []}
+    for te_b, ids_b, flags in plan.tile_buckets:
+        nbp = _pad_tiles(te_b.shape[0])
+        ids = np.full(nbp, num_tiles, np.int32)
+        ids[: len(ids_b)] = ids_b
+        te_p = np.full((nbp, te_b.shape[1]), -1, np.int32)
+        te_p[: len(te_b)] = te_b
+        ctile = None
+        if flags[2]:
+            ct = np.where(te_p >= 0, plan.entry_color_tile[np.maximum(te_p, 0)], -1)
+            ctile = np.where(ct >= 0, ct, nct).astype(np.int32)
+        if ids.size and (ids.min() < 0 or ids.max() > num_tiles):
+            raise ValueError("bucket_rows: bucket tile id outside the framebuffer")
+        if ctile is not None and ctile.size and (ctile.min() < 0 or ctile.max() > nct):
+            raise ValueError("bucket_rows: colour-tile id out of range")
+        out["ids"].append(ids)
+        out["te"].append(te_p)
+        out["params"].append(build_bucket_aux(plan, te_b)[0])
+        out["ctile"].append(ctile)
+        out["flags"].append(tuple(bool(f) for f in flags))
+    out["flags"] = tuple(out["flags"])
+    return out
+
+
+def color_tiles_flat(plan: FramePlan):
     """The plan's colour tiles in K2's layout: they live on the OUTPUT
     domain, (NCT, TH//ss, TW, 4) -> (NCT+1, 4*NPX_OUT) channel-major plus
-    the zeros row that pad and untextured slots read."""
+    the zeros row that pad and untextured slots read.  Colour tiles the
+    device sampler left on a device (a tensor) stay there: the result is a
+    tensor on that device, built with no copy through the host; numpy
+    tiles give a numpy array."""
+    ct = plan.color_tiles
+    if isinstance(ct, torch.Tensor):
+        return flat_color_tiles(ct)
     npx_out = (plan.tile_h // plan.supersample) * plan.tile_w
-    ct = np.asarray(plan.color_tiles, np.float32)
+    ct = np.asarray(ct, np.float32)
     return np.concatenate([
         ct.transpose(0, 3, 1, 2).reshape(ct.shape[0], 4 * npx_out),
         np.zeros((1, 4 * npx_out), np.float32)])
+
+
+def flat_color_tiles(ct: torch.Tensor) -> torch.Tensor:
+    """(NCT, TH, TW, 4) colour tiles on a device -> (NCT+1, 4*TH*TW)
+    channel-major plus the zeros row, on the same device (the tensor form
+    of color_tiles_flat)."""
+    n = ct.shape[0]
+    flat = ct.new_zeros((n + 1, 4 * ct.shape[1] * ct.shape[2]))
+    flat[:n] = ct.permute(0, 3, 1, 2).reshape(n, -1)
+    return flat
 
 
 def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
@@ -218,7 +244,9 @@ def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
         d = {k: _put(v, device) for k, v in arrays.items()}
         d["bucket_flags"] = host["bucket_flags"]
     if profiler is not None:
-        profiler.count("upload_bytes", sum(x.nbytes for x in _leaves(arrays)))
+        # device-sampled colour tiles are already on the device
+        profiler.count("upload_bytes", sum(x.nbytes for x in _leaves(arrays)
+                                           if isinstance(x, np.ndarray)))
     return d
 
 

@@ -4,6 +4,8 @@ draw_small_scene is vgtpu's `__graft_entry__._build_small_scene`: gradient,
 solid fill + round stroke, a clip, an image-pattern fill (the texture lane)
 and, when a font is given, text.  draw_feature_scene turns on every lane.
 draw_resolve_scene adds what a supersampled frame's resolve split needs.
+draw_pattern_panels (over make_pattern_images) adds image-pattern panels
+to the 1080p frame for the device sampler.
 
 `vg` is the module whose vg:: surface draws them (vgtpu_torch by default),
 so tests can record the identical scene through vgtpu and the port."""
@@ -184,3 +186,44 @@ def draw_deep_tile_scene(ctx, font_data: bytes | None = None, vg=None) -> None:
         vg.lineTo(ctx, 4.0 + (i + 1) * w, 7.0)
     vg.closePath(ctx)
     vg.fillPath(ctx, vg.color4ub(60, 60, 200, 220), vg.FillFlags.ConcaveNonZeroAA)
+
+
+def make_pattern_images(ctx, seed: int = 20261016, vg=None) -> list:
+    """The images draw_pattern_panels fills with: five seeded 64x64 RGBA
+    images (random colour and alpha) in repeat and clamp modes with linear
+    and nearest filters, created once per context so that re-recorded
+    frames draw the same textures.  Returns (image handle, flags) pairs."""
+    if vg is None:
+        import vgtpu_torch as vg
+
+    F = vg.ImageFlags
+    rng = np.random.default_rng(seed)
+    out = []
+    for flags in (0, F.Clamp_UV, F.Filter_Nearest, F.Filter_Nearest | F.Clamp_UV, 0):
+        img = rng.integers(0, 256, (64, 64, 4), np.uint8)
+        out.append((vg.createImage(ctx, 64, 64, flags, img), flags))
+    return out
+
+
+def draw_pattern_panels(ctx, images, vg=None, x0: float = 1430.0,
+                        y0: float = 40.0) -> None:
+    """Image-pattern panels for the device sampler, right of the 1080p
+    benchmark frame's UI: four axis-aligned patterns (the separable
+    hat-weight products), one per (wrap, filter) pair of
+    make_pattern_images, each on a rounded 220x220 panel with the pattern
+    smaller than the panel (clamped edges and repeats both show), and a
+    disc filled with a rotated pattern (the gather fallback)."""
+    if vg is None:
+        import vgtpu_torch as vg
+
+    for i, (h, _flags) in enumerate(images[:4]):
+        x = x0 + (i % 2) * 240.0
+        y = y0 + (i // 2) * 240.0
+        p = vg.createImagePattern(ctx, x + 30.3, y + 20.15, 96.37 + 16 * i, 80.29, 0.0, h)
+        vg.beginPath(ctx)
+        vg.roundedRect(ctx, x, y, 220.0, 220.0, 12.0)
+        vg.fillPath(ctx, p, vg.color4ub(255, 255, 255, 230), vg.FillFlags.ConvexAA)
+    p = vg.createImagePattern(ctx, x0 + 120.0, y0 + 500.0, 120.0, 90.0, 0.35, images[4][0])
+    vg.beginPath(ctx)
+    vg.circle(ctx, x0 + 230.0, y0 + 720.0, 200.0)
+    vg.fillPath(ctx, p, vg.color4ub(255, 240, 220, 255), vg.FillFlags.ConvexAA)
