@@ -137,6 +137,21 @@ Phases (any failure raises and the process exits non-zero):
      on every bucket of the ss=2 scene and of the small resolve scene
      baked at ss = 2 and 4 (every lane held).  Each path's launch counts
      zeroed before and read after.
+  11. The cached-list app at 1920x1080, bench.py's two app patterns over
+     the tiger in a Cacheable command list with the demo UI drawn over it,
+     at ss = 1 and 2 (phase_11): the app frame (the list at a fixed
+     transform) against the same ops ended on the full path; the pan-layer
+     frame (the list under transformTranslate(2.5 k, 2 k): K1 + the fold
+     and K2 (a)/(d) for the pan tiles, the transparent static-UI overlay
+     blended over them, K1, K3 at ss=2 and K2 (b) for the suffix) after
+     PAN_APP_WARM frames against PAN_APP_COUNTS (vgtpu's counts on the
+     CPU), then at four offsets against a layer_memo=False context, each
+     within 1 u8 level; the last frame's pan tiles and frame against
+     render_tiles(use_pallas=False) and execute_plan_torch over the twin
+     tiles (K2_BOUND, 1 u8 level: the fold is atomic); per setting
+     end()'s host ms, the steady frame's ms (CUDA events), busy share and
+     launches (torch.profiler) and its host-side waits (must be none).  11b. diff.render_edges on the card
+     against the CPU at 64x64, the image and loss.backward()'s gradients.
   6. Times (CUDA events, median of 12 runs after warm-up): the steady frame
      from resident arrays at ss=1 and ss=2, K1, K2 (each form) and K3 beside
      their plain twins; each kernel's device time per steady frame and the
@@ -171,7 +186,8 @@ Phases (any failure raises and the process exits non-zero):
      frame, one render's host ms from call to return, the bake's host ms,
      and the CPU trace of 5 pan frames (no host-side wait); the textures
      stage of [10a].
-     Phase 6 runs after phases 7, 8, 10a and 10b, whose contexts it times.
+     Phase 6 runs after phases 7, 8, 10a, 10b and 11, whose contexts it
+     times.
   9. Cold start (vgtpu_torch.utils.cold_probe): torch's context and first
      cuBLAS call, K8's load and first launch, and the first 1080p frame,
      each in a fresh process with jax blocked, after phase 2 has built the
@@ -187,6 +203,7 @@ and K2's launches include the pan's) and the contract line
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -227,6 +244,39 @@ K2_BOUND = 1e-4
 # a full sub-pixel, but kernel and twin round identically (K1 measured 0.0).
 K3_BOUND = 2e-3
 U8_BOUND = 1          # images: at most 1 u8 level after image_to_u8
+# [11]'s pan-layer pieces vs their twins, both folded in one fixed order
+# (deterministic_fold): the same roundings, so 0.0 is expected.  With CUDA's
+# atomic fold they read 1.8e-7 to 2.4e-7 on an H100 and could flip one u8
+# level; 2e-6 is about 8 times that reading.
+PIECES_BOUND = 2e-6
+# [11] bench.py's cached-list app: 8 warm pan-layer frames (cache build,
+# first cached replay, the moved replay that asks for the bake, the bake,
+# then the static-UI overlay settling), then these layer counters, which
+# vgtpu's run of the same frames gives on the CPU
+# (tests/test_torch_pan_app.py holds both packages to them)
+PAN_APP_WARM = 8
+PAN_APP_COUNTS = {"layer_cl_hits": 5, "layer_cl_bakes": 1, "layer_bakes": 1}
+
+
+@contextlib.contextmanager
+def deterministic_fold():
+    """torch's deterministic algorithms inside the block: CUDA's index_add_
+    (the chunk -> entry fold) then sums in a fixed order instead of with
+    atomics, so two routes that fold equal coverage give equal sums.  Memory
+    torch leaves uninitialised stays so, as outside the block."""
+    import torch
+    import torch.utils.deterministic as det
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
 
 
 def u8_levels(a, b) -> int:
@@ -649,7 +699,7 @@ def phase_10b(vg, card, zero_counts, read_counts, check_path) -> dict:
         zero_counts()
         imgs = [s.render(*v) for v in PAN_VIEWS]
         counts = read_counts()
-        twins = [s.render(*v, plain=True) for v in PAN_VIEWS]
+        twins = [s.render(*v, use_pallas=False) for v in PAN_VIEWS]
         err = max(float((a - b).abs().max()) for a, b in zip(imgs, twins))
         lv = max(u8_levels(a, b) for a, b in zip(imgs, twins))
         print(f"[10b] pan {label}: {len(PAN_VIEWS)} views {PAN_VIEWS}, max|render - "
@@ -690,7 +740,7 @@ def phase_10b(vg, card, zero_counts, read_counts, check_path) -> dict:
     zero_counts()
     img48 = s48.render(*view)
     counts = read_counts()
-    err48 = float((img48 - s48.render(*view, plain=True)).abs().max())
+    err48 = float((img48 - s48.render(*view, use_pallas=False)).abs().max())
     print(f"[10b] chunk_pools=(2, 8, 48): pools "
           f"{[tuple(ce.shape[:2]) for ce, _ in s48.plan.chunk_pools]}; max|render - "
           f"plain twins| = {err48:.3e}")
@@ -716,6 +766,240 @@ def phase_10b(vg, card, zero_counts, read_counts, check_path) -> dict:
     if lanes != set(range(7)) or {ss for ss, _fl in flags_held} != {2, 4}:
         raise AssertionError(f"[10b] the pan buckets left lanes out: {sorted(flags_held)}")
     return {"scenes": scenes, "bake_ms": bake_ms}
+
+
+def tiger_list(vg, ctx, draw_tiger):
+    """bench.py's app artwork: the tiger recorded in a Cacheable command
+    list (draw_tiger(ctx, 20, 60, 1.06))."""
+    cl = vg.createCommandList(ctx, vg.CommandListFlags.Cacheable)
+    vg.beginCommandList(ctx, cl)
+    draw_tiger(ctx, 20, 60, 1.06)
+    vg.endCommandList(ctx)
+    return cl
+
+
+def app_frame_cl(vg, ctx, cl, draw_ui, k, dpr=1.0, end=True):
+    """bench.py's app frame k (:311-325): the list submitted at a fixed
+    transform (the op-list memo and the incremental rebin), the demo UI
+    (draw_ui, scenes.demo_ui.draw_demo_ui) drawn over it.  end=False
+    records the frame and leaves end() to the caller."""
+    vg.begin(ctx, 0, 1920, 1080, dpr)
+    vg.submitCommandList(ctx, cl)
+    draw_ui(ctx, 0.3 + 0.05 * k)
+    return vg.end(ctx, background=BG_APP) if end else None
+
+
+def pan_app_frame(vg, ctx, cl, draw_ui, k, dpr=1.0, end=True):
+    """bench.py's pan_diag frame k (:362-389): the list under
+    transformTranslate(2.5 k, 2 k) (a translated cached-list layer once it
+    moves), the demo UI over it cycling over 0.3 + 0.05 (k mod 4)."""
+    vg.begin(ctx, 0, 1920, 1080, dpr)
+    vg.pushState(ctx)
+    vg.transformTranslate(ctx, 2.5 * k, 2 * k)
+    vg.submitCommandList(ctx, cl)
+    vg.popState(ctx)
+    draw_ui(ctx, 0.3 + 0.05 * (k % 4))
+    return vg.end(ctx, background=BG_APP) if end else None
+
+
+def phase_11(vg, card, zero_counts, read_counts, check_path) -> dict:
+    """[11] bench.py's cached-list app at full width (1920x1080 at dpr 1):
+    the tiger in a Cacheable command list with the demo UI over it.
+
+    The app frame (the list at a fixed transform: op-list memo, layer memo)
+    is held to the same ops ended on the full path (frame_memo=False), the
+    pan-layer frame (the
+    list under a moving translation: the translated cached-list layer with
+    the static UI as a transparent overlay) after PAN_APP_WARM frames to
+    PAN_APP_COUNTS and, at four offsets (two fractional in x), to a context
+    with layer_memo=False, each within U8_BOUND, at ss = 1 and 2.  One
+    pan-layer frame's pieces are held to their twins: the pan tiles to
+    render_tiles(use_pallas=False), the frame to execute_plan_torch over the
+    twin tiles blended with the overlay, both routes folded in one fixed
+    order (deterministic_fold), within PIECES_BOUND and 0 u8 levels.  For
+    each setting:
+    end()'s host ms (median of 5), the steady frame's dispatch (what end()
+    runs on the resident plan) in ms with CUDA events, its device busy share
+    and launches (torch.profiler, 10 frames), and its host-side waits, which
+    must be none; a whole frame's waits (the upload included) are printed."""
+    import torch
+
+    from vgtpu_torch.raster.frame import execute_plan_torch
+    from vgtpu_torch.raster.retained import PendingPanLayer, _blend_over_tiles
+    from vgtpu_torch.scenes.demo_ui import draw_demo_ui
+    from vgtpu_torch.scenes.tiger import draw_tiger
+
+    def app(c, cl, k, end=True):
+        return app_frame_cl(vg, c, cl, draw_demo_ui, k, end=end)
+
+    def pan(c, cl, k, end=True):
+        return pan_app_frame(vg, c, cl, draw_demo_ui, k, end=end)
+
+    out = {}
+
+    def end_ms(c, record):
+        """Host ms of vg.end() alone, median of 5 frames record(i)."""
+        ts = []
+        for i in range(5):
+            record(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vg.end(c, background=BG_APP)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    def times(tag, c, record):
+        """The setting's numbers; c holds a steady frame's resident plan."""
+        ms_end = end_ms(c, record)
+        frame = [0]
+
+        def whole():                  # frames 5, 6, ... after end_ms's 0-4
+            frame[0] += 1
+            record(4 + frame[0])
+            vg.end(c, background=BG_APP)
+
+        dispatch = lambda: c._maybe_dispatch(c.profiler, True)   # noqa: E731
+        zero_counts()
+        dispatch()
+        per_frame = read_counts()
+        ms = time_ms(dispatch)
+        by, calls, busy, window = device_breakdown(dispatch)
+        waits = host_waits(dispatch)
+        whole_waits = host_waits(whole)
+        r = {"end_ms": ms_end, "frame_ms": ms, "busy_ms": busy, "device_ms": by,
+             "window_ms": window, "device_events": sum(calls.values()),
+             "launch_events": waits["launch_events"] / 5,
+             "kernels": {k: v for k, v in per_frame.items() if v},
+             "waits": waits["waits"], "whole_frame_waits": whole_waits["waits"]}
+        print(f"[11] {tag}: end() {ms_end:.3f} ms host (median of 5); steady frame "
+              f"{ms:.4f} ms (CUDA events, median of 12); device busy {busy:.4f} of "
+              f"{window:.4f} ms ({100 * busy / window:.1f}% busy; torch.profiler, 10 "
+              f"frames); {r['launch_events']:g} kernel launches and "
+              f"{r['device_events']:g} device events per frame, ours {r['kernels']}; "
+              f"host-side waits {waits['waits']} (a whole frame, upload included: "
+              f"{whole_waits['waits']}); {card}")
+        print(f"[11]    device ms per frame: " + ", ".join(
+            f"{key} {v:.4f}" for key, v in sorted(by.items(), key=lambda kv: -kv[1])
+        )[:600])
+        if waits["waits"]:
+            raise AssertionError(f"[11] the steady {tag} frame waits on the host: "
+                                 f"{waits}")
+        out[tag] = r
+
+    for ss in (1, 2):
+        cfg = vg.ContextConfig(coverage_supersample=ss)
+        # -- the app frame: bench.py's app pattern
+        c = vg.createContext(cfg, device="cuda")
+        cl = tiger_list(vg, c, draw_tiger)
+        for k in range(6):            # cache build, memo capture, layer bake
+            app(c, cl, k)
+        # the reference ends the same ops on the full path (frame_memo=False:
+        # no frame, paint or layer memo); the same list, since a draw
+        # recorded in a list never merges with its neighbours, which changes
+        # overlapping translucent fills (vgtpu's semantics too)
+        ref = vg.createContext(vg.ContextConfig(coverage_supersample=ss,
+                                                frame_memo=False), device="cuda")
+        ref_cl = tiger_list(vg, ref, draw_tiger)
+        zero_counts()
+        imgs = [app(c, cl, k) for k in (6, 7)]
+        counts = read_counts()
+        refs = [app(ref, ref_cl, k) for k in (6, 7)]
+        n = c.profiler.counters
+        print(f"[11] app ss={ss}: layer_hits {n.get('layer_hits', 0)} layer_bakes "
+              f"{n.get('layer_bakes', 0)}, prefix {c._layer_used} of {len(c.ops)} ops")
+        check_path(f"cached-list app ss={ss}", counts, ("K1", "K2"),
+                   list(zip(imgs, refs)), tag="[11]")
+        times(f"app frame ss={ss}",
+              c, lambda i: app(c, cl, 6 + i % 2, end=False))
+        del c, ref, imgs, refs
+
+        # -- the pan-layer frame: bench.py's pan_diag pattern
+        c = vg.createContext(cfg, device="cuda")
+        cl = tiger_list(vg, c, draw_tiger)
+        for k in range(PAN_APP_WARM):
+            pan(c, cl, k)
+        n = c.profiler.counters
+        got = {k: n.get(k, 0) for k in PAN_APP_COUNTS}
+        print(f"[11] pan ss={ss}: after {PAN_APP_WARM} frames {got} (vgtpu's on the "
+              f"CPU: {PAN_APP_COUNTS})")
+        if got != PAN_APP_COUNTS:
+            raise AssertionError(f"[11] pan ss={ss}: {dict(n)}")
+        held = (8, 9, 10, 11)          # offsets (20, 16), (22.5, 18), ...
+        zero_counts()
+        imgs = [pan(c, cl, k) for k in held]
+        counts = read_counts()
+        lr = c._layer_render
+        if not isinstance(lr, PendingPanLayer) or lr.over_tiles is None:
+            raise AssertionError(f"[11] pan ss={ss}: the frame's layer is {lr!r}")
+        ref = vg.createContext(vg.ContextConfig(coverage_supersample=ss,
+                                                layer_memo=False), device="cuda")
+        ref_cl = tiger_list(vg, ref, draw_tiger)
+        refs = [pan(ref, ref_cl, k) for k in held]
+        need = ("K1", "K2", "K2 (b)") + (("K3", "K2 (d)") if ss > 1 else ("K2 (a)",))
+        check_path(f"cached-list pan ss={ss}", counts, need, list(zip(imgs, refs)),
+                   tag="[11]")
+        # the last frame's pieces against their twins on the same inputs,
+        # both folded in one fixed order
+        sc = lr.scene
+        with deterministic_fold():
+            t_k = sc.render_tiles(*lr.view, lr.background)
+            t_p = sc.render_tiles(*lr.view, lr.background, use_pallas=False)
+            f_k = lr.execute_over(c.last_plan, c.last_device_arrays, c.background)
+            twin = execute_plan_torch(c.last_plan, BG_APP,
+                                      device_arrays=c.last_device_arrays,
+                                      init_tiles=_blend_over_tiles(lr.over_tiles, t_p))
+        e_t, e_f = float((t_k - t_p).abs().max()), float((f_k - twin).abs().max())
+        lv = max(u8_levels(t_k, t_p), u8_levels(f_k, twin))
+        print(f"[11] pan ss={ss} pieces vs twins at view {lr.view}, fixed fold order: "
+              f"tiles max|diff| {e_t:.3e}, frame max|diff| {e_f:.3e} (bound "
+              f"{PIECES_BOUND:.0e}), {lv} u8 levels (bound 0); overlay "
+              f"{tuple(lr.over_tiles.shape)}; the frame against end()'s (atomic "
+              f"fold) {float((f_k - imgs[-1]).abs().max()):.3e}")
+        if not (e_t <= PIECES_BOUND and e_f <= PIECES_BOUND and lv == 0):
+            raise AssertionError(f"[11] pan ss={ss} pieces are off their twins")
+        times(f"pan-layer frame ss={ss}",
+              c, lambda i: pan(c, cl, 12 + i, end=False))
+        del c, ref, imgs, refs, f_k, twin
+    return out
+
+
+def phase_11b(card) -> dict:
+    """[11b] diff.render_edges on the card against the CPU at 64x64: the
+    image and, through loss.backward(), the gradients with respect to the
+    shapes' vertices and colours (within 1e-4)."""
+    import torch
+
+    from vgtpu_torch.diff import polygon_edges, render_edges
+
+    rng = np.random.default_rng(SEED)
+    ang = np.linspace(0.0, 2.0 * np.pi, 7)[:-1]
+    shapes = [np.stack([cx + r * np.cos(ang + a), cy + r * np.sin(ang + a)], 1)
+              for cx, cy, r, a in ((20, 24, 14, 0.2), (40, 36, 18, 0.9),
+                                   (30, 30, 9, 1.7))]
+    cols = rng.uniform(0.2, 1.0, (3, 4))
+    w = rng.uniform(size=(64, 64, 4))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        pts = [torch.tensor(p, dtype=torch.float32, device=dev, requires_grad=True)
+               for p in shapes]
+        c = torch.tensor(cols, dtype=torch.float32, device=dev, requires_grad=True)
+        ids = torch.repeat_interleave(torch.arange(3, device=dev), 6)
+        img = render_edges(torch.cat([polygon_edges(p) for p in pts]), c, ids, 64, 64,
+                           background=torch.tensor([0.1, 0.1, 0.1, 1.0], device=dev))
+        loss = (img * torch.tensor(w, dtype=torch.float32, device=dev)).sum()
+        loss.backward()
+        res[dev] = [img.detach().cpu()] + [p.grad.cpu() for p in pts] + [c.grad.cpu()]
+    finite = all(bool(torch.isfinite(t).all()) for t in res["cuda"])
+    e_img = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+    e_grad = max(float((a - b).abs().max()) for a, b in zip(res["cuda"][1:],
+                                                           res["cpu"][1:]))
+    g_max = max(float(t.abs().max()) for t in res["cpu"][1:])
+    print(f"[11b] render_edges 64x64 on the card vs the CPU: image max|diff| "
+          f"{e_img:.3e}, gradients max|diff| {e_grad:.3e} (largest {g_max:.3f}, bound "
+          f"1e-4), finite {finite} ({card})")
+    if not (finite and e_img <= 1e-5 and e_grad <= 1e-4):
+        raise AssertionError("[11b] render_edges on the card is off the CPU")
+    return {"img_err": e_img, "grad_err": e_grad}
 
 
 def card_line() -> str:
@@ -2009,6 +2293,12 @@ def main() -> int:
     pan = phase_10b(vg, card, zero_counts, read_counts, check_path)
     stamp("[10b]")
 
+    # ---- 11. the cached-list app; 11b. render_edges ------------------------
+    phase_11(vg, card, zero_counts, read_counts, check_path)
+    stamp("[11]")
+    phase_11b(card)
+    stamp("[11b]")
+
     # ---- 6. times -------------------------------------------------------
     pl, dv = ctx.last_plan, ctx.last_device_arrays
     nt = pl.ntx * pl.nty
@@ -2580,7 +2870,7 @@ def main() -> int:
     def entry(name, key, source, replaces, err, t, t_plain, tag, dev_keys,
               **extra):
         """One kernel's record: launches summed over the main paths' runs
-        (phases 4e, 4f, 5, 5b, 5c, 7, 8, 9, 10a and 10b), the bound from this run's
+        (phases 4e, 4f, 5, 5b, 5c, 7, 8, 9, 10a, 10b and 11), the bound from this run's
         shapes (for the coverage kernels the live count; [6] prints the
         dense one beside it), its launches per call of the run `tag` that times
         it (the wrapper's count), its device ms per call (torch.profiler's ms per recorded

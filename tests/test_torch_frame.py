@@ -1,6 +1,6 @@
 """The port end to end on the CPU: vg.end() of vgtpu_torch against vgtpu's on
-the same scene, the package importing with jax blocked, and the entry
-points that must refuse (no CUDA, unported features).
+the same scene, the package importing with jax blocked, the entry points
+that must refuse (no CUDA) and those that once refused (command lists).
 
 vgtpu renders through its XLA scan on the CPU and the port through the
 fused formulation; tests/test_composite_pallas.py shows the two agree to
@@ -133,6 +133,28 @@ def test_port_imports_and_renders_with_jax_blocked():
         "                           torch.ones((4096, 1)), tile_w=128, flags=(False,) * 7)\n"
         "assert fb.shape == (4096, 4)\n"
         "assert torch.equal(probe_affine(torch.ones(3)), torch.full((3,), 3.0))\n"
+        "from vgtpu_torch.api import command_list, standalone\n"
+        "from vgtpu_torch.helpers import vgpp\n"
+        "from vgtpu_torch import diff\n"
+        "from vgtpu_torch.ops import flatten\n"
+        "from vgtpu_torch.utils.profiler import trace_frame\n"
+        "ctx = vg.createContext(device='cpu')\n"
+        "cl = vg.createCommandList(ctx, vg.CommandListFlags.Cacheable)\n"
+        "vg.beginCommandList(ctx, cl); scene(ctx, (90, 90, 200)); vg.endCommandList(ctx)\n"
+        "for k in range(5):\n"
+        "    vg.begin(ctx, 0, 256, 128, 1.0); vg.pushState(ctx)\n"
+        "    vg.transformTranslate(ctx, 3 * k, 2 * k); vg.submitCommandList(ctx, cl)\n"
+        "    vg.popState(ctx); img = vg.end(ctx)\n"
+        "assert ctx.profiler.counters['layer_cl_hits'] == 2, dict(ctx.profiler.counters)\n"
+        "r = vgpp.Renderer(device='cpu'); r.begin_frame(64, 32)\n"
+        "assert r.end_frame().shape == (32, 64, 4)\n"
+        "m = vg.strokerConvexFill(vg.createStroker(), None, np.array([[0, 0], [8, 0], [8, 8]], np.float32), 3)\n"
+        "assert m.pos.shape == (3, 2)\n"
+        "e = diff.polygon_edges(torch.tensor([[2.0, 2.0], [12.0, 3.0], [6.0, 12.0]]))\n"
+        "img = diff.render_edges(e, torch.ones((1, 4)), torch.zeros(3, dtype=torch.long), 16, 16)\n"
+        "assert img.shape == (16, 16, 4) and float(img[..., 3].max()) == 1.0\n"
+        "cp = torch.tensor([[[0.0, 0.0], [10.0, 20.0], [20.0, -20.0], [30.0, 0.0]]])\n"
+        "assert flatten.flatten_cubics(cp, 0.5, max_n=16).shape == (1, 17, 2)\n"
         "bad = [m for m in sys.modules if m == 'vgtpu' or m.startswith('vgtpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -152,16 +174,45 @@ def test_create_context_without_cuda_raises(monkeypatch):
     assert vgt.createContext(device="cpu").device == torch.device("cpu")
 
 
+def _command_list_created(ctx):
+    h = vgt.createCommandList(ctx, 0)
+    assert h.idx in ctx.command_lists and vgt.isValid(h)
+
+
+def _cl_begin_path_recorded(ctx):
+    h = vgt.createCommandList(ctx, 0)
+    vgt.clBeginPath(ctx, h)
+    vgt.clRect(ctx, h, 8, 8, 16, 16)
+    vgt.clFillPath(ctx, h, vgt.Colors.White, vgt.FillFlags.ConvexAA)
+    assert [c[0] for c in ctx.command_lists[h.idx].commands] == [
+        "beginPath", "rect", "fillPath"]
+    assert not ctx.ops
+    vgt.submitCommandList(ctx, h)
+    assert len(ctx.ops) == 1
+
+
+def _pending_pan_layer_renders(ctx):
+    from vgtpu_torch.raster.retained import RetainedScene
+
+    vgt.beginPath(ctx)
+    vgt.rect(ctx, 8, 8, 16, 16)
+    vgt.fillPath(ctx, vgt.Colors.White, vgt.FillFlags.ConvexAA)
+    scene = RetainedScene.bake(ctx, background=(0.0, 0.0, 0.0, 1.0))
+    layer = PendingPanLayer(scene, (3, 2), (0.0, 0.0, 0.0, 1.0))
+    tiles = layer.materialize()
+    assert torch.equal(tiles, scene.render_tiles(3, 2, (0.0, 0.0, 0.0, 1.0)))
+
+
 @pytest.mark.parametrize("call", [
-    lambda ctx: vgt.createCommandList(ctx, 0),
-    lambda ctx: vgt.clBeginPath(ctx, None),
-    lambda ctx: PendingPanLayer(None, (0, 0), (1.0, 1.0, 1.0, 1.0)),
+    _command_list_created, _cl_begin_path_recorded, _pending_pan_layer_renders,
 ], ids=["createCommandList", "clBeginPath", "PendingPanLayer"])
 def test_unported_entry_points_raise(call):
+    """These entry points raised NotImplementedError until command lists
+    and the cached-list pan layer were ported; each case now checks that
+    the call works."""
     ctx = vgt.createContext(device="cpu")
     vgt.begin(ctx, 0, 64, 64, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(ctx)
+    call(ctx)
 
 
 def _ss_scene(ctx, vg, font_data):

@@ -6,8 +6,8 @@ against its XLA pan (render(use_pallas=False)), and at 2e-6 against its
 chunk-gather pan (render(use_pallas=True), Pallas in interpret mode), the
 formulation the port runs.  The cases mirror tests/test_retained.py
 (supersampled scenes and the fuzz cases: tests/test_torch_retained_ss.py),
-except the A/B cases on vgtpu's two unported pan formulations and the
-cached command-list replay (command lists are not ported)."""
+except the A/B cases on vgtpu's two unported pan formulations; the cached
+command-list replay is in tests/test_torch_layer_cl.py."""
 
 from __future__ import annotations
 
@@ -150,10 +150,29 @@ def test_pan_matches_vgtpu_chunk_gather_pan(pair):
 
 
 def test_plain_route_equals_dispatch_on_cpu(pair):
-    """render(plain=True) forces the plain twins; on the CPU the dispatchers
-    take them too, so the two are one computation."""
+    """render(use_pallas=False) forces the plain twins; on the CPU the
+    dispatchers take them too, so the two are one computation."""
     st, _sj = pair
-    assert torch.equal(st.render(37, 5), st.render(37, 5, plain=True))
+    assert torch.equal(st.render(37, 5), st.render(37, 5, use_pallas=False))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_keyword_is_accepted(pair, use_pallas):
+    """render, render_tiles and render_views take vgtpu's use_pallas: True
+    keeps the kernels' route, False takes the plain twins; on the CPU both
+    are the computation the calls without the keyword make."""
+    st, sj = pair
+    views = [(37, 5), (128.5, 8)]
+    for view in views:
+        assert torch.equal(st.render(*view, use_pallas=use_pallas),
+                           st.render(*view))
+        assert torch.equal(st.render_tiles(*view, BG, use_pallas=use_pallas),
+                           st.render_tiles(*view, BG))
+    assert torch.equal(st.render_views(views, use_pallas=use_pallas),
+                       st.render_views(views))
+    # vgtpu's own calls, same keyword
+    close(st.render(*views[0], use_pallas=use_pallas),
+          sj.render(*views[0], use_pallas=use_pallas), ATOL, views[0])
 
 
 def _scene_colored(ctx, vg, card, star, g0, g1, stroke):
@@ -490,11 +509,33 @@ def test_measure_pan_ms_per_frame_on_the_cpu(pair):
         measure_pan_ms_per_frame(st, reps_hi=1, reps_lo=1)
 
 
-@pytest.mark.parametrize("call", [_pan_frame_fused, _blend_over_tiles],
-                         ids=["_pan_frame_fused", "_blend_over_tiles"])
-def test_cached_list_pan_layer_is_not_ported(call):
-    with pytest.raises(NotImplementedError, match="command lists"):
-        call()
+def _layer_chain(st, view, over):
+    """_pan_frame_fused with an empty suffix plan: the panned tiles with
+    `over` blended on top, assembled into an image."""
+    ctx = vgt.createContext(device="cpu")
+    vgt.begin(ctx, 0, W, H, 1.0)
+    vgt.end(ctx, background=BG)
+    return _pan_frame_fused(st, st._offsets(*view), BG, ctx.last_plan,
+                            ctx.last_device_arrays, BG, over=over)
+
+
+@pytest.mark.parametrize("call", ["_pan_frame_fused", "_blend_over_tiles"])
+def test_cached_list_pan_layer_is_not_ported(pair, call):
+    """The cached-list pan layer's pieces, once unported stubs, now work:
+    the chain with no overlay equals render(); a blend over fully opaque
+    tiles keeps the overlay where it is opaque and the base where it is
+    clear."""
+    st, _sj = pair
+    view = (37, 5)
+    if call == "_pan_frame_fused":
+        close(_layer_chain(st, view, None), st.render(*view), 1e-6, view)
+        return
+    base = st.render_tiles(*view)
+    over = torch.zeros_like(base)
+    over[0::2] = torch.tensor([0.25, 0.5, 0.0, 1.0])
+    out = _blend_over_tiles(over, base)
+    assert torch.equal(out[0::2], over[0::2])
+    assert torch.equal(out[1::2], base[1::2])
 
 
 def test_nearest_texel_ties_pan_as_vgtpu_does():

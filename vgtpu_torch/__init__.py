@@ -57,6 +57,9 @@ from vgtpu_torch.api.context import (  # noqa: F401 (explicit for IDEs)
     GlyphPosition,
     isValid,
 )
+
+from vgtpu_torch.api.standalone import *  # noqa: F401,F403  (path.h/stroker.h seam)
+from vgtpu_torch.api.standalone import Mesh, Stroker, SubPath  # noqa: F401
 from vgtpu_torch.raster.batch import (  # noqa: F401
     VariantBatch,
     measure_batch_ms_per_frame,

@@ -5,8 +5,8 @@
 
 The reference dispatches through a function-pointer vtable that command-list
 recording swaps out (vg.cpp:292-338, 599-645); here the same seam is a
-`_sink` attribute.  Command-list recording is not ported yet (ROADMAP.md Q1),
-so the sink is always the context itself: draws append RasterOps to the frame.
+`_sink` attribute: direct mode appends RasterOps to the frame, recording mode
+appends serialized commands to the active CommandList (api/command_list.py).
 
 Frame model (reference: begin/end/frame, vg.cpp:1034-1328): begin() resets the
 frame op list; draw calls append ops; end() bins on the host, uploads the plan
@@ -15,7 +15,13 @@ to the context's torch device and runs the coverage + composite kernels
 memo (an identical re-record re-renders the resident plan), the paint memo
 (a values-only delta patches the resident paint rows in place) and the layer
 memo (a stable op prefix bakes once into resident tiles the suffix
-composites over, K2 form (b)).  end(dispatch=False) + renderFrames serve
+composites over, K2 form (b)).  A Cacheable command list re-submitted under
+a moving translation renders as a retained-scene layer
+(command_list._layer_submit, raster/retained.PendingPanLayer): its pan
+tiles, a transparent overlay of the static ops drawn above it and the
+suffix frame over both.  vgtpu's VGTPU_PAN_NO_OVERLAY switch is not ported:
+the overlay is always on under the layer-memo gate.  end(dispatch=False) +
+renderFrames serve
 several contexts back to back.  ContextConfig.device_sampling (default
 True, as in vgtpu) samples textures on the context's device
 (ops/sampling_device.py), with False the numpy sampler on the host;
@@ -80,6 +86,7 @@ from vgtpu_torch.raster.frame import (
     patch_bucket_paint,
     plan_to_device,
 )
+from vgtpu_torch.raster.retained import PendingPanLayer, RetainedScene
 
 
 # ---------------------------------------------------------------------------
@@ -208,13 +215,6 @@ class _Image:
     generation: int = 0
 
 
-def _unported(what: str, item: str):
-    """NotImplementedError for a vgtpu feature the port does not have yet,
-    naming its ROADMAP.md Q1 item."""
-    return NotImplementedError(
-        f"{what} is not ported to vgtpu_torch yet (ROADMAP.md Q1: {item})")
-
-
 class Context:
     def __init__(self, cfg: ContextConfig | None,
                  device: torch.device | str) -> None:
@@ -271,9 +271,16 @@ class Context:
         self._layer_render_bg = None  # the background _layer_render was baked on
         self._layer_used = 0         # prefix ops the resident plan omits
         self._suppress_layer = False  # VariantBatch records need full single plans
+        # translated cached-list layer (api/command_list._layer_submit)
+        self._pending_layer = None   # {"scene","view","token"}
+        self._layer_bake_note = None  # set by submit, resolved in the same call
+        self._layer_bake_req = None  # (cl, key, tx, ty, n_ops) -> end() bakes
 
-        # command lists (not ported: getStats reports an empty table)
+        # command lists
         self.command_lists: dict[int, object] = {}
+        self._next_cl_idx = 0
+        self._active_cl = None       # beginCommandList/endCommandList redirection
+        self._submit_depth = 0
 
         # text
         self.fonts: list[object] = []
@@ -291,9 +298,8 @@ class Context:
         return self.state_stack[-1]
 
     def _sink(self):
-        """Direct-or-recording dispatch (the reference's vtable swap); always
-        direct until command lists are ported."""
-        return None
+        """Direct-or-recording dispatch (the reference's vtable swap)."""
+        return self._active_cl
 
     # -- frame lifecycle ----------------------------------------------------
     def begin(self, view_id: int, w: int, h: int, dpr: float = 1.0) -> None:
@@ -314,9 +320,14 @@ class Context:
         self.gradients = []
         self.image_patterns = []
         self._recording_clip = False
+        self._submit_depth = 0
+        self._active_cl = None
         self._block_merge_once = False
         self._path_xf = None
         self._frame_prepared = False   # set by end(); renderFrames guard
+        self._pending_layer = None     # translated cached-list layer
+        self._layer_bake_note = None
+        self._layer_bake_req = None
 
     def end(self, background=None, dispatch=True):
         """Bin + execute the frame on the context's device; returns the
@@ -367,8 +378,29 @@ class Context:
         with prof.stage("finalize"):
             self._finalize_ops()
         layer = None
-        if (self.cfg.layer_memo and self.cfg.frame_memo
-                and not self._suppress_layer):
+        req, self._layer_bake_req = self._layer_bake_req, None
+        if req is not None:
+            # a Cacheable list started MOVING (translation-only delta):
+            # bake its op range as a retained scene for future submits
+            with prof.stage("layer"):
+                self._layer_cl_bake(req)
+        if self._pending_layer is not None:
+            pend = self._pending_layer
+            with prof.stage("layer"):
+                # lazy: the pan renders inside the frame's dispatch
+                # (retained._pan_frame_fused).  The static prefix of the
+                # ops ABOVE the panned list (fixed UI chrome) bakes as a
+                # transparent floating layer blended over the pan tiles,
+                # so only the truly dynamic suffix re-bins per frame.
+                split = None
+                if (self.cfg.layer_memo and self.cfg.frame_memo
+                        and not self._suppress_layer):
+                    split = self._layer_split(transparent=True)
+                layer = (split[0] if split else 0, PendingPanLayer(
+                    pend["scene"], pend["view"], tuple(self.background),
+                    over_tiles=split[1] if split else None))
+        elif (self.cfg.layer_memo and self.cfg.frame_memo
+              and not self._suppress_layer):
             with prof.stage("layer"):
                 layer = self._layer_split()
         ops_binned = self.ops[layer[0]:] if layer else self.ops
@@ -412,14 +444,20 @@ class Context:
         leave frame_image None when the caller defers to renderFrames)."""
         if dispatch:
             with prof.stage("device_dispatch"):
-                self.frame_image = execute_plan(
-                    self.last_plan, background=self.background,
-                    device_arrays=self.last_device_arrays,
-                    init_tiles=self._layer_render)
+                lr = self._layer_render
+                if isinstance(lr, PendingPanLayer):
+                    self.frame_image = lr.execute_over(
+                        self.last_plan, self.last_device_arrays,
+                        self.background)
+                else:
+                    self.frame_image = execute_plan(
+                        self.last_plan, background=self.background,
+                        device_arrays=self.last_device_arrays,
+                        init_tiles=lr)
         else:
             self.frame_image = None
 
-    def _layer_split(self):
+    def _layer_split(self, transparent: bool = False):
         """Static-prefix layer memo: the device-resident analogue of the
         reference's cached-list replay (clCacheRender, vg.cpp:5845-6120).
         When the leading run of ops is bit-identical across frames, the
@@ -428,6 +466,13 @@ class Context:
         (execute_plan init_tiles, K2 form (b)).  Pixel-exact: painter's
         order makes fb-after-prefix a true checkpoint, and per-op coverage is
         independent of other ops.
+
+        transparent=True bakes the prefix over a TRANSPARENT background: the
+        floating-layer form used when the frame already has a moving base
+        underneath (the translated cached-list pan).  src-over is
+        associative, so (static over pan(list) over bg) composites exactly
+        as the baked static tiles blended over the per-frame pan tiles
+        (PendingPanLayer.over_tiles).
 
         Returns (prefix_len, tiles) or None.  The cut never crosses an
         active clip (suffix frames start with an identity mask)."""
@@ -440,7 +485,8 @@ class Context:
                      if self.font_system is not None else -1)
         meta = (self.fb_width, self.fb_height, self.cfg.coverage_supersample,
                 self.cfg.tile_h, self.cfg.tile_w, tuple(self.cfg.chunk_pools),
-                tuple(self.background), tex_sig, atlas_rev)
+                "transparent" if transparent else tuple(self.background),
+                tex_sig, atlas_rev)
         min_prefix = self.cfg.layer_min_prefix
         if len(ops) <= min_prefix:
             self._layer_prev = None
@@ -473,13 +519,34 @@ class Context:
             depth_cap=self.cfg.max_ops_per_tile_cap,
         )
         self._fill_textures(lplan, ops=ops[:P])
+        bake_bg = (0.0, 0.0, 0.0, 0.0) if transparent else self.background
         tiles = execute_plan_tiles(
-            lplan, background=self.background,
+            lplan, background=bake_bg,
             device_arrays=plan_to_device(lplan, self.device))
         self._layer_state = {"meta": meta, "keys": keys[:P], "len": P,
                              "tiles": tiles}
         self.profiler.count("layer_bakes", 1)
         return P, tiles
+
+    def _layer_cl_bake(self, req) -> None:
+        """Bake a Cacheable command list's just-replayed op range as a
+        retained scene (api/command_list._layer_submit scheduled it when the
+        list's translation started moving).  Ops are finalized by the
+        caller.  An open clip across the list's end skips the bake, and the
+        list keeps the host replay path."""
+        cl, key, tx, ty, n = req
+        ops = self.ops[:n]
+        if n == 0 or len(self.ops) < n:
+            return
+        if self._layer_clean_cut(ops, n) != n:
+            return   # an open clip crosses the list boundary
+        scene = RetainedScene.bake(self, background=self.background,
+                                   ops=list(ops))
+        gen = getattr(cl, "_layer_gen", 0) + 1
+        cl._layer_gen = gen
+        cl._layer_scene = {"key": key, "tx": tx, "ty": ty, "scene": scene,
+                           "gen": gen}
+        self.profiler.count("layer_cl_bakes", 1)
 
     @staticmethod
     def _layer_clean_cut(ops, P: int) -> int:
@@ -581,6 +648,10 @@ class Context:
         # ride each op's signature: no global image table is hashed
         if self.font_system is not None:
             parts.append(self.font_system.atlas.revision)
+        if self._pending_layer is not None:
+            # translated cached-list layer: the frame's pixels depend on the
+            # scene identity + view offset (the list's ops are NOT in ops)
+            parts.append(self._pending_layer["token"])
         return (hash(tuple(parts)), tuple(paint_sig), tuple(tex_sig))
 
     @staticmethod
@@ -1673,7 +1744,9 @@ def renderFrames(ctxs, backgrounds=None):
     t0 = time.perf_counter()
     imgs = tuple(
         execute_plan(c.last_plan, bg, device_arrays=c.last_device_arrays,
-                     init_tiles=c._layer_render)
+                     init_tiles=(c._layer_render.materialize()
+                                 if isinstance(c._layer_render, PendingPanLayer)
+                                 else c._layer_render))
         for c, bg in zip(ctxs, backgrounds))
     dt = (time.perf_counter() - t0) * 1e3
     for c, img in zip(ctxs, imgs):
@@ -1937,33 +2010,272 @@ def textGlyphPositions(ctx, cfg, x, y, s, end=None, max_positions=None):
     return ctx_text_glyph_positions(ctx, cfg, x, y, s if end is None else s[:end], max_positions)
 
 
-# -- command lists: not ported yet; every entry point raises ----------------
+# -- command lists (api/command_list.py) ------------------------------
 
-def _command_list_stub(name: str):
-    def stub(*_args, **_kwargs):
-        raise _unported(f"vg.{name}", "command lists")
+def createCommandList(ctx, flags):
+    from vgtpu_torch.api.command_list import cl_create
 
-    stub.__name__ = stub.__qualname__ = name
-    stub.__doc__ = f"vg::{name}: command lists are not ported yet."
-    return stub
+    return cl_create(ctx, flags)
 
 
-_COMMAND_LIST_API = (
-    "createCommandList", "destroyCommandList", "clReset", "saveCommandList",
-    "loadCommandList", "resetCommandList", "submitCommandList",
-    "beginCommandList", "endCommandList", "makeCommandListRef",
-    "clBeginPath", "clMoveTo", "clLineTo", "clCubicTo", "clQuadraticTo",
-    "clArcTo", "clArc", "clRect", "clRoundedRect", "clRoundedRectVarying",
-    "clCircle", "clEllipse", "clPolyline", "clClosePath", "clFillPath",
-    "clStrokePath", "clBeginClip", "clEndClip", "clResetClip",
-    "clCreateLinearGradient", "clCreateBoxGradient", "clCreateRadialGradient",
-    "clCreateImagePattern", "clPushState", "clPopState", "clResetScissor",
-    "clSetScissor", "clIntersectScissor", "clTransformIdentity",
-    "clTransformScale", "clTransformTranslate", "clTransformRotate",
-    "clTransformMult", "clSetViewBox", "clSetGlobalAlpha", "clText",
-    "clTextBox", "clIndexedTriList", "clSubmitCommandList",
-)
-globals().update({_n: _command_list_stub(_n) for _n in _COMMAND_LIST_API})
+def destroyCommandList(ctx, handle):
+    from vgtpu_torch.api.command_list import cl_destroy
+
+    cl_destroy(ctx, handle)
+
+
+def clReset(ctx, handle):
+    """vg.h alias for resetCommandList."""
+    return resetCommandList(ctx, handle)
+
+
+def saveCommandList(ctx, handle, path) -> bool:
+    """Serialize a command list (+ its tessellation cache) to disk — the
+    checkpoint/resume analogue of the reference's retained byte stream
+    (vg.cpp:2323-2966) and shape cache (:5674-6211), which are
+    memory-resident only.  See command_list.cl_save for the format contract."""
+    from vgtpu_torch.api.command_list import cl_save
+
+    return cl_save(ctx, handle, path)
+
+
+def loadCommandList(ctx, path):
+    """Restore a command list saved by saveCommandList; returns a handle."""
+    from vgtpu_torch.api.command_list import cl_load
+
+    return cl_load(ctx, path)
+
+
+def resetCommandList(ctx, handle):
+    from vgtpu_torch.api.command_list import cl_reset
+
+    cl_reset(ctx, handle)
+
+
+def submitCommandList(ctx, handle):
+    from vgtpu_torch.api.command_list import cl_submit
+
+    sink = ctx._sink()
+    if sink is not None:
+        sink.submitCommandList(handle)   # record nested submit (vg.cpp:1704)
+    else:
+        cl_submit(ctx, handle)
+
+
+def beginCommandList(ctx, handle):
+    from vgtpu_torch.api.command_list import cl_begin_recording
+
+    cl_begin_recording(ctx, handle)
+
+
+def endCommandList(ctx):
+    from vgtpu_torch.api.command_list import cl_end_recording
+
+    cl_end_recording(ctx)
+
+
+# ---------------------------------------------------------------------------
+# Direct command-list recording API (vg.h:495-541): record into a specific
+# list without making it active — the clXXX function family.
+# ---------------------------------------------------------------------------
+
+def _cl(ctx, handle):
+    cl = ctx.command_lists.get(handle.idx)
+    if cl is None:
+        raise ValueError("invalid command list handle")
+    return cl
+
+
+def clBeginPath(ctx, handle):
+    _cl(ctx, handle).beginPath()
+
+
+def clMoveTo(ctx, handle, x, y):
+    _cl(ctx, handle).moveTo(x, y)
+
+
+def clLineTo(ctx, handle, x, y):
+    _cl(ctx, handle).lineTo(x, y)
+
+
+def clCubicTo(ctx, handle, c1x, c1y, c2x, c2y, x, y):
+    _cl(ctx, handle).cubicTo(c1x, c1y, c2x, c2y, x, y)
+
+
+def clQuadraticTo(ctx, handle, cx, cy, x, y):
+    _cl(ctx, handle).quadraticTo(cx, cy, x, y)
+
+
+def clArcTo(ctx, handle, x1, y1, x2, y2, r):
+    _cl(ctx, handle).arcTo(x1, y1, x2, y2, r)
+
+
+def clArc(ctx, handle, cx, cy, r, a0, a1, direction):
+    _cl(ctx, handle).arc(cx, cy, r, a0, a1, direction)
+
+
+def clRect(ctx, handle, x, y, w, h):
+    _cl(ctx, handle).rect(x, y, w, h)
+
+
+def clRoundedRect(ctx, handle, x, y, w, h, r):
+    _cl(ctx, handle).roundedRect(x, y, w, h, r)
+
+
+def clRoundedRectVarying(ctx, handle, x, y, w, h, rtl, rtr, rbr, rbl):
+    _cl(ctx, handle).roundedRectVarying(x, y, w, h, rtl, rtr, rbr, rbl)
+
+
+def clCircle(ctx, handle, cx, cy, r):
+    _cl(ctx, handle).circle(cx, cy, r)
+
+
+def clEllipse(ctx, handle, cx, cy, rx, ry):
+    _cl(ctx, handle).ellipse(cx, cy, rx, ry)
+
+
+def clPolyline(ctx, handle, coords, num_points=None):
+    _cl(ctx, handle).polyline(coords)
+
+
+def clClosePath(ctx, handle):
+    _cl(ctx, handle).closePath()
+
+
+def clFillPath(ctx, handle, paint_or_color, *args):
+    if isinstance(paint_or_color, ImagePatternHandle):
+        color_mod, flags = args
+        _cl(ctx, handle).fillPath(paint_or_color, flags, color_modulate=color_mod)
+    else:
+        (flags,) = args
+        _cl(ctx, handle).fillPath(paint_or_color, flags)
+
+
+def clStrokePath(ctx, handle, paint_or_color, *args):
+    if isinstance(paint_or_color, ImagePatternHandle):
+        color_mod, width, flags = args
+        _cl(ctx, handle).strokePath(paint_or_color, width, flags, color_modulate=color_mod)
+    else:
+        width, flags = args
+        _cl(ctx, handle).strokePath(paint_or_color, width, flags)
+
+
+def clBeginClip(ctx, handle, rule):
+    _cl(ctx, handle).beginClip(rule)
+
+
+def clEndClip(ctx, handle):
+    _cl(ctx, handle).endClip()
+
+
+def clResetClip(ctx, handle):
+    _cl(ctx, handle).resetClip()
+
+
+def clCreateLinearGradient(ctx, handle, sx, sy, ex, ey, icol, ocol):
+    return _cl(ctx, handle).createLinearGradient(sx, sy, ex, ey, icol, ocol)
+
+
+def clCreateBoxGradient(ctx, handle, x, y, w, h, r, f, icol, ocol):
+    return _cl(ctx, handle).createBoxGradient(x, y, w, h, r, f, icol, ocol)
+
+
+def clCreateRadialGradient(ctx, handle, cx, cy, inr, outr, icol, ocol):
+    return _cl(ctx, handle).createRadialGradient(cx, cy, inr, outr, icol, ocol)
+
+
+def clCreateImagePattern(ctx, handle, cx, cy, w, h, angle, image):
+    return _cl(ctx, handle).createImagePattern(cx, cy, w, h, angle, image)
+
+
+def clPushState(ctx, handle):
+    _cl(ctx, handle).pushState()
+
+
+def clPopState(ctx, handle):
+    _cl(ctx, handle).popState()
+
+
+def clResetScissor(ctx, handle):
+    _cl(ctx, handle).resetScissor()
+
+
+def clSetScissor(ctx, handle, x, y, w, h):
+    _cl(ctx, handle).setScissor(x, y, w, h)
+
+
+def clIntersectScissor(ctx, handle, x, y, w, h):
+    _cl(ctx, handle).intersectScissor(x, y, w, h)
+
+
+def clTransformIdentity(ctx, handle):
+    _cl(ctx, handle).transformIdentity()
+
+
+def clTransformScale(ctx, handle, x, y):
+    _cl(ctx, handle).transformScale(x, y)
+
+
+def clTransformTranslate(ctx, handle, x, y):
+    _cl(ctx, handle).transformTranslate(x, y)
+
+
+def clTransformRotate(ctx, handle, ang):
+    _cl(ctx, handle).transformRotate(ang)
+
+
+def clTransformMult(ctx, handle, mtx, order):
+    _cl(ctx, handle).transformMult(mtx, order)
+
+
+def clSetViewBox(ctx, handle, x, y, w, h):
+    _cl(ctx, handle).setViewBox(x, y, w, h)
+
+
+def clSetGlobalAlpha(ctx, handle, alpha):
+    _cl(ctx, handle).setGlobalAlpha(alpha)
+
+
+def clText(ctx, handle, cfg, x, y, s, end=None):
+    _cl(ctx, handle).text(cfg, x, y, s if end is None else s[:end])
+
+
+def clTextBox(ctx, handle, cfg, x, y, break_width, s, end=None, flags=0):
+    _cl(ctx, handle).textBox(cfg, x, y, break_width, s if end is None else s[:end], flags)
+
+
+def clIndexedTriList(ctx, handle, pos, uv, num_vertices, colors, num_colors,
+                     indices, num_indices, img):
+    _cl(ctx, handle).indexedTriList(pos, uv, colors, indices, img)
+
+
+def clSubmitCommandList(ctx, parent, child):
+    _cl(ctx, parent).submitCommandList(child)
+
+
+class CommandListRef:
+    """vg.h:556-607 convenience: carries (Context, CommandListHandle) so call
+    sites don't thread both around."""
+
+    def __init__(self, ctx, handle):
+        self.ctx = ctx
+        self.handle = handle
+
+    def __getattr__(self, name):
+        cl = _cl(self.ctx, self.handle)
+        return getattr(cl, name)
+
+    def reset(self):
+        from vgtpu_torch.api.command_list import cl_reset
+
+        cl_reset(self.ctx, self.handle)
+
+    def submit(self):
+        submitCommandList(self.ctx, self.handle)
+
+
+def makeCommandListRef(ctx, handle) -> CommandListRef:
+    return CommandListRef(ctx, handle)
 
 
 # star-import hygiene: export everything defined here (the vg.h surface)
@@ -1980,5 +2292,6 @@ __all__ = [
         "PathBuilder", "RasterOp", "bin_frame",
         "make_gradient_paint", "make_solid_paint",
         "execute_plan", "image_to_u8", "plan_to_device",
+        "PendingPanLayer", "RetainedScene",
     }
 ]

@@ -52,13 +52,16 @@ def _edge_contribution(px, py, x0, y0, x1, y1):
     steep = torch.abs(m) < 0.01
     s_over_m = s / torch.where(steep, 1.0, m)     # per-edge scalars
 
+    # maximum/minimum against 0-d tensors, not clamp: the same values, and
+    # at a tie the gradient splits in half as jax's does (diff.render_edges)
+    zero, one = ymin.new_zeros(()), ymin.new_ones(())
     ytop = torch.maximum(ymin, py)
-    h = torch.clamp_min(torch.minimum(ymax, py + 1.0) - ytop, 0.0)
+    h = torch.maximum(torch.minimum(ymax, py + 1.0) - ytop, zero)
     u0 = (px + 1.0) - fma(m, ytop - y0, x0)
     u1 = fma(-m, h, u0)
 
-    c0 = torch.clamp(u0, 0.0, 1.0)
-    c1 = torch.clamp(u1, 0.0, 1.0)
+    c0 = torch.minimum(torch.maximum(u0, zero), one)
+    c1 = torch.minimum(torch.maximum(u1, zero), one)
     g0 = c0 * (u0 - 0.5 * c0)
     g1 = c1 * (u1 - 0.5 * c1)
     general = (g0 - g1) * s_over_m
@@ -81,37 +84,40 @@ def edge_row_live(chunk_edges: torch.Tensor, tile_h: int,
     return h > 0
 
 
-def _padding_chunks(chunk_edges: torch.Tensor):
-    """The indices of the chunks that hold a nonzero coordinate, or None
-    when every chunk does.  An all-zero chunk (a pool's padding) sums to +0
-    at every pixel: each zero edge adds s * h * c0 = +0 to a sum that
-    starts at +0.  So the twins evaluate only the others and leave +0 in
-    the rest, bit for bit the dense result, at a fraction of its cost for a
-    deep pool padded to 128 chunks."""
-    keep = chunk_edges.flatten(1).ne(0).any(dim=1).nonzero().flatten()
-    return None if keep.numel() == chunk_edges.shape[0] else keep
+def _live_slots(chunk_edges: torch.Tensor) -> torch.Tensor:
+    """(NC, CH) bool: the edge in slot e of chunk c has y0 != y1.  A
+    horizontal edge (a pool's padding: all zeros, or the pan's padding
+    shifted by the residual) adds +0 or -0 at every pixel: s = 0 and h = 0.
+    A sum that starts at +0 never becomes -0, so adding such an edge leaves
+    it bit for bit as it was, and the twins skip them: the dense result at
+    a fraction of its cost for deep pools padded to 128 chunks."""
+    return chunk_edges[:, :, 1].ne(chunk_edges[:, :, 3])
 
 
 def coverage_chunks_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
                           tile_w: int = 128) -> torch.Tensor:
     """(NC, CH, 4) edges -> (NC, TH, TW) summed winding contributions: the
     plain twin of vgtpu's coverage_chunks_body and of kernels K1 and K6.
-    Edges are summed in slot order, as the scan does."""
+    Edges are summed in slot order, as the scan does (the horizontal ones
+    skipped: _live_slots)."""
     nc, ch, _ = chunk_edges.shape
-    keep = _padding_chunks(chunk_edges)
-    if keep is not None:
-        out = torch.zeros((nc, tile_h, tile_w), dtype=torch.float32,
-                          device=chunk_edges.device)
-        if keep.numel():
-            out[keep] = coverage_chunks_torch(chunk_edges[keep], tile_h, tile_w)
-        return out
     dev = chunk_edges.device
     px = torch.arange(tile_w, dtype=torch.float32, device=dev).expand(tile_h, tile_w)
     py = torch.arange(tile_h, dtype=torch.float32, device=dev)[:, None].expand(tile_h, tile_w)
     acc = torch.zeros((nc, tile_h, tile_w), dtype=torch.float32, device=dev)
+    live = _live_slots(chunk_edges)
     for e in range(ch):
-        x0, y0, x1, y1 = (chunk_edges[:, e, k][:, None, None] for k in range(4))
-        acc = acc + _edge_contribution(px, py, x0, y0, x1, y1)
+        idx = live[:, e].nonzero().flatten()
+        if not idx.numel():
+            continue
+        full = idx.numel() == nc
+        edge = chunk_edges[:, e] if full else chunk_edges[idx, e]
+        x0, y0, x1, y1 = (edge[:, k][:, None, None] for k in range(4))
+        c = _edge_contribution(px, py, x0, y0, x1, y1)
+        if full:
+            acc = acc + c
+        else:
+            acc[idx] = acc[idx] + c
     return acc
 
 
@@ -125,19 +131,23 @@ def coverage_chunks_t_torch(chunk_edges: torch.Tensor, tile_h: int = 8,
     equals the select form of _edge_contribution bit for bit."""
     nc, ch, _ = chunk_edges.shape
     dev = chunk_edges.device
-    keep = _padding_chunks(chunk_edges)
-    if keep is not None:
-        out = torch.zeros((tile_h * tile_w, nc), dtype=torch.float32, device=dev)
-        if keep.numel():
-            out[:, keep] = coverage_chunks_t_torch(chunk_edges[keep], tile_h, tile_w)
-        return out
     flat = torch.arange(tile_h * tile_w, device=dev)
     px = (flat % tile_w).to(torch.float32)[:, None]        # (NPX, 1)
     py = (flat // tile_w).to(torch.float32)[:, None]
     acc = torch.zeros((tile_h * tile_w, nc), dtype=torch.float32, device=dev)
+    live = _live_slots(chunk_edges)
     for e in range(ch):
-        x0, y0, x1, y1 = (chunk_edges[:, e, k][None, :] for k in range(4))
-        acc = acc + _edge_contribution(px, py, x0, y0, x1, y1)
+        idx = live[:, e].nonzero().flatten()
+        if not idx.numel():
+            continue
+        full = idx.numel() == nc
+        edge = chunk_edges[:, e] if full else chunk_edges[idx, e]
+        x0, y0, x1, y1 = (edge[:, k][None, :] for k in range(4))
+        c = _edge_contribution(px, py, x0, y0, x1, y1)
+        if full:
+            acc = acc + c
+        else:
+            acc[:, idx] = acc[:, idx] + c
     return acc
 
 

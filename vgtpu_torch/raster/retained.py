@@ -29,13 +29,21 @@ at bake, textured scenes resampled at the shifted origins
 (ops/sampling_device.py), ops/composite.frame_fb (kernel K2 per bucket:
 form (a) at ss=1, form (d) on every bucket at ss>1, since the pan does not
 split the resolve), then the window copy.  On CPU tensors the same calls
-take the plain twins.
+take the plain twins.  use_pallas, vgtpu's keyword on render, render_tiles
+and render_views, selects the route: None or True runs the kernels (on
+CUDA) and False the plain twins, on any device.
+
+The translated cached-list layer (api/command_list._layer_submit) renders
+through PendingPanLayer: the pan body in its tiles-only form, the blend of
+the transparent static overlay (_blend_over_tiles) and the suffix frame
+over those tiles (raster/frame.execute_plan with init_tiles, K2 form (b)),
+back to back on the current stream with the layer tiles kept on the device
+(_pan_frame_fused).
 
 Left out, as ROADMAP.md says: vgtpu's per-entry pan resolve
-(VGTPU_PAN_ENTRY_RESOLVE) and legacy entry-gather pan
-(VGTPU_PAN_NO_CHUNKGATHER), TPU experiments; and the cached-list pan layer
-(PendingPanLayer, _pan_frame_fused, _blend_over_tiles), which belongs to
-command lists (ROADMAP.md Q1) and raises NotImplementedError here.
+(VGTPU_PAN_ENTRY_RESOLVE), legacy entry-gather pan
+(VGTPU_PAN_NO_CHUNKGATHER) and two-dispatch layer frame
+(VGTPU_PAN_NO_FUSE), TPU experiments.
 """
 
 from __future__ import annotations
@@ -78,12 +86,6 @@ from vgtpu_torch.raster.binning import (
     scale_ops_y,
 )
 from vgtpu_torch.raster.frame import bucket_rows, flat_color_tiles
-
-
-def _unported(what: str):
-    from vgtpu_torch.api.context import _unported as unported
-
-    return unported(what, "command lists")
 
 
 def translate_ops(ops: list[RasterOp], dx: float, dy: float) -> list[RasterOp]:
@@ -512,40 +514,44 @@ class RetainedScene:
         return vx, vy, rx, ry
 
     def render(self, view_x: float = 0, view_y: float = 0,
-               plain: bool = False) -> torch.Tensor:
+               use_pallas: bool | None = None) -> torch.Tensor:
         """Premultiplied (out_h, out_w, 4) of the scene viewed at offset
         (view_x, view_y): output pixel (x, y) shows scene point
-        (view_x + x, view_y + y).  All device work on the scene's device
-        (kernels K1 and K2 on CUDA; plain=True, or a CPU scene, the plain
-        twins).
+        (view_x + x, view_y + y).  All device work on the scene's device:
+        kernels K1 and K2 on CUDA; use_pallas=False (vgtpu's switch to its
+        plain XLA path), or a CPU scene, the plain twins.
 
         view_x may be FRACTIONAL (smooth horizontal scrolling): backdrop
         rows are x-shift-invariant and the coverage is analytic in edge
         position.  view_y must be a multiple of 1/supersample (whole
         sub-rows: integer pixels at ss=1, quarter pixels at ss=4)."""
         return self._render(*self._offsets(view_x, view_y), self.background,
-                            plain=plain)
+                            plain=use_pallas is False)
 
     def render_tiles(self, view_x: float = 0, view_y: float = 0,
-                     background=None) -> torch.Tensor:
+                     background=None, use_pallas: bool | None = None) -> torch.Tensor:
         """The view as its OUTPUT TILE GRID (nty_o*ntx_o, th, tw, 4), the
-        init_tiles contract of raster/frame.execute_plan.  Same offset
-        semantics as render(); background: what off-scene tiles show
-        (defaults to the bake background)."""
+        init_tiles contract of raster/frame.execute_plan.  Same offset and
+        use_pallas semantics as render(); background: what off-scene tiles
+        show (defaults to the bake background)."""
         bg = self.background if background is None else tuple(background)
-        return self._render(*self._offsets(view_x, view_y), bg, tiles_only=True)
+        return self._render(*self._offsets(view_x, view_y), bg,
+                            plain=use_pallas is False, tiles_only=True)
 
-    def render_views(self, views) -> torch.Tensor:
+    def render_views(self, views, use_pallas: bool | None = None) -> torch.Tensor:
         """V viewports of the scene -> (V, out_h, out_w, 4): each view as
         render() gives it, stacked (vgtpu scans them in one dispatch; here
         the views run back to back on the scene's stream).  views: a
-        non-empty sequence of (view_x, view_y) offsets."""
+        non-empty sequence of (view_x, view_y) offsets; use_pallas as in
+        render()."""
         views = np.asarray(views, np.float64)
         if views.ndim != 2 or views.shape[1] != 2 or not len(views):
             raise ValueError(
                 "views must be a non-empty sequence of (view_x, view_y) pairs")
         offs = [self._offsets(x, y) for x, y in views]
-        return torch.stack([self._render(*o, self.background) for o in offs])
+        return torch.stack([self._render(*o, self.background,
+                                         plain=use_pallas is False)
+                            for o in offs])
 
     def _view_y_subrows(self, view_y) -> tuple[int, int]:
         """(whole-tile, sub-row residual) of a pixel-space vertical offset.
@@ -703,17 +709,61 @@ def measure_pan_ms_per_frame(scene: RetainedScene, reps_hi: int = 32,
     return (hi - lo) / (reps_hi - reps_lo)
 
 
+def _blend_over_tiles(over, base):
+    """Premultiplied src-over of a baked transparent layer over per-frame
+    tiles: out = over + base * (1 - over_alpha)."""
+    return over + base * (1.0 - over[..., 3:4])
+
+
+def _pan_frame_fused(scene, offsets, layer_bg, plan, device_arrays,
+                     background, over=None) -> torch.Tensor:
+    """The translated cached-list frame: the scene's pan body at `offsets`
+    ((vx, vy, rx, ry), RetainedScene._offsets) in its tiles-only form over
+    layer_bg, the transparent overlay tiles `over` blended on top, then the
+    frame plan's dynamic suffix composited over them (execute_plan
+    init_tiles: K1, K3 at ss>1, K2 form (b) on CUDA).  vgtpu compiles the
+    three into one program; here they launch back to back on the current
+    stream, the layer tiles stay on the device and nothing waits on the
+    host."""
+    from vgtpu_torch.raster.frame import execute_plan
+
+    tiles = scene._render(*offsets, layer_bg, tiles_only=True)
+    if over is not None:
+        tiles = _blend_over_tiles(over, tiles)
+    return execute_plan(plan, background, device_arrays=device_arrays,
+                        init_tiles=tiles)
+
+
 class PendingPanLayer:
-    """The translated cached-list pan layer: not ported (it belongs to
-    command lists, ROADMAP.md Q1)."""
+    """Lazy stand-in for the translated cached-list layer's tile grid
+    (api/context end()): carries (scene, view) so _maybe_dispatch renders
+    the pan, the overlay blend and the frame in one chain
+    (_pan_frame_fused).  materialize() gives the tiles themselves, for
+    renderFrames.
 
-    def __init__(self, *_args, **_kwargs):
-        raise _unported("PendingPanLayer")
+    over_tiles: resident transparent-baked static-UI tiles
+    (Context._layer_split(transparent=True)) blended over the pan tiles."""
 
+    def __init__(self, scene, view, background, over_tiles=None):
+        self.scene = scene
+        self.view = tuple(view)
+        self.background = tuple(background)
+        self.over_tiles = over_tiles
 
-def _pan_frame_fused(*_args, **_kwargs):
-    raise _unported("_pan_frame_fused")
+    def _offsets(self) -> tuple:
+        return self.scene._offsets(*self.view)
 
+    def materialize(self) -> torch.Tensor:
+        tiles = self.scene.render_tiles(view_x=self.view[0],
+                                        view_y=self.view[1],
+                                        background=self.background)
+        if self.over_tiles is not None:
+            tiles = _blend_over_tiles(self.over_tiles, tiles)
+        return tiles
 
-def _blend_over_tiles(*_args, **_kwargs):
-    raise _unported("_blend_over_tiles")
+    def execute_over(self, plan, device_arrays, background) -> torch.Tensor:
+        """The frame plan composites its dynamic suffix over this layer,
+        rendered at the pending view offset."""
+        return _pan_frame_fused(self.scene, self._offsets(), self.background,
+                                plan, device_arrays, background,
+                                over=self.over_tiles)

@@ -10,7 +10,7 @@ Usage:
     prof.report()   # dict of stage -> ms
 
 Context integrates one automatically; `vg.getStats(ctx)` surfaces the
-counters.  Device-side tracing (torch.profiler) is a later port item.
+counters.  For device-side tracing use torch.profiler (see `trace_frame`).
 """
 
 from __future__ import annotations
@@ -54,3 +54,29 @@ class FrameProfiler:
         self.counters.clear()
         self._frames = 0
 
+
+
+@contextlib.contextmanager
+def trace_frame(logdir: str):
+    """torch.profiler trace around a frame (vgtpu's trace_frame runs
+    jax.profiler): CPU activity and, when torch sees a CUDA device, the
+    card's kernels.  On exit the trace is written under `logdir` as a
+    Chrome trace (trace.json; open it in chrome://tracing or Perfetto).
+    Yields the profiler, whose key_averages() summarises the frame."""
+    import os
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
