@@ -84,9 +84,11 @@ Phases (any failure raises and the process exits non-zero):
      K6 over the plan's pools against their twins.
   5. The main path: createContext(device="cuda"), begin 1920x1080,
      scenes.demo_ui.draw_benchmark_frame, end().  Both kernels' launch
-     counts must be > 0; the image must match the same plan through the
-     plain twins on the card within 1 u8 level, and the small scene must
-     match the CPU path within 1 u8 level.
+     counts must be > 0; the frame must carry its text (glyph-quad entries
+     and glyphs in the atlas) and vgtpu's entry count (MAIN_ENTRIES); the
+     image must match the same plan through the plain twins on the card
+     within 1 u8 level, and the small scene must match the CPU path within
+     1 u8 level.
   5c. The 1080p frame assembled through the entry points of this slice's
      kernels (raster/frame.execute_plan_flat): chunk coverage per pool through K5 (then again
      through K6), the chunk -> entry index_add_, + backdrop, per bucket K7
@@ -152,6 +154,13 @@ Phases (any failure raises and the process exits non-zero):
      end()'s host ms, the steady frame's ms (CUDA events), busy share and
      launches (torch.profiler) and its host-side waits (must be none).  11b. diff.render_edges on the card
      against the CPU at 64x64, the image and loss.backward()'s gradients.
+  12. Text on the card (phase_12): the 1080p frame with its text at ss = 1
+     and 2, each in a fresh context; no font library in sys.modules, the
+     glyph atlas on the host and on the card against ATLAS_SHA256, the
+     glyph-quad colour tiles against the same sampler on the CPU
+     (CT_BOUND), the launch counts and the frame against the plain twins
+     (U8_BOUND); the first and a steady frame's recording host ms, the
+     textures and upload stages, the steady frame's ms, launches and busy.
   6. Times (CUDA events, median of 12 runs after warm-up): the steady frame
      from resident arrays at ss=1 and ss=2, K1, K2 (each form) and K3 beside
      their plain twins; each kernel's device time per steady frame and the
@@ -186,8 +195,8 @@ Phases (any failure raises and the process exits non-zero):
      frame, one render's host ms from call to return, the bake's host ms,
      and the CPU trace of 5 pan frames (no host-side wait); the textures
      stage of [10a].
-     Phase 6 runs after phases 7, 8, 10a, 10b and 11, whose contexts it
-     times.
+     Phase 6 runs after phases 7, 8, 10a, 10b, 11 and 12, and times the
+     contexts of 7-11.
   9. Cold start (vgtpu_torch.utils.cold_probe): torch's context and first
      cuBLAS call, K8's load and first launch, and the first 1080p frame,
      each in a fresh process with jax blocked, after phase 2 has built the
@@ -197,7 +206,8 @@ The last two lines are the kernels' JSON record (K1, K2's forms (a)-(e),
 K3-K8: launches on the main paths, error against the twin, times, and the
 bound from this run's shapes; K2's pipeline depth and shared bytes; K1's
 and K2's launches include the pan's) and the contract line
-{"ok": true, "device": {...}}.  Imports neither jax nor vgtpu.
+{"ok": true, "device": {...}}.  Imports neither jax nor vgtpu, and no font
+library (the port reads the font it ships).
 """
 
 from __future__ import annotations
@@ -256,6 +266,12 @@ PIECES_BOUND = 2e-6
 # (tests/test_torch_pan_app.py holds both packages to them)
 PAN_APP_WARM = 8
 PAN_APP_COUNTS = {"layer_cl_hits": 5, "layer_cl_bakes": 1, "layer_bakes": 1}
+# the 1080p tiger + demo-UI frame (1920x1080 at dpr 1, ss=1) with its text:
+# the plan's entry count and the glyph atlas's sha256 after the frame, both
+# vgtpu's on the CPU (through fontTools); tests/test_torch_host.py and
+# tests/test_torch_truetype.py hold both packages to them
+MAIN_ENTRIES = 17967
+ATLAS_SHA256 = "0c4109c5ce00195946d866812438fdc4a6625fde89946150aac3bfa4f0dc1e11"
 
 
 @contextlib.contextmanager
@@ -472,6 +488,15 @@ CT_BOUND = 2e-5
 CT_NUMPY_BOUND = 5e-4
 
 
+def frame_images(c) -> dict:
+    """Image id -> (pixels, flags, generation) of a context's images and
+    its glyph atlas: the map Context._fill_textures samples from."""
+    out = {i: (im.data, im.flags, im.generation) for i, im in c.images.items()}
+    if c.font_system is not None:
+        out.update(c.font_system.atlas_image_map())
+    return out
+
+
 def textured_frame(c, images) -> None:
     """[10a]'s frame: the tiger and demo UI plus the pattern panels."""
     from vgtpu_torch.scenes import demo_ui
@@ -572,7 +597,7 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
           f"(frame_memo off)")
     if hits != 1:
         raise AssertionError(f"[10a] {hits} colour-tile memo hits, not 1")
-    image_map = {i: (im.data, im.flags, im.generation) for i, im in cd.images.items()}
+    image_map = frame_images(cd)
     vg.begin(cd, 0, 1920, 1080, 1.0)      # the first frame's ops again
     textured_frame(cd, images_d)
     cd._finalize_ops()
@@ -598,8 +623,7 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
     t_np = []
     for _ in range(3):
         t0 = time.perf_counter()
-        fill_color_tiles(plan_h, ch.ops, {i: (im.data, im.flags, im.generation)
-                                          for i, im in ch.images.items()})
+        fill_color_tiles(plan_h, ch.ops, frame_images(ch))
         t_np.append((time.perf_counter() - t0) * 1e3)
     for ds, name in ((False, "numpy sampler (device_sampling=False)"),
                      (True, "device sampler (device_sampling=True)")):
@@ -963,6 +987,130 @@ def phase_11(vg, card, zero_counts, read_counts, check_path) -> dict:
     return out
 
 
+FONT_LIBRARIES = ("fontTools", "matplotlib")
+
+
+def phase_12(vg, card, zero_counts, read_counts, check_path) -> None:
+    """[12] text on the card: the 1080p tiger + demo-UI frame with its text
+    through createContext(device="cuda") -> begin -> draw_benchmark_frame
+    -> end() at ss = 1 and 2, each in a fresh context (the font parsed by
+    fonts/sfnt.py, the glyphs baked on the first frame).  Checks: no font
+    library in sys.modules; the glyph atlas on the host and its copy on the
+    card against ATLAS_SHA256 (vgtpu's atlas, pinned on the CPU); the
+    sampler's glyph-quad groups on the card against the same groups on the
+    CPU (CT_BOUND); the launch counts and the frame against the plain twins
+    (U8_BOUND).  Prints the host ms of recording the first frame (font
+    parse and glyph bake) and a steady one, the textures and upload stages,
+    and the steady frame's ms (CUDA events), launches and device busy."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    from vgtpu_torch.fonts.fontstash import ATLAS_IMAGE_ID
+    from vgtpu_torch.ops.sampling_device import (
+        build_sampling_plan,
+        sample_color_tiles_device,
+    )
+    from vgtpu_torch.raster.binning import P_TEXTURE
+    from vgtpu_torch.raster.frame import execute_plan_torch
+    from vgtpu_torch.scenes import demo_ui
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    for ss in (1, 2):
+        tag = f"text ss={ss}"
+        c = vg.createContext(vg.ContextConfig(coverage_supersample=ss, frame_memo=False),
+                             device="cuda")
+
+        def record():
+            t0 = time.perf_counter()
+            vg.begin(c, 0, 1920, 1080, 1.0)
+            demo_ui.draw_benchmark_frame(c, 0.0)
+            return (time.perf_counter() - t0) * 1e3
+
+        def stages(fn):
+            before = dict(c.profiler.times_ms)
+            r = fn()
+            return r, {k: c.profiler.times_ms.get(k, 0.0) - before.get(k, 0.0)
+                       for k in ("textures", "upload")}
+
+        zero_counts()
+        rec_first = record()
+        img, st_first = stages(lambda: vg.end(c))
+        counts = read_counts()
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in FONT_LIBRARIES)
+        if leaked:
+            raise AssertionError(f"[12] {tag}: the frame imported {leaked}")
+        plan = c.last_plan
+        n_text = int((plan.entry_paint_kind[:plan.n_real_entries] == P_TEXTURE).sum())
+        atlas = c.font_system.atlas
+        h_atlas = sha(atlas.bitmap)
+        dev_atlas = c._tex_dev_cache[ATLAS_IMAGE_ID][1]
+        d_atlas = sha((dev_atlas[..., 0] * 255.0).round().to(torch.uint8).cpu().numpy())
+        print(f"[12] {tag}: {len(atlas.glyphs)} glyphs in a {atlas.size}x{atlas.size} "
+              f"atlas (revision {atlas.revision}), {n_text} glyph-quad entries of "
+              f"{plan.stats.get('entries')}; atlas sha256 host {h_atlas[:16]}, card "
+              f"{d_atlas[:16]}, pinned {ATLAS_SHA256[:16]}; font libraries loaded: "
+              f"{leaked}")
+        if not (n_text > 0 and h_atlas == d_atlas == ATLAS_SHA256):
+            raise AssertionError(f"[12] {tag}: {n_text} text entries, atlas {h_atlas} "
+                                 f"(card {d_atlas}), not {ATLAS_SHA256}")
+        if ss == 1 and plan.stats.get("entries") != MAIN_ENTRIES:
+            raise AssertionError(f"[12] {tag}: {plan.stats.get('entries')} entries, "
+                                 f"not vgtpu's {MAIN_ENTRIES}")
+
+        # the glyph-quad sample groups, on the card and on the CPU
+        images = frame_images(c)
+        record()
+        c._finalize_ops()
+        sp = build_sampling_plan(plan, c.ops, images)
+        sp = dataclasses.replace(sp, groups=[g for g in sp.groups if g.kind == P_TEXTURE])
+        if not sp.groups or {g.image_id for g in sp.groups} != {ATLAS_IMAGE_ID}:
+            raise AssertionError(f"[12] {tag}: glyph-quad groups {sp.groups}")
+        tex = c._device_textures(images, {ATLAS_IMAGE_ID})
+        th = plan.tile_h // plan.supersample
+        ct_d = sample_color_tiles_device(sp, tex, th, plan.tile_w)
+        ct_c = sample_color_tiles_device(sp, {k: v.cpu() for k, v in tex.items()},
+                                         th, plan.tile_w)
+        rows = np.unique(np.concatenate([g.ct for g in sp.groups]))
+        rows = torch.as_tensor(rows[rows < ct_c.shape[0] - 1], dtype=torch.long)
+        err_ct = float((ct_d.cpu()[rows] - ct_c[rows]).abs().max())
+        groups = [(g.separable, g.flags, len(g.ct)) for g in sp.groups]
+        print(f"[12] {tag}: glyph-quad groups (separable, flags, K) {groups} over "
+              f"{len(rows)} colour tiles: max|card - CPU| = {err_ct:.3e} "
+              f"(bound {CT_BOUND:.0e})")
+        if not err_ct <= CT_BOUND:
+            raise AssertionError(f"[12] {tag}: glyph-quad colour tiles {err_ct} off")
+
+        ref = execute_plan_torch(c.last_plan, c.background,
+                                 device_arrays=c.last_device_arrays)
+        need = ("K1", "K2", "K2 (a)") if ss == 1 else ("K1", "K2", "K3", "K2 (d)",
+                                                       "K2 (e)")
+        check_path(tag, counts, need, [(img, ref)], tag="[12]")
+
+        # a steady frame: glyphs baked, colour tiles from the memo
+        rec_steady = record()
+        _img, st_steady = stages(lambda: vg.end(c))
+
+        def run():
+            record()
+            return vg.end(c)
+
+        ms = time_ms(run)
+        by, _calls, busy, _window = device_breakdown(run, 10, zero=zero_counts)
+        per_frame = {k: v / 10 for k, v in read_counts().items() if v}
+        print(f"[12] {tag}: recording (begin + draw) host ms: first frame {rec_first:.3f} "
+              f"(font parse + glyph bake), steady {rec_steady:.3f}; textures stage "
+              f"{st_first['textures']:.3f} / {st_steady['textures']:.3f} ms, upload "
+              f"{st_first['upload']:.3f} / {st_steady['upload']:.3f} ms (first / "
+              f"steady, host clock); steady frame {ms:.3f} ms (CUDA events, median of "
+              f"12), device busy {busy:.3f} ms ({100 * busy / ms:.1f}%), launches per "
+              f"frame {per_frame} ({card})")
+        print(f"[12] {tag}: device ms per steady frame: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:8]))
+
+
 def phase_11b(card) -> dict:
     """[11b] diff.render_edges on the card against the CPU at 64x64: the
     image and, through loss.backward(), the gradients with respect to the
@@ -1264,6 +1412,7 @@ def main() -> int:
         render_frame_sharded,
         shard_frame,
     )
+    from vgtpu_torch.raster.binning import P_TEXTURE
     from vgtpu_torch.raster.frame import (
         execute_plan,
         execute_plan_flat,
@@ -1781,13 +1930,19 @@ def main() -> int:
     u8 = int(np.abs(image_to_u8(img).astype(np.int16)
                     - image_to_u8(ref).astype(np.int16)).max())
     st = ctx.last_plan.stats
-    text = demo_ui._FONT_DATA[0] is not None if demo_ui._FONT_DATA else False
+    n_text = int((ctx.last_plan.entry_paint_kind[:ctx.last_plan.n_real_entries]
+                  == P_TEXTURE).sum())
+    text = n_text > 0 and len(ctx.font_system.atlas.glyphs) > 0
     print(f"[5] frame vs plain twins on the card: max|diff| = {ferr:.3e}, "
           f"u8 levels {u8} (bound {U8_BOUND})")
     print(f"[5] plan: entries {st.get('entries')} chunks {st.get('chunks')} "
           f"(live {st.get('chunks_live')}) tiles {st.get('tiles')} "
           f"max ops/tile {st.get('max_ops_per_tile')} binner {st.get('backend', 'numpy')} "
-          f"buckets {len(ctx.last_device_arrays['bucket_flags'])} text drawn {text}")
+          f"buckets {len(ctx.last_device_arrays['bucket_flags'])} text drawn {text} "
+          f"({n_text} glyph-quad entries; vgtpu's entries {MAIN_ENTRIES})")
+    if not (text and st.get("entries") == MAIN_ENTRIES):
+        raise AssertionError(f"[5] text drawn {text}, {st.get('entries')} entries: "
+                             f"vgtpu draws the frame's text in {MAIN_ENTRIES}")
     if u8 > U8_BOUND:
         raise AssertionError(f"main-path frame is {u8} u8 levels from the plain path")
     # a small input against the CPU path (held to vgtpu by the CPU tests)
@@ -2298,6 +2453,8 @@ def main() -> int:
     stamp("[11]")
     phase_11b(card)
     stamp("[11b]")
+    phase_12(vg, card, zero_counts, read_counts, check_path)
+    stamp("[12]")
 
     # ---- 6. times -------------------------------------------------------
     pl, dv = ctx.last_plan, ctx.last_device_arrays
@@ -2863,7 +3020,7 @@ def main() -> int:
     elapsed = time.perf_counter() - t_start
     print(f"[6] chip_smoke wall time {elapsed:.1f} s")
     leaked = sorted(m for m in sys.modules
-                    if m == "jax" or m.startswith(("jax.", "vgtpu.")) or m == "vgtpu")
+                    if m.split(".")[0] in ("jax", "vgtpu", *FONT_LIBRARIES))
     if leaked:
         raise AssertionError(f"chip_smoke imported {leaked}")
 

@@ -14,9 +14,14 @@ torch = pytest.importorskip("torch")
 # and torch's thread pool oversubscribed them by orders of magnitude
 torch.set_num_threads(1)
 
+import chip_smoke  # noqa: E402
 import vgtpu as vgj  # noqa: E402
 import vgtpu_torch as vgt  # noqa: E402
-from tests.fontdata import FONT_DATA  # noqa: E402
+from vgtpu_torch.fonts import UI_FONT  # noqa: E402
+
+# the font the port ships (vgtpu's demo UI reads the same bytes from
+# matplotlib's package data)
+FONT_DATA = UI_FONT.read_bytes()
 
 
 def _plan(vg, draw, w, h, dpr, ss=1):
@@ -88,15 +93,18 @@ def _tiger_ui(ctx, vg):
     # the parity mode: sub-row geometry, (2,4,6,12,24) pools, colour tiles
     # on the output rows
     (_small, (512, 256, 1.0), 2),
-], ids=["small", "tiger_ui_half", "small_ss2"])
+    # the north-star frame itself, text included: chip_smoke.py [5] checks
+    # the card's plan has vgtpu's entry count
+    (_tiger_ui, (1920, 1080, 1.0), 1),
+], ids=["small", "tiger_ui_half", "small_ss2", "tiger_ui_1080p"])
 def test_plans_bit_identical(scene, size, ss):
-    if FONT_DATA is None:
-        pytest.skip("no test font: text would drop from both scenes")
     pj = _plan(vgj, scene, *size, ss=ss)
     pt = _plan(vgt, scene, *size, ss=ss)
     assert pt.supersample == ss and pt.tile_h == 8 * ss
     assert pt.n_real_entries > 0 and pt.color_tiles.shape[0] > 1
     assert_plans_equal(pj, pt)
+    if size == (1920, 1080, 1.0):
+        assert pj.stats["entries"] == chip_smoke.MAIN_ENTRIES
 
 
 def test_plan_from_numpy_round_trips_vgtpu_plans():

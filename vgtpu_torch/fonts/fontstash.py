@@ -143,17 +143,17 @@ class GlyphAtlas:
             d[2] = max(d[2], x + w)
             d[3] = max(d[3], y + h)
 
-    def get_or_bake(self, font_idx: int, font, glyph_name: str, glyph_id: int,
+    def get_or_bake(self, font_idx: int, font, glyph: int,
                     size_px: float) -> GlyphInfo | None:
         size10 = int(size_px * 10.0 + 0.5)
-        code = glyph_code(glyph_id, size10)
+        code = glyph_code(font.gid_of(glyph), size10)
         key = (font_idx, code)
         gi = self.glyphs.get(key)
         if gi is not None:
             gi.last_used = self.frame
             return gi
 
-        bitmap, x0, y0, w, h, adv = font.rasterize(glyph_name, size_px, pad=GLYPH_PAD)
+        bitmap, x0, y0, w, h, adv = font.rasterize(glyph, size_px, pad=GLYPH_PAD)
         if bitmap is None:
             gi = GlyphInfo(0, 0, 0, 0, 0, 0, adv, last_used=self.frame)
             self.glyphs[key] = gi

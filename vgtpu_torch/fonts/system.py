@@ -60,12 +60,13 @@ class FontSystem:
         while fi not in seen:
             seen.add(fi)
             f = self.fonts[fi]
-            g = f.glyph_name(cp)
+            g = f.glyph_id(cp)
             if g is not None:
                 return fi, f, g
             fi = self.fallback.get(fi, fi)
         f = self.fonts[font_idx]
-        return font_idx, f, f.glyph_name(0xFFFD) or ".notdef"
+        g = f.glyph_id(0xFFFD)
+        return font_idx, f, 0 if g is None else g      # else .notdef
 
     # -- metrics ------------------------------------------------------------
     def vert_metrics(self, font_idx: int, size_px: float):
@@ -88,15 +89,14 @@ class FontSystem:
         n = 0
         pen = 0.0
         minx, maxx = 1e9, -1e9
-        prev = None  # (font_idx, glyph_name, Font)
+        prev = None  # (font_idx, glyph id, Font)
         S = float(self.atlas.size)
         for ci, ch in enumerate(text):
             cp = ord(ch)
             fi, f, g = self._lookup_glyph(font_idx, cp)
             if prev is not None and prev[0] == fi:
                 pen += f.kern_u(prev[1], g) * f.pixel_scale(size_px)
-            gid = f.gid_of(g) if isinstance(g, str) else g
-            gi = self.atlas.get_or_bake(fi, f, g, gid, size_px)
+            gi = self.atlas.get_or_bake(fi, f, g, size_px)
             S = float(self.atlas.size)
             if gi is None:
                 prev = (fi, g, f)
@@ -383,8 +383,7 @@ def ctx_text_glyph_positions(ctx, cfg, x, y, s: str, max_positions=None):
         fi, f, g = fs._lookup_glyph(cfg.font.idx, ord(ch))
         if prev is not None and prev[0] == fi:
             pen += f.kern_u(prev[1], g) * f.pixel_scale(scaled_size)
-        gid = f.gid_of(g)
-        gi = fs.atlas.get_or_bake(fi, f, g, gid, scaled_size)
+        gi = fs.atlas.get_or_bake(fi, f, g, scaled_size)
         adv = gi.advance if gi else 0.0
         out.append(
             GlyphPosition(

@@ -1,9 +1,11 @@
-# Copied from vgtpu/fonts/truetype.py: the jax-free host half of the PyTorch port.
+# Adapted from vgtpu/fonts/truetype.py: the jax-free host half of the PyTorch
+# port, parsing through fonts/sfnt.py where vgtpu uses fontTools.
 """TrueType font loading + glyph rasterization (replaces stb_truetype,
 SURVEY.md §2 #9).
 
-Parsing is delegated to fontTools (a stock library); rasterization is OUR
-engine: glyph quadratic outlines are flattened with the same Wang-formula
+Parsing is fonts/sfnt.py's (struct + numpy over the font's bytes, the
+outlines fontTools' RecordingPen records, so no font library is needed);
+rasterization is OUR engine: glyph quadratic outlines are flattened with the same Wang-formula
 machinery as paths and rasterized with the same exact analytic winding
 coverage as the main pipeline (numpy port of ops/coverage.py) — the engine
 eats its own dog food for glyphs, like the reference feeding FontStash from
@@ -15,9 +17,9 @@ Scale convention follows stb/FontStash: pixel scale = size / (ascent-descent)
 
 from __future__ import annotations
 
-import io
-
 import numpy as np
+
+from vgtpu_torch.fonts.sfnt import SfntFont
 
 
 def _edge_coverage_np(edges: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -60,92 +62,58 @@ def _edge_coverage_np(edges: np.ndarray, w: int, h: int) -> np.ndarray:
 
 
 class Font:
-    """One loaded TrueType font."""
+    """One loaded TrueType font, read by fonts/sfnt.py.  Glyphs are keyed
+    by glyph id."""
 
     def __init__(self, name: str, data: bytes) -> None:
-        from fontTools.ttLib import TTFont
-
         self.name = name
-        self.ttf = TTFont(io.BytesIO(data), fontNumber=0, lazy=True)
-        head = self.ttf["head"]
-        hhea = self.ttf["hhea"]
-        self.units_per_em = head.unitsPerEm
-        self.ascent_u = hhea.ascent
-        self.descent_u = hhea.descent          # negative
-        self.line_gap_u = hhea.lineGap
-        self.cmap = self.ttf.getBestCmap()
-        self.glyph_order = self.ttf.getGlyphOrder()
-        self._gid_of = {name: i for i, name in enumerate(self.glyph_order)}
-        self.hmtx = self.ttf["hmtx"]
-        self.glyf = self.ttf["glyf"] if "glyf" in self.ttf else None
-        self._kern = None
-        self._gid_cache: dict[int, str] = {}
-        self._kern_cache: dict[tuple[str, str], float] = {}
+        self.sfnt = SfntFont(data)
+        self.units_per_em = self.sfnt.units_per_em
+        self.ascent_u = self.sfnt.ascent
+        self.descent_u = self.sfnt.descent      # negative
+        self.line_gap_u = self.sfnt.line_gap
+        self.cmap = self.sfnt.cmap              # codepoint -> glyph id
 
     # stb-style pixel-height scale: pixels per font unit for a given size
     def pixel_scale(self, size_px: float) -> float:
         return size_px / float(self.ascent_u - self.descent_u)
 
-    def gid_of(self, glyph_name: str) -> int:
-        return self._gid_of.get(glyph_name, 0)
+    def has_glyph(self, glyph: int) -> bool:
+        return 0 <= glyph < self.sfnt.num_glyphs
 
-    def glyph_name(self, codepoint: int) -> str | None:
-        g = self._gid_cache.get(codepoint)
-        if g is None:
-            g = self.cmap.get(codepoint)
-            self._gid_cache[codepoint] = g
-        return g
+    def gid_of(self, glyph: int) -> int:
+        """The glyph id the atlas keys on: 0 for a cmap entry past the
+        font's glyphs (which has no outline and no advance)."""
+        return glyph if self.has_glyph(glyph) else 0
 
-    def advance_u(self, glyph_name: str) -> float:
-        try:
-            return self.hmtx[glyph_name][0]
-        except KeyError:
-            return 0.0
+    def glyph_id(self, codepoint: int) -> int | None:
+        return self.cmap.get(codepoint)
 
-    def kern_u(self, g1: str, g2: str) -> float:
+    def advance_u(self, glyph: int) -> float:
+        return int(self.sfnt.advances[glyph]) if self.has_glyph(glyph) else 0.0
+
+    def kern_u(self, g1: int, g2: int) -> float:
         """Kern-table pair adjustment in font units (the reference caches
         these aggressively, fontstash.h:397-484; a dict serves here)."""
-        key = (g1, g2)
-        v = self._kern_cache.get(key)
-        if v is not None:
-            return v
-        if self._kern is None:
-            self._kern = {}
-            if "kern" in self.ttf:
-                for sub in self.ttf["kern"].kernTables:
-                    if getattr(sub, "format", None) == 0:
-                        self._kern.update(sub.kernTable)
-        v = float(self._kern.get(key, 0.0))
-        self._kern_cache[key] = v
-        return v
+        return float(self.sfnt.kern_pairs().get((g1, g2), 0.0))
 
-    def outline_contours(self, glyph_name: str, scale_px: float = 1.0) -> list[np.ndarray]:
+    def outline_contours(self, glyph: int, scale_px: float = 1.0) -> list[np.ndarray]:
         """Flattened closed contours in FONT UNITS (y-up); flattening density
         targets ~0.5px error at `scale_px` pixels per font unit."""
-        from fontTools.pens.recordingPen import RecordingPen
-
         from vgtpu_torch.geometry.path import PathBuilder
 
-        glyph_set = self.ttf.getGlyphSet()
-        if glyph_name not in glyph_set:
+        if not self.has_glyph(glyph):
             return []
-        pen = RecordingPen()
-        glyph_set[glyph_name].draw(pen)
-
         pb = PathBuilder()
         pb.reset(scale=scale_px, tess_tol=0.25)
         cur = (0.0, 0.0)
-        for op, args in pen.value:
+        for op, args in self.sfnt.draw(glyph):
             if op == "moveTo":
                 cur = args[0]
                 pb.move_to(*cur)
             elif op == "lineTo":
                 cur = args[0]
                 pb.line_to(*cur)
-            elif op == "curveTo":
-                c1, c2, p = args
-                pb.cubic_to(*c1, *c2, *p)
-                cur = p
             elif op == "qCurveTo":
                 # TrueType: run of off-curve points with implied on-curve
                 # midpoints; final point on-curve (may be None = closed blob)
@@ -165,16 +133,18 @@ class Font:
                 cur = pts[-1]
             elif op == "closePath":
                 pb.close()
+            # a composite glyph's addComponent events draw nothing, as in
+            # vgtpu (its RecordingPen gets the same events from fontTools)
         verts, subs = pb.bake()
         return [verts[f : f + c] for f, c, _cl in subs if c >= 3]
 
-    def rasterize(self, glyph_name: str, size_px: float, pad: int = 1):
+    def rasterize(self, glyph: int, size_px: float, pad: int = 1):
         """Rasterize a glyph at pixel size; returns (bitmap u8 (h,w),
         x0, y0, w, h, advance_px) where (x0,y0) is the bitmap's top-left
         offset from the pen position (y-down screen convention)."""
         s = self.pixel_scale(size_px)
-        contours = self.outline_contours(glyph_name, scale_px=s)
-        adv = self.advance_u(glyph_name) * s
+        contours = self.outline_contours(glyph, scale_px=s)
+        adv = self.advance_u(glyph) * s
         if not contours:
             return None, 0, 0, 0, 0, adv
 

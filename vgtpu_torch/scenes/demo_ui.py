@@ -11,40 +11,23 @@ import math
 import numpy as np
 
 import vgtpu_torch as vg
+from vgtpu_torch.fonts import UI_FONT
 
-_FONT_DATA: list = []    # [bytes | None], loaded once
+_FONT_DATA: list = []    # [bytes], loaded once
 
 
 def _font(ctx):
     """UI font handle, cached ON the context (id(ctx) keys get reused after
-    GC — a second Context could inherit a stale handle).  Falls back to
-    matplotlib's bundled DejaVuSans; text silently disappears without it, so
-    a missing font WARNS instead of quietly lightening the benchmark."""
+    GC — a second Context could inherit a stale handle).  The font is the
+    DejaVu Sans the port ships (vgtpu_torch/fonts/data, the bytes vgtpu
+    finds in matplotlib's package data); a missing file raises, since a
+    frame without its text is a lighter benchmark, not the same one."""
     handle = getattr(ctx, "_demo_ui_font", None)
     if handle is not None:
         return handle
     if not _FONT_DATA:
-        import importlib.util
-        import os
-        import sys
-
-        # matplotlib's bundled font, found without importing matplotlib
-        spec = importlib.util.find_spec("matplotlib")
-        path = None if spec is None or spec.origin is None else os.path.join(
-            os.path.dirname(spec.origin), "mpl-data", "fonts", "ttf",
-            "DejaVuSans.ttf")
-        if path is not None and os.path.exists(path):
-            with open(path, "rb") as fh:
-                _FONT_DATA.append(fh.read())
-        else:
-            print("[vgtpu_torch.demo_ui] WARNING: no UI font found; benchmark text "
-                  "will be missing (metric measures a lighter scene)",
-                  file=sys.stderr)
-            _FONT_DATA.append(None)
+        _FONT_DATA.append(UI_FONT.read_bytes())
     data = _FONT_DATA[0]
-    if data is None:
-        ctx._demo_ui_font = None
-        return None
     ctx._demo_ui_font = vg.createFont(ctx, "ui-sans", data, len(data), 0)
     return ctx._demo_ui_font
 
@@ -72,11 +55,9 @@ def draw_window(ctx, title, x, y, w, h):
     vg.moveTo(ctx, x + 0.5, y + 0.5 + 30)
     vg.lineTo(ctx, x + 0.5 + w - 1, y + 0.5 + 30)
     vg.strokePath(ctx, vg.color4ub(0, 0, 0, 60), 1.0, vg.StrokeFlags.ButtMiterAA)
-    f = _font(ctx)
-    if f is not None:
-        cfg = vg.makeTextConfig(ctx, f, 16.0, vg.TextAlign.MiddleCenter,
-                                vg.color4ub(220, 220, 220, 200))
-        vg.text(ctx, cfg, x + w / 2, y + 16, title)
+    cfg = vg.makeTextConfig(ctx, _font(ctx), 16.0, vg.TextAlign.MiddleCenter,
+                            vg.color4ub(220, 220, 220, 200))
+    vg.text(ctx, cfg, x + w / 2, y + 16, title)
 
 
 def draw_button(ctx, label, x, y, w, h, color):
@@ -90,11 +71,9 @@ def draw_button(ctx, label, x, y, w, h, color):
     vg.beginPath(ctx)
     vg.roundedRect(ctx, x + 0.5, y + 0.5, w - 1, h - 1, 4.5)
     vg.strokePath(ctx, vg.color4ub(0, 0, 0, 120), 1.0, vg.StrokeFlags.ButtMiterAA)
-    f = _font(ctx)
-    if f is not None:
-        cfg = vg.makeTextConfig(ctx, f, 15.0, vg.TextAlign.MiddleCenter,
-                                vg.color4ub(255, 255, 255, 200))
-        vg.text(ctx, cfg, x + w / 2, y + h / 2, label)
+    cfg = vg.makeTextConfig(ctx, _font(ctx), 15.0, vg.TextAlign.MiddleCenter,
+                            vg.color4ub(255, 255, 255, 200))
+    vg.text(ctx, cfg, x + w / 2, y + h / 2, label)
 
 
 def draw_slider(ctx, pos, x, y, w, h):
@@ -183,7 +162,6 @@ def draw_clipped_pattern(ctx, x, y, w, h, t):
 def draw_demo_ui(ctx, t: float = 0.0, x0: float = 980.0, y0: float = 40.0) -> None:
     """The UI half of the benchmark frame."""
     draw_window(ctx, "Widgets & Layout", x0, y0, 420, 840)
-    f = _font(ctx)
     yy = y0 + 50
     for i, label in enumerate(["Login", "Delete", "Cancel", "Apply"]):
         col = [
@@ -203,16 +181,15 @@ def draw_demo_ui(ctx, t: float = 0.0, x0: float = 980.0, y0: float = 40.0) -> No
     yy += 120
     draw_clipped_pattern(ctx, x0 + 20, yy, 380, 80, t)
 
-    if f is not None:
-        cfg = vg.makeTextConfig(ctx, f, 13.0, vg.TextAlign.TopLeft,
-                                vg.color4ub(200, 200, 200, 160))
-        vg.textBox(
-            ctx, cfg, x0 + 20, y0 + 790,
-            380.0,
-            "The quick brown fox jumps over the lazy dog while the renderer "
-            "wraps, kerns and caches every glyph.",
-            None, 0,
-        )
+    cfg = vg.makeTextConfig(ctx, _font(ctx), 13.0, vg.TextAlign.TopLeft,
+                            vg.color4ub(200, 200, 200, 160))
+    vg.textBox(
+        ctx, cfg, x0 + 20, y0 + 790,
+        380.0,
+        "The quick brown fox jumps over the lazy dog while the renderer "
+        "wraps, kerns and caches every glyph.",
+        None, 0,
+    )
 
 
 def draw_benchmark_frame(ctx, t: float = 0.0) -> None:
