@@ -31,8 +31,8 @@ plain twins on the CPU).
 
 from __future__ import annotations
 
+import contextlib
 import math
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -416,6 +416,7 @@ class Context:
                 supersample=self.cfg.coverage_supersample,
                 bin_cache=self._bin_cache if self.cfg.incremental_bin else None,
                 depth_cap=self.cfg.max_ops_per_tile_cap,
+                profiler=prof,
             )
             if self.cfg.incremental_bin:
                 prof.count("bin_hits", self._bin_cache.get("hits", 0))
@@ -774,12 +775,14 @@ class Context:
         with prof.stage("patch.put"):
             entry_paint = torch.as_tensor(plan.entry_paint).to(self.device)
             patch_bucket_paint(d["bucket_params"], d["bucket_te"], entry_paint)
-            nbytes = plan.entry_paint.nbytes
+            nbytes, copies = plan.entry_paint.nbytes, 1
             if ct_flat is not None:
                 if isinstance(ct_flat, np.ndarray):
                     nbytes += ct_flat.nbytes
+                    copies += 1
                 d["ct_flat"] = torch.as_tensor(ct_flat).to(self.device)
         prof.count("upload_bytes", nbytes)
+        prof.count("upload_copies", copies)
         return True
 
     def _fill_textures(self, plan, ops=None) -> None:
@@ -1654,12 +1657,14 @@ class Context:
     def text(self, cfg, x, y, s) -> None:
         from vgtpu_torch.fonts.system import ctx_text
 
-        ctx_text(self, cfg, x, y, s)
+        with self.profiler.stage("record.text"):
+            ctx_text(self, cfg, x, y, s)
 
     def textBox(self, cfg, x, y, break_width, s, flags=0) -> None:
         from vgtpu_torch.fonts.system import ctx_text_box
 
-        ctx_text_box(self, cfg, x, y, break_width, s, flags)
+        with self.profiler.stage("record.text"):
+            ctx_text_box(self, cfg, x, y, break_width, s, flags)
 
     # -- misc ---------------------------------------------------------------
     def getStats(self) -> Stats:
@@ -1726,7 +1731,7 @@ def renderFrames(ctxs, backgrounds=None):
     frames into one XLA program; here their kernels launch back to back on
     the current stream with no synchronisation in between, so the device
     runs the K frames as one stream of work.  Each profiler records the
-    total host time under "fused_dispatch"."""
+    total host time as its stage "fused_dispatch"."""
     ctxs = list(ctxs)
     if backgrounds is None:
         backgrounds = [c.background for c in ctxs]
@@ -1741,17 +1746,17 @@ def renderFrames(ctxs, backgrounds=None):
             raise ValueError("a context was begun but not ended this frame: "
                              "its resident plan is STALE — call "
                              "end(ctx, dispatch=False) before renderFrames")
-    t0 = time.perf_counter()
-    imgs = tuple(
-        execute_plan(c.last_plan, bg, device_arrays=c.last_device_arrays,
-                     init_tiles=(c._layer_render.materialize()
-                                 if isinstance(c._layer_render, PendingPanLayer)
-                                 else c._layer_render))
-        for c, bg in zip(ctxs, backgrounds))
-    dt = (time.perf_counter() - t0) * 1e3
+    with contextlib.ExitStack() as stages:
+        for c in ctxs:
+            stages.enter_context(c.profiler.stage("fused_dispatch"))
+        imgs = tuple(
+            execute_plan(c.last_plan, bg, device_arrays=c.last_device_arrays,
+                         init_tiles=(c._layer_render.materialize()
+                                     if isinstance(c._layer_render, PendingPanLayer)
+                                     else c._layer_render))
+            for c, bg in zip(ctxs, backgrounds))
     for c, img in zip(ctxs, imgs):
         c.frame_image = img
-        c.profiler.times_ms["fused_dispatch"] += dt
     return imgs
 
 

@@ -24,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from vgtpu_torch.utils.profiler import stage_of
+
 # op kinds in the linearized per-tile command stream
 K_DRAW = 0
 K_CLIP_ADD = 1      # rasterize a clip shape into the clip accumulator
@@ -597,7 +599,7 @@ _POP_KEYS = ("kind", "rule", "aa", "paint_kind", "paint", "scissor")
 
 
 def bin_frame_incremental(ops, width, height, tile_h, tile_w, pools,
-                          cache: dict):
+                          cache: dict, profiler=None):
     """Native binning with a frame-over-frame run cache: ops positionally
     identical to the previous frame reuse that frame's binning result as
     contiguous slices; only changed ops go through the native binner.  The
@@ -605,11 +607,13 @@ def bin_frame_incremental(ops, width, height, tile_h, tile_w, pools,
     frame re-bins only what moved (~3x cheaper than a full bin at 7% churn
     on the benchmark scene).  Falls back to a full native bin — while still
     priming the cache — when the op count changes (scene-graph edits) or the
-    native backend is unavailable (returns None)."""
+    native backend is unavailable (returns None).  profiler: optional
+    FrameProfiler; each native call is its stage bin.native."""
     from vgtpu_torch import native
 
     if not native.available():
         return None
+    stage = stage_of(profiler)
     meta = (width, height, tile_h, tile_w, tuple(pools))
     keys = [_op_bin_key(op) for op in ops]
     prev_keys = cache.get("keys")
@@ -620,15 +624,17 @@ def bin_frame_incremental(ops, width, height, tile_h, tile_w, pools,
     cache["hits"] = int(match.sum())
 
     if not match.any():
-        raw = native.bin_frame_native(ops, width, height, tile_h, tile_w, pools)
+        with stage("bin.native"):
+            raw = native.bin_frame_native(ops, width, height, tile_h, tile_w, pools)
         if raw is None:
             return None
     else:
         prev_raw, prev_off = cache["raw"], cache["off"]
         misses = np.nonzero(~match)[0]
         if len(misses):
-            raw_new = native.bin_frame_native(
-                [ops[i] for i in misses], width, height, tile_h, tile_w, pools)
+            with stage("bin.native"):
+                raw_new = native.bin_frame_native(
+                    [ops[i] for i in misses], width, height, tile_h, tile_w, pools)
             if raw_new is None:
                 return None
             new_off = _raw_op_offsets(raw_new, [ops[i] for i in misses])
@@ -741,13 +747,17 @@ def bin_frame(
     supersample: int = 1,
     bin_cache: dict | None = None,
     depth_cap: int = 256,
+    profiler=None,
 ) -> FramePlan:
     """Coarse-rasterize a frame.  backend: 'auto' uses the native C++ engine
     when built (vgtpu_torch/native), 'numpy' forces the reference implementation
     (single chunk pool of `chunk` edges — the oracle layout).
 
     supersample > 1: y geometry is scaled into sub-row units and tiles carry
-    tile_h*ss sub-rows (conflation-free coverage, see ContextConfig)."""
+    tile_h*ss sub-rows (conflation-free coverage, see ContextConfig).
+
+    profiler: optional FrameProfiler; each native binner call is its
+    stage bin.native."""
     for op in ops:
         if isinstance(op.edges, list):   # finalize merged draw batches
             op.edges = np.concatenate(op.edges, axis=0)
@@ -781,9 +791,10 @@ def bin_frame(
         raw = None
         if bin_cache is not None:
             raw = bin_frame_incremental(
-                ops, width, h_ss, th_ss, tile_w, pools, bin_cache)
+                ops, width, h_ss, th_ss, tile_w, pools, bin_cache, profiler)
         if raw is None:
-            raw = native.bin_frame_native(ops, width, h_ss, th_ss, tile_w, pools)
+            with stage_of(profiler)("bin.native"):
+                raw = native.bin_frame_native(ops, width, h_ss, th_ss, tile_w, pools)
         if raw is not None:
             return remap(_assemble_native(raw, width, h_ss, th_ss, tile_w, color_tiles))
     return remap(bin_frame_numpy(expand_tri_batches(ops), width, h_ss, th_ss,

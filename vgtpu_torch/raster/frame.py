@@ -16,8 +16,6 @@ cache, the fused-platform gate) have no counterpart here.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -46,6 +44,7 @@ from vgtpu_torch.ops.coverage_resolve import (
 )
 from vgtpu_torch.raster.binning import PAINT_NF, FramePlan, compute_tile_buckets
 from vgtpu_torch.raster.resolve import build_resolve_aux, build_resolve_split
+from vgtpu_torch.utils.profiler import stage_of
 
 
 def _bucket128(n: int) -> int:
@@ -231,9 +230,10 @@ def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
     are built on the host (build_bucket_aux), bit-identical to vgtpu's
     device-side build_bucket_params_jnp, so no device expansion runs.
 
-    profiler: optional FrameProfiler for sub-stage attribution (upload.*)."""
-    stage = profiler.stage if profiler is not None else (
-        lambda _n: contextlib.nullcontext())
+    profiler: optional FrameProfiler for sub-stage attribution (upload.*),
+    the bytes put (upload_bytes) and the host-to-device copies issued
+    (upload_copies, one per numpy array)."""
+    stage = stage_of(profiler)
     with stage("upload.resolve_split"):
         _prepare_plan(plan)
     with stage("upload.aux"):
@@ -244,9 +244,11 @@ def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
         d = {k: _put(v, device) for k, v in arrays.items()}
         d["bucket_flags"] = host["bucket_flags"]
     if profiler is not None:
-        # device-sampled colour tiles are already on the device
-        profiler.count("upload_bytes", sum(x.nbytes for x in _leaves(arrays)
-                                           if isinstance(x, np.ndarray)))
+        # device-sampled colour tiles are already on the device: neither
+        # bytes nor a copy
+        put = [x for x in _leaves(arrays) if isinstance(x, np.ndarray)]
+        profiler.count("upload_bytes", sum(x.nbytes for x in put))
+        profiler.count("upload_copies", len(put))
     return d
 
 

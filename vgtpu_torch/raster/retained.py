@@ -261,11 +261,13 @@ class RetainedScene:
     host work on the scene: integer (or fractional-x: smooth horizontal
     scrolling) offsets in render() and render_views().  Build with
     `bake(ctx)` after recording a frame (begin ... draw calls ... bake
-    instead of end); the scene lives on ctx.device."""
+    instead of end); the scene lives on ctx.device.  Its renders report
+    the pan's stages to `profiler`, the baking context's (`ctx.profiler`)."""
 
     def __init__(self, plan, d: dict, device, out_w: int, out_h: int,
-                 background, off=(0, 0)):
+                 background, off=(0, 0), *, profiler):
         self.plan = plan
+        self.profiler = profiler
         self.d = d
         self.device = torch.device(device)
         self.out_w = out_w
@@ -433,7 +435,7 @@ class RetainedScene:
             d["samp_texs"] = samp["texs"]
             d["samp_clipmask"] = samp["clipmask"]
         scene = RetainedScene(plan, d, dev, ctx.fb_width, ctx.fb_height,
-                              background, off=(offx, offy))
+                              background, off=(offx, offy), profiler=ctx.profiler)
         scene._ops_fp = ops_fp
         scene._op_solid_cls = solid_cls
         if samp is not None:
@@ -583,47 +585,59 @@ class RetainedScene:
         coverage of the shifted pools (K1 + the fold, or the plain twin)
         and the colour tiles in K2's layout (resampled at the shifted tile
         origins when the scene is textured); the bucket params are patched
-        in place for this offset."""
+        in place for this offset.  Stages pan.shift, pan.coverage,
+        pan.patch and pan.resample."""
         d = self.d
         th, tw, ss = self.tile_h, self.tile_w, self.ss
-        # residual: content moves left/up by (rx, ry); pad rows keep
-        # y0 == y1, so they still add exactly zero
-        edges = d["edges"].sub(d["ux"], alpha=rx).sub_(d["uy"], alpha=float(ry))
-        pools, k0 = [], 0
-        for shape in d["pool_shapes"]:
-            n = shape[0] * shape[1]
-            pools.append(edges[k0 : k0 + n].view(shape))
-            k0 += n
-        resolve = cov_all_resolved_torch if plain else cov_all_resolved
-        cov = resolve(pools, d["cov_map"], th, tw)
-        self._patch_params(rx, ry)
+        stage = self.profiler.stage
+        with stage("pan.shift"):
+            # residual: content moves left/up by (rx, ry); pad rows keep
+            # y0 == y1, so they still add exactly zero
+            edges = d["edges"].sub(d["ux"], alpha=rx).sub_(d["uy"], alpha=float(ry))
+            pools, k0 = [], 0
+            for shape in d["pool_shapes"]:
+                n = shape[0] * shape[1]
+                pools.append(edges[k0 : k0 + n].view(shape))
+                k0 += n
+        with stage("pan.coverage"):
+            resolve = cov_all_resolved_torch if plain else cov_all_resolved
+            cov = resolve(pools, d["cov_map"], th, tw)
+        with stage("pan.patch"):
+            self._patch_params(rx, ry)
         if self.samp_meta is None:
             return cov, d["ct_flat"]
         from vgtpu_torch.ops.sampling_device import sample_groups
 
-        # the sampler works on OUTPUT pixels: the y residual is ry/ss
-        tiles = sample_groups(d["samp_arrs"], d["samp_texs"], d["samp_clipmask"],
-                              meta=self.samp_meta, th=th // ss, tw=tw,
-                              num_tiles=self.samp_nct, shift=(rx, ry / ss))
-        return cov, flat_color_tiles(tiles)
+        with stage("pan.resample"):
+            # the sampler works on OUTPUT pixels: the y residual is ry/ss
+            tiles = sample_groups(d["samp_arrs"], d["samp_texs"], d["samp_clipmask"],
+                                  meta=self.samp_meta, th=th // ss, tw=tw,
+                                  num_tiles=self.samp_nct, shift=(rx, ry / ss))
+            return cov, flat_color_tiles(tiles)
 
     def _render(self, vx: int, vy: int, rx: float, ry: int, background,
                 plain: bool = False, tiles_only: bool = False) -> torch.Tensor:
         """One pan frame: vgtpu's chunk-gather pan body (_render_pan_body
-        with pan_chunk_gather) then _pan_epilogue."""
+        with pan_chunk_gather) then _pan_epilogue; stage pan, holding the
+        stages of _pan_inputs, pan.composite and pan.window."""
         d, plan = self.d, self.plan
         th, tw, ss = self.tile_h, self.tile_w, self.ss
         th_out = th // ss
-        cov, ct_flat = self._pan_inputs(rx, ry, plain)
-        kw = {"bucket_fn": composite_bucket_into_torch} if plain else {}
-        fb = frame_fb(cov, d["bucket_ids"], d["bucket_pteb"], d["bucket_params"],
-                      d["bucket_ctile"], ct_flat, background, tile_h=th, tile_w=tw,
-                      num_tiles=plan.ntx * plan.nty, bucket_flags=d["bucket_flags"],
-                      ss=ss, **kw)
-        return _pan_epilogue(fb, background, vx, vy, NTX=plan.ntx, NTY=plan.nty,
-                             ntx_o=-(-self.out_w // tw), nty_o=-(-self.out_h // th_out),
-                             th_out=th_out, tw=tw, out_w=self.out_w, out_h=self.out_h,
-                             tiles_only=tiles_only)
+        stage = self.profiler.stage
+        with stage("pan"):
+            cov, ct_flat = self._pan_inputs(rx, ry, plain)
+            kw = {"bucket_fn": composite_bucket_into_torch} if plain else {}
+            with stage("pan.composite"):
+                fb = frame_fb(cov, d["bucket_ids"], d["bucket_pteb"], d["bucket_params"],
+                              d["bucket_ctile"], ct_flat, background, tile_h=th,
+                              tile_w=tw, num_tiles=plan.ntx * plan.nty,
+                              bucket_flags=d["bucket_flags"], ss=ss, **kw)
+            with stage("pan.window"):
+                return _pan_epilogue(fb, background, vx, vy, NTX=plan.ntx, NTY=plan.nty,
+                                     ntx_o=-(-self.out_w // tw),
+                                     nty_o=-(-self.out_h // th_out), th_out=th_out,
+                                     tw=tw, out_w=self.out_w, out_h=self.out_h,
+                                     tiles_only=tiles_only)
 
 
 def _param_views(flat: torch.Tensor, shapes) -> list:
