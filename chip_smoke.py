@@ -124,11 +124,13 @@ Phases (any failure raises and the process exits non-zero):
      clamp, linear and nearest, one rotated: the gather fallback) through
      end() with ContextConfig(device_sampling=True) against
      device_sampling=False (the numpy sampler), within 1 u8 level; the
-     colour tiles against the same sampler on the CPU (CT_BOUND) and the
-     numpy sampler (CT_NUMPY_BOUND); the frame again (one ct_memo_hit, the
-     same image); the textures stage's host ms of both samplers and the
-     device sampler's device ms; the steady textured frame's CPU trace,
-     which must hold no host-side wait.
+     colour tiles (kernel S1's, one launch) against the same sampler on the
+     CPU (S1_BOUND) and the numpy sampler (CT_NUMPY_BOUND), and S1 against
+     its twin on the card on the frame's groups at S1_SHIFTS (S1_BOUND);
+     the frame again (one ct_memo_hit, the same image, no S1 launch); the
+     textures stage's host ms of both samplers, S1's and the twin's device
+     ms; the steady textured frame's CPU trace, which must hold no
+     host-side wait.
   10b. The retained pan: the 1080p frame baked over PAN_SCENE at ss = 1 and
      2 and the [10a] frame at ss=1 (RetainedScene.bake), each PAN_VIEWS
      view through render() (K1 + the fold, K2 (a) at ss=1, (d) on every
@@ -157,10 +159,14 @@ Phases (any failure raises and the process exits non-zero):
   12. Text on the card (phase_12): the 1080p frame with its text at ss = 1
      and 2, each in a fresh context; no font library in sys.modules, the
      glyph atlas on the host and on the card against ATLAS_SHA256, the
-     glyph-quad colour tiles against the same sampler on the CPU
-     (CT_BOUND), the launch counts and the frame against the plain twins
+     glyph-quad colour tiles (S1's) against the same sampler on the CPU
+     (S1_BOUND), the launch counts and the frame against the plain twins
      (U8_BOUND); the first and a steady frame's recording host ms, the
-     textures and upload stages, the steady frame's ms, launches and busy.
+     textures and upload stages, the steady frame's ms, launches and busy;
+     the frame baked as the scroll cells bake it (PAN_SCENE), its glyph
+     resample through S1 against the twin on the card at S1_SHIFTS
+     (S1_BOUND), S1 alone and the twin alone (CUDA events) beside S1's
+     bound, and S1's launches over PAN_VIEWS (one a view).
   6. Times (CUDA events, median of 12 runs after warm-up): the steady frame
      from resident arrays at ss=1 and ss=2, K1, K2 (each form) and K3 beside
      their plain twins; each kernel's device time per steady frame and the
@@ -203,7 +209,7 @@ Phases (any failure raises and the process exits non-zero):
      kernels.
 
 The last two lines are the kernels' JSON record (K1, K2's forms (a)-(e),
-K3-K8: launches on the main paths, error against the twin, times, and the
+K3-K8; S1 is timed in [12]: launches on the main paths, error against the twin, times, and the
 bound from this run's shapes; K2's pipeline depth and shared bytes; K1's
 and K2's launches include the pan's) and the contract line
 {"ok": true, "device": {...}}.  Imports neither jax nor vgtpu, and no font
@@ -475,10 +481,16 @@ def k7_sweep_buckets(pool, sms: int) -> list:
 # partly off the scene
 PAN_SCENE = (2560, 1440)
 PAN_VIEWS = ((0, 0), (37, 5), (-45, -13), (128.5, 8), (1200, 900))
-# [10a] colour tiles, the device sampler against the same sampler on the
-# CPU: the same float32 roundings (explicit FMAs in both), the products'
-# accumulation order apart
-CT_BOUND = 2e-5
+# [10a], [12] colour tiles: kernel S1 (csrc/sample_tiles.cu) against the twin (sample_groups): the
+# same weights and texel coordinates with the same float32 roundings, the
+# separable product summed over two taps where the twin's matrix products
+# sum whole texture rows of mostly zero weights: a few float32 ulps of the
+# summation order on tiles in [0, 1]
+S1_BOUND = 1e-5
+# residuals (rx, ry in output pixels) S1 is held at: x near 0, the scroll
+# cells' fractional step, x near one tile; y on whole sub-rows
+S1_SHIFTS = ((0.0, 0.0), (0.0001, 0.5), (7.37, 1.0), (63.5, 3.5), (127.99, 0.0),
+             (127.9999, 7.5))
 # ... and against the numpy sampler, which computes texel coordinates in
 # float64: the device sampler's float32 u = m0*x + m4 cancels two terms
 # near 15-20 (x up to 1,900 px over a 96-px pattern), each within half an
@@ -547,9 +559,12 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
     on the CPU; the textures stage's times, the colour-tile memo and the
     steady frame's host waits."""
     import torch
+    from vgtpu_torch.ops.sampling_cuda import sample_tiles_cuda
     from vgtpu_torch.ops.sampling_device import (
         build_sampling_plan,
         sample_color_tiles_device,
+        sample_tiles_flat,
+        upload_groups,
     )
     from vgtpu_torch.raster.sampling import fill_color_tiles
     from vgtpu_torch.scenes import demo_ui
@@ -608,17 +623,32 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
     err_np = float(np.abs(ct_d.cpu().numpy() - ct_h).max())
     groups = [(g.kind, g.separable, g.flags, len(g.ct)) for g in sp.groups]
     print(f"[10a] sampling groups (kind, separable, flags, K): {groups}")
-    print(f"[10a] colour tiles: max|card - the same sampler on the CPU| = {err_cpu:.3e} "
-          f"(bound {CT_BOUND:.0e}); max|card - numpy sampler| = {err_np:.3e} (bound "
-          f"{CT_NUMPY_BOUND:.0e}, float32 texel coordinates)")
-    if not (err_cpu <= CT_BOUND and err_np <= CT_NUMPY_BOUND):
+    print(f"[10a] colour tiles (S1): max|card - the same sampler on the CPU| = "
+          f"{err_cpu:.3e} (bound {S1_BOUND:.0e}); max|card - numpy sampler| = "
+          f"{err_np:.3e} (bound {CT_NUMPY_BOUND:.0e}, float32 texel coordinates)")
+    if not (err_cpu <= S1_BOUND and err_np <= CT_NUMPY_BOUND):
         raise AssertionError(f"[10a] colour tiles off: {err_cpu}, {err_np}")
-    check_path("sampled frame", counts, ("K1", "K2", "K2 (a)"),
+    check_path("sampled frame", counts, ("K1", "K2", "K2 (a)", "S1"),
                [(imgs[True], imgs[False]), (again_d, imgs[True])], tag="[10a]")
+    if counts["S1"] != 1:
+        raise AssertionError(f"[10a] the sampled frame launched S1 {counts['S1']} times")
+
+    # S1 against its twin on the card, on the frame's groups at the residuals
+    texs = tuple(tex[g.image_id] for g in sp.groups)
+    g_dev = upload_groups(sp, texs, texs[0].device)
+    err_s1 = max(float((sample_tiles_flat(g_dev, th=8, tw=128, shift=sh)
+                        - sample_tiles_flat(g_dev, th=8, tw=128, shift=sh, plain=True))
+                       .abs().max()) for sh in S1_SHIFTS)
+    print(f"[10a] S1 against its twin on the card, the frame's groups at {S1_SHIFTS}: "
+          f"max|diff| = {err_s1:.3e} (bound {S1_BOUND:.0e})")
+    if not err_s1 <= S1_BOUND:
+        raise AssertionError(f"[10a] S1 disagrees with its twin: {err_s1}")
 
     # the sampler alone: CUDA events around one run (its one upload of the
     # group params included), the numpy sampler on the host clock
     ms_dev = time_ms(lambda: sample_color_tiles_device(sp, tex, 8, 128))
+    ms_s1 = time_ms(lambda: sample_tiles_cuda(g_dev, 8, 128))
+    ms_twin = time_ms(lambda: sample_tiles_flat(g_dev, th=8, tw=128, plain=True))
     plan_h = ch.last_plan
     t_np = []
     for _ in range(3):
@@ -630,9 +660,9 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
         print(f"[10a] textures stage, {name}: {stage_ms[ds][0]:.3f} ms host on the first "
               f"frame, {stage_ms[ds][1]:.3f} on the same frame again (its memo), "
               f"{stage_ms[ds][2]:.3f} with the panels moved (host clock; {card})")
-    print(f"[10a] sampler alone: device {ms_dev:.4f} ms (CUDA events, median of 12); "
-          f"numpy, no tile cache {statistics.median(t_np):.3f} ms host (median of 3; "
-          f"{card})")
+    print(f"[10a] sampler alone: upload + S1 {ms_dev:.4f} ms, S1 {ms_s1:.4f} ms, its "
+          f"twin on the card {ms_twin:.4f} ms (CUDA events, median of 12); numpy, no "
+          f"tile cache {statistics.median(t_np):.3f} ms host (median of 3; {card})")
 
     # the steady textured frame (a frame-memo hit) holds no host-side wait
     cm = vg.createContext(device="cuda")
@@ -648,7 +678,8 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
           f"{waits['waits']}; {waits['launch_events'] / 5:g} kernel launches per frame")
     if waits["waits"]:
         raise AssertionError(f"[10a] the steady textured frame waits on the host: {waits}")
-    return {"stage_ms": stage_ms, "sampler_ms": ms_dev,
+    return {"stage_ms": stage_ms, "sampler_ms": ms_dev, "s1_ms": ms_s1,
+            "s1_twin_ms": ms_twin,
             "numpy_ms": statistics.median(t_np), "ct_err": (err_cpu, err_np)}
 
 
@@ -998,21 +1029,29 @@ def phase_12(vg, card, zero_counts, read_counts, check_path) -> None:
     library in sys.modules; the glyph atlas on the host and its copy on the
     card against ATLAS_SHA256 (vgtpu's atlas, pinned on the CPU); the
     sampler's glyph-quad groups on the card against the same groups on the
-    CPU (CT_BOUND); the launch counts and the frame against the plain twins
+    CPU (S1_BOUND); the launch counts and the frame against the plain twins
     (U8_BOUND).  Prints the host ms of recording the first frame (font
     parse and glyph bake) and a steady one, the textures and upload stages,
-    and the steady frame's ms (CUDA events), launches and device busy."""
+    and the steady frame's ms (CUDA events), launches and device busy.
+    Then the frame baked over PAN_SCENE, as the scroll cells bake it: the
+    glyph resample through S1 against its twin on the card at S1_SHIFTS
+    (S1_BOUND), S1's and the twin's ms alone (CUDA events, and S1's device
+    ms from torch.profiler) beside S1's bound (its output bytes), and one S1
+    launch a PAN_VIEWS view."""
     import dataclasses
     import hashlib
 
     import torch
     from vgtpu_torch.fonts.fontstash import ATLAS_IMAGE_ID
+    from vgtpu_torch.ops.sampling_cuda import sample_tiles_cuda
     from vgtpu_torch.ops.sampling_device import (
         build_sampling_plan,
         sample_color_tiles_device,
+        sample_tiles_flat,
     )
     from vgtpu_torch.raster.binning import P_TEXTURE
     from vgtpu_torch.raster.frame import execute_plan_torch
+    from vgtpu_torch.raster.retained import RetainedScene
     from vgtpu_torch.scenes import demo_ui
 
     def sha(a) -> str:
@@ -1079,14 +1118,14 @@ def phase_12(vg, card, zero_counts, read_counts, check_path) -> None:
         groups = [(g.separable, g.flags, len(g.ct)) for g in sp.groups]
         print(f"[12] {tag}: glyph-quad groups (separable, flags, K) {groups} over "
               f"{len(rows)} colour tiles: max|card - CPU| = {err_ct:.3e} "
-              f"(bound {CT_BOUND:.0e})")
-        if not err_ct <= CT_BOUND:
+              f"(bound {S1_BOUND:.0e})")
+        if not err_ct <= S1_BOUND:
             raise AssertionError(f"[12] {tag}: glyph-quad colour tiles {err_ct} off")
 
         ref = execute_plan_torch(c.last_plan, c.background,
                                  device_arrays=c.last_device_arrays)
-        need = ("K1", "K2", "K2 (a)") if ss == 1 else ("K1", "K2", "K3", "K2 (d)",
-                                                       "K2 (e)")
+        need = ("K1", "K2", "K2 (a)", "S1") if ss == 1 else ("K1", "K2", "K3", "K2 (d)",
+                                                             "K2 (e)", "S1")
         check_path(tag, counts, need, [(img, ref)], tag="[12]")
 
         # a steady frame: glyphs baked, colour tiles from the memo
@@ -1109,6 +1148,46 @@ def phase_12(vg, card, zero_counts, read_counts, check_path) -> None:
               f"frame {per_frame} ({card})")
         print(f"[12] {tag}: device ms per steady frame: " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:8]))
+
+        # the scroll cells' scene: the glyph resample through S1
+        record()
+        scene = RetainedScene.bake(c, *PAN_SCENE, background=BG_APP)
+        samp, th_o, tw = scene.d["samp"], scene.tile_h // ss, scene.tile_w
+        err_pan = max(float((sample_tiles_flat(samp, th=th_o, tw=tw, shift=sh)
+                             - sample_tiles_flat(samp, th=th_o, tw=tw, shift=sh,
+                                                 plain=True)).abs().max())
+                      for sh in S1_SHIFTS)
+
+        def s1():
+            return sample_tiles_cuda(samp, th_o, tw, (7.37, 1.0))
+
+        def twin():
+            return sample_tiles_flat(samp, th=th_o, tw=tw, shift=(7.37, 1.0), plain=True)
+
+        ms_s1, ms_twin = time_ms(s1), time_ms(twin)
+        by1, calls1, _busy, _window = device_breakdown(s1, 10)
+        by2, calls2, _busy, _window = device_breakdown(twin, 10)
+        out_bytes = (samp.num_tiles + 1) * 4 * th_o * tw * 4
+        bound_ms = bound(out_bytes, 0)[0]
+        zero_counts()
+        for v in PAN_VIEWS:
+            scene.render(*v)
+        n_pan = read_counts()["S1"]
+        print(f"[12] {tag}: scroll scene ({PAN_SCENE}) glyph resample, {samp.num_tiles} "
+              f"colour tiles, {samp.n_pairs} (entry, quad) pairs: S1 against its twin on "
+              f"the card at {S1_SHIFTS}: max|diff| = {err_pan:.3e} (bound "
+              f"{S1_BOUND:.0e}); S1 {ms_s1:.4f} ms [device {by1.get('S1', 0.0):.4f}, "
+              f"{calls1.get('S1', 0.0):g} launch a call], twin {ms_twin:.4f} ms [device "
+              f"{sum(by2.values()):.4f}, {sum(calls2.values()):g} launches a call] (CUDA "
+              f"events, median of 12 [torch.profiler]); S1's bound {bound_ms:.5f} ms "
+              f"({out_bytes} output bytes at {PEAK_BYTES / 1e12:.2f} TB/s); S1 launches "
+              f"over {len(PAN_VIEWS)} views: {n_pan} ({card})")
+        if not err_pan <= S1_BOUND:
+            raise AssertionError(f"[12] {tag}: S1 disagrees with its twin on the scroll "
+                                 f"scene: {err_pan}")
+        if n_pan != len(PAN_VIEWS):
+            raise AssertionError(f"[12] {tag}: {n_pan} S1 launches over "
+                                 f"{len(PAN_VIEWS)} pan views")
 
 
 def phase_11b(card) -> dict:
@@ -1273,7 +1352,8 @@ def device_breakdown(run, frames: int = 10, zero=None):
              ("resolve_rows_kernel", "K3 rows"), ("composite_final_kernel", "K2 (e)"),
              ("composite_bucket_kernel", "K2 (a)/(d)"),
              ("coverage_t_flat_", "K5"), ("coverage_slots_", "K6"),
-             ("composite_flat_kernel", "K7"), ("probe_affine_kernel", "K8"))
+             ("composite_flat_kernel", "K7"), ("probe_affine_kernel", "K8"),
+             ("sample_tiles_kernel", "S1"))
     by, calls = {}, {}
     for e in ev:
         key = next((k for n, k in names if n in e.name), e.name[:48])
@@ -1372,6 +1452,7 @@ def main() -> int:
         coverage_t_cuda,
         coverage_t_flat_cuda,
         probe_cuda,
+        sampling_cuda,
     )
     from vgtpu_torch.ops.composite import (
         composite_bucket_into_torch,
@@ -1444,7 +1525,8 @@ def main() -> int:
     K1, K2, K3 = coverage_cuda.K1, composite_cuda.K2, coverage_resolve_cuda.K3
     kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": coverage_t_cuda.K4,
                "K5": coverage_t_flat_cuda.K5, "K6": coverage_slots_cuda.K6,
-               "K7": composite_flat_cuda.K7, "K8": probe_cuda.K8}
+               "K7": composite_flat_cuda.K7, "K8": probe_cuda.K8,
+               "S1": sampling_cuda.S1}
     form_launches = composite_cuda.FORM_LAUNCHES
 
     def zero_counts():

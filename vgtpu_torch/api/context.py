@@ -814,7 +814,8 @@ class Context:
         plan on the host, then one sampler run on self.device, skipped when
         the 4-entry LRU _ct_memo holds the same sampling payload (text and
         pattern tiles of a steady UI loop are frame-static even when the
-        geometry around them animates; ct_memo_hits counts the hits)."""
+        geometry around them animates; ct_memo_hits counts the hits).  On
+        CUDA the run is one S1 launch (sample_kernel_launches counts them)."""
         import zlib
 
         from vgtpu_torch.ops.sampling_device import (
@@ -860,7 +861,8 @@ class Context:
             return
         tex = self._device_textures(image_map, needed)
         ct = sample_color_tiles_device(
-            sp, tex, plan.tile_h // plan.supersample, plan.tile_w)
+            sp, tex, plan.tile_h // plan.supersample, plan.tile_w,
+            profiler=self.profiler)
         plan.color_tiles = ct
         memo[key] = ct
         while len(memo) > 4:

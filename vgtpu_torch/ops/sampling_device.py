@@ -25,6 +25,14 @@ into the colour.
 
 The host sampler (raster/sampling.py) stays the oracle: tests hold the two
 to the same tolerance vgtpu's own test does.
+
+On CUDA the sampler is kernel S1 (csrc/sample_tiles.cu, ops/sampling_cuda.py):
+one launch for every group, tile-major, two taps per axis instead of dense
+weights, written straight into K2's colour-tile layout.  upload_groups
+packs what S1 reads (build_tile_index: each tile's pairs in index_add_'s
+order, the group table) into the same one host-to-device copy as the
+groups; sample_tiles_flat routes CUDA groups to S1 and CPU groups, or
+plain=True on any device, to sample_groups, which stays S1's twin.
 """
 
 from __future__ import annotations
@@ -263,22 +271,101 @@ def _sample_gather(tex, u, v, flags: int):
     return fma(p11 * fx, fy, acc)
 
 
-def upload_groups(sp: SamplingPlan, device) -> tuple:
-    """The plan's groups on `device` as (params (K, 12), color (K, 4), ct
-    (K,) int64) tensor triples, from ONE host-to-device copy of all groups
-    packed side by side (ct ids travel as exact float32)."""
-    if not sp.groups:
-        return ()
-    packed = np.concatenate([
+# S1's input (ops/sampling_cuda.py, csrc/sample_tiles.cu): the words of ONE
+# int32 upload, laid out as
+#   group table   GROUP_WORDS a group: texture pointer (2 words), h, w, C,
+#                 flags, kind, separable
+#   rows          ROW_WORDS a row, float32 bits: params 12, colour 4, ct 1
+#   tile offsets  NCT+1: tile t's pairs are pairs[offsets[t]:offsets[t+1]]
+#   clip flags    NCT+1: 1 where the tile saturates (textured quads), 0 on
+#                 the zeros row
+#   pairs         2 a pair: (row, group), sorted by tile
+GROUP_WORDS = 8
+ROW_WORDS = 17
+
+
+@dataclass
+class TileIndex:
+    """The host half of S1's tile-major walk over a sampling plan's
+    (entry, quad) rows, every group's rows concatenated in group order."""
+
+    table: np.ndarray       # (G, 6) int32: h, w, C, flags, kind, separable
+    offsets: np.ndarray     # (NCT+1,) int32
+    clip: np.ndarray        # (NCT+1,) int32
+    pairs: np.ndarray       # (P, 2) int32: (row, group), pad rows left out
+
+
+def build_tile_index(sp: SamplingPlan, shapes) -> TileIndex:
+    """The pairs of each colour tile in the order the twin's index_add_
+    adds them on the CPU: by tile, then by row (groups in order, rows in
+    order within a group); pad rows (ct == NCT) are left out.  shapes: per
+    group its texture's (h, w, C)."""
+    nct = sp.num_tiles
+    ct = np.concatenate([g.ct for g in sp.groups] + [np.zeros(0, np.int32)]).astype(np.int64)
+    grp = np.repeat(np.arange(len(sp.groups), dtype=np.int32),
+                    [len(g.ct) for g in sp.groups])
+    rows = np.nonzero(ct < nct)[0]
+    rows = rows[np.argsort(ct[rows], kind="stable")]
+    offsets = np.zeros(nct + 1, np.int32)
+    np.cumsum(np.bincount(ct[rows], minlength=nct), out=offsets[1:])
+    clip = np.zeros(nct + 1, np.int32)
+    if sp.tex_tile_mask is not None:
+        clip[:nct] = sp.tex_tile_mask
+    table = np.array([(h, w, c, g.flags, g.kind, int(g.separable))
+                      for g, (h, w, c) in zip(sp.groups, shapes)], np.int32)
+    return TileIndex(table.reshape(-1, 6), offsets, clip,
+                     np.stack([rows.astype(np.int32), grp[rows]], axis=1))
+
+
+@dataclass
+class DeviceGroups:
+    """A sampling plan's groups on a device, from one host-to-device copy:
+    S1's int32 words (`words`, at the word offsets `at`) and, as views of
+    the same memory, the twin's per-group (params (K, 12), colour (K, 4),
+    ct (K,) int64) triples."""
+
+    words: torch.Tensor
+    at: dict                # "table", "rows", "offsets", "clip", "pairs" -> word offset
+    n_pairs: int
+    arrs: tuple
+    texs: tuple             # per group its f32 texture (h, w, C)
+    meta: tuple             # per group (kind, separable, flags)
+    num_tiles: int
+
+    @property
+    def clipmask(self) -> torch.Tensor:
+        """(NCT+1,) bool of the tiles that saturate: the twin's clipmask."""
+        a = self.at["clip"]
+        return self.words[a : a + self.num_tiles + 1].bool()
+
+
+def upload_groups(sp: SamplingPlan, texs, device) -> DeviceGroups:
+    """The plan's groups, their tile index and their textures' table on
+    `device` from ONE host-to-device copy (the rows travel as float32 bits).
+    texs: per group its f32 texture on `device` (h, w, C in [0, 1]; C=1 for
+    A8), whose data pointer the table holds."""
+    texs = tuple(texs)
+    idx = build_tile_index(sp, [tuple(t.shape) for t in texs])
+    ptrs = np.array([t.data_ptr() for t in texs], np.uint64).view(np.int32)
+    table = np.concatenate([ptrs.reshape(-1, 2), idx.table], axis=1)
+    rows = np.concatenate([np.zeros((0, ROW_WORDS), np.float32)] + [
         np.concatenate([g.params, g.color, g.ct[:, None].astype(np.float32)], axis=1)
-        for g in sp.groups])
-    dev = torch.as_tensor(packed).to(device)
-    out, k0 = [], 0
+        for g in sp.groups]).astype(np.float32)
+    parts = [table, rows.view(np.int32), idx.offsets, idx.clip, idx.pairs]
+    at, n = {}, 0
+    for name, part in zip(("table", "rows", "offsets", "clip", "pairs"), parts):
+        at[name] = n
+        n += part.size
+    words = torch.as_tensor(np.concatenate([x.reshape(-1) for x in parts])).to(device)
+    flat = words[at["rows"] : at["offsets"]].view(torch.float32).view(-1, ROW_WORDS)
+    arrs, k0 = [], 0
     for g in sp.groups:
-        blk = dev[k0 : k0 + len(g.ct)]
-        out.append((blk[:, 0:12], blk[:, 12:16], blk[:, 16].long()))
+        blk = flat[k0 : k0 + len(g.ct)]
+        arrs.append((blk[:, 0:12], blk[:, 12:16], blk[:, 16].long()))
         k0 += len(g.ct)
-    return tuple(out)
+    return DeviceGroups(words, at, len(idx.pairs), tuple(arrs), texs,
+                        tuple((g.kind, g.separable, g.flags) for g in sp.groups),
+                        sp.num_tiles)
 
 
 def sample_groups(arrs, texs, clipmask, *, meta, th: int, tw: int,
@@ -380,22 +467,38 @@ def sample_groups(arrs, texs, clipmask, *, meta, th: int, tw: int,
     return tiles[:num_tiles]
 
 
-def clipmask_tensor(sp: SamplingPlan, device):
-    """(NCT+1,) bool tensor of the tiles that saturate, or None."""
-    if sp.tex_tile_mask is None:
-        return None
-    return torch.as_tensor(np.concatenate([sp.tex_tile_mask, [False]])).to(device)
+def sample_tiles_flat(g: DeviceGroups, *, th: int, tw: int, shift=(0.0, 0.0),
+                      plain: bool = False, profiler=None) -> torch.Tensor:
+    """Every group's colour tiles in K2's layout, (NCT+1, 4*th*tw)
+    channel-major plus the zeros row, on the groups' device: one S1 launch
+    for CUDA groups (counted as sample_kernel_launches on `profiler`), else,
+    and with plain=True on any device, the twin sample_groups and
+    flat_color_tiles.  shift: as sample_groups'."""
+    if g.words.is_cuda and not plain:
+        from vgtpu_torch.ops.sampling_cuda import sample_tiles_cuda
+
+        out = sample_tiles_cuda(g, th, tw, shift)
+        if profiler is not None:
+            profiler.count("sample_kernel_launches", 1)
+        return out
+    from vgtpu_torch.raster.frame import flat_color_tiles
+
+    return flat_color_tiles(sample_groups(
+        g.arrs, g.texs, g.clipmask, meta=g.meta, th=th, tw=tw,
+        num_tiles=g.num_tiles, shift=shift))
 
 
 def sample_color_tiles_device(sp: SamplingPlan, textures: dict,
-                              tile_h: int, tile_w: int) -> torch.Tensor | None:
+                              tile_h: int, tile_w: int,
+                              profiler=None) -> torch.Tensor | None:
     """Run all sample groups on the textures' device -> (NCT, TH, TW, 4)
     premultiplied color tiles.  `textures` maps image id -> f32 tensor (h,
-    w, C in [0,1]; C=1 for A8).  Scratch row NCT absorbs pad lanes."""
+    w, C in [0,1]; C=1 for A8).  On a CUDA device S1 writes them in K2's
+    layout and the result is a view of that (sample_tiles_flat)."""
     if sp.num_tiles == 0:
         return None
     texs = tuple(textures[g.image_id] for g in sp.groups)
-    dev = texs[0].device
-    return sample_groups(upload_groups(sp, dev), texs, clipmask_tensor(sp, dev),
-                         meta=tuple((g.kind, g.separable, g.flags) for g in sp.groups),
-                         th=tile_h, tw=tile_w, num_tiles=sp.num_tiles)
+    flat = sample_tiles_flat(upload_groups(sp, texs, texs[0].device), th=tile_h,
+                             tw=tile_w, profiler=profiler)
+    n = sp.num_tiles
+    return flat[:n].view(n, 4, tile_h, tile_w).permute(0, 2, 3, 1)

@@ -26,7 +26,8 @@ ops/coverage.cov_all_resolved (kernel K1 + the extras fold on CUDA), the
 per-offset backdrop rows (_P_BD) and origin rows (_P_OX, _P_OY) patched
 into the bake-time bucket params with one gather over tables concatenated
 at bake, textured scenes resampled at the shifted origins
-(ops/sampling_device.py), ops/composite.frame_fb (kernel K2 per bucket:
+(ops/sampling_device.sample_tiles_flat: kernel S1 on CUDA, straight into
+K2's colour-tile layout), ops/composite.frame_fb (kernel K2 per bucket:
 form (a) at ss=1, form (d) on every bucket at ss>1, since the pan does not
 split the resolve), then the window copy.  On CPU tensors the same calls
 take the plain twins.  use_pallas, vgtpu's keyword on render, render_tiles
@@ -85,7 +86,7 @@ from vgtpu_torch.raster.binning import (
     patch_entry_paint,
     scale_ops_y,
 )
-from vgtpu_torch.raster.frame import bucket_rows, flat_color_tiles
+from vgtpu_torch.raster.frame import bucket_rows
 
 
 def translate_ops(ops: list[RasterOp], dx: float, dy: float) -> list[RasterOp]:
@@ -374,11 +375,7 @@ class RetainedScene:
         n_real = plan.n_real_entries
         pk = plan.entry_paint_kind[:n_real]
         if ((pk == P_IMAGE) | (pk == P_TEXTURE)).any():
-            from vgtpu_torch.ops.sampling_device import (
-                build_sampling_plan,
-                clipmask_tensor,
-                upload_groups,
-            )
+            from vgtpu_torch.ops.sampling_device import build_sampling_plan, upload_groups
 
             image_map = {
                 idx: (img.data, img.flags, img.generation)
@@ -389,14 +386,8 @@ class RetainedScene:
             sp = build_sampling_plan(plan, ops_px, image_map, pan_margin=True)
             if sp.num_tiles:
                 tex = ctx._device_textures(image_map, {g.image_id for g in sp.groups})
-                samp = {
-                    "arrs": upload_groups(sp, dev),
-                    "texs": tuple(tex[g.image_id] for g in sp.groups),
-                    "clipmask": clipmask_tensor(sp, dev),
-                    "meta": tuple((g.kind, g.separable, g.flags) for g in sp.groups),
-                    "nct": sp.num_tiles,
-                }
-        nct = samp["nct"] if samp is not None else plan.color_tiles.shape[0]
+                samp = upload_groups(sp, (tex[g.image_id] for g in sp.groups), dev)
+        nct = samp.num_tiles if samp is not None else plan.color_tiles.shape[0]
         host = _bucket_tables(plan, nct)
         pt = _patch_tables(host["params"], host["te"], ne, th * ss)
 
@@ -431,16 +422,14 @@ class RetainedScene:
 
             d["ct_flat"] = put(color_tiles_flat(plan))
         else:
-            d["samp_arrs"] = samp["arrs"]
-            d["samp_texs"] = samp["texs"]
-            d["samp_clipmask"] = samp["clipmask"]
+            d["samp"] = samp
         scene = RetainedScene(plan, d, dev, ctx.fb_width, ctx.fb_height,
                               background, off=(offx, offy), profiler=ctx.profiler)
         scene._ops_fp = ops_fp
         scene._op_solid_cls = solid_cls
         if samp is not None:
-            scene.samp_meta = samp["meta"]
-            scene.samp_nct = samp["nct"]
+            scene.samp_meta = samp.meta
+            scene.samp_nct = samp.num_tiles
         return scene
 
     def update_paint_values(self, ctx) -> None:
@@ -606,14 +595,13 @@ class RetainedScene:
             self._patch_params(rx, ry)
         if self.samp_meta is None:
             return cov, d["ct_flat"]
-        from vgtpu_torch.ops.sampling_device import sample_groups
+        from vgtpu_torch.ops.sampling_device import sample_tiles_flat
 
         with stage("pan.resample"):
             # the sampler works on OUTPUT pixels: the y residual is ry/ss
-            tiles = sample_groups(d["samp_arrs"], d["samp_texs"], d["samp_clipmask"],
-                                  meta=self.samp_meta, th=th // ss, tw=tw,
-                                  num_tiles=self.samp_nct, shift=(rx, ry / ss))
-            return cov, flat_color_tiles(tiles)
+            return cov, sample_tiles_flat(d["samp"], th=th // ss, tw=tw,
+                                          shift=(rx, ry / ss), plain=plain,
+                                          profiler=self.profiler)
 
     def _render(self, vx: int, vy: int, rx: float, ry: int, background,
                 plain: bool = False, tiles_only: bool = False) -> torch.Tensor:
