@@ -293,6 +293,7 @@ class TileIndex:
     offsets: np.ndarray     # (NCT+1,) int32
     clip: np.ndarray        # (NCT+1,) int32
     pairs: np.ndarray       # (P, 2) int32: (row, group), pad rows left out
+    n_rotated: int = 0      # pairs in non-separable groups (the exact gather)
 
 
 def build_tile_index(sp: SamplingPlan, shapes) -> TileIndex:
@@ -313,8 +314,10 @@ def build_tile_index(sp: SamplingPlan, shapes) -> TileIndex:
         clip[:nct] = sp.tex_tile_mask
     table = np.array([(h, w, c, g.flags, g.kind, int(g.separable))
                       for g, (h, w, c) in zip(sp.groups, shapes)], np.int32)
+    rotated = np.array([not g.separable for g in sp.groups] + [False], bool)
     return TileIndex(table.reshape(-1, 6), offsets, clip,
-                     np.stack([rows.astype(np.int32), grp[rows]], axis=1))
+                     np.stack([rows.astype(np.int32), grp[rows]], axis=1),
+                     int(rotated[grp[rows]].sum()))
 
 
 @dataclass
@@ -331,6 +334,7 @@ class DeviceGroups:
     texs: tuple             # per group its f32 texture (h, w, C)
     meta: tuple             # per group (kind, separable, flags)
     num_tiles: int
+    n_rotated_pairs: int = 0   # TileIndex.n_rotated
 
     @property
     def clipmask(self) -> torch.Tensor:
@@ -365,7 +369,7 @@ def upload_groups(sp: SamplingPlan, texs, device) -> DeviceGroups:
         k0 += len(g.ct)
     return DeviceGroups(words, at, len(idx.pairs), tuple(arrs), texs,
                         tuple((g.kind, g.separable, g.flags) for g in sp.groups),
-                        sp.num_tiles)
+                        sp.num_tiles, idx.n_rotated)
 
 
 def sample_groups(arrs, texs, clipmask, *, meta, th: int, tw: int,
@@ -473,7 +477,12 @@ def sample_tiles_flat(g: DeviceGroups, *, th: int, tw: int, shift=(0.0, 0.0),
     channel-major plus the zeros row, on the groups' device: one S1 launch
     for CUDA groups (counted as sample_kernel_launches on `profiler`), else,
     and with plain=True on any device, the twin sample_groups and
-    flat_color_tiles.  shift: as sample_groups'."""
+    flat_color_tiles.  Either route adds the (entry, quad) pairs of the
+    non-separable groups it samples, counted on the host when the tile
+    index was built, to `profiler`'s sample_rotated_pairs.  shift: as
+    sample_groups'."""
+    if profiler is not None:
+        profiler.count("sample_rotated_pairs", g.n_rotated_pairs)
     if g.words.is_cuda and not plain:
         from vgtpu_torch.ops.sampling_cuda import sample_tiles_cuda
 

@@ -203,6 +203,7 @@ def compute_tile_buckets(
     entry_kind: np.ndarray | None = None,
     plan: "FramePlan" = None,
     view_static: bool = False,
+    profiler=None,
 ) -> list:
     """Group tiles by painter-depth: tiles with n ops scan only the smallest
     power-of-two slot count >= n; op-free tiles are skipped entirely.  Padding
@@ -225,7 +226,12 @@ def compute_tile_buckets(
     commit(Out)/reset pin it to 1 (no-ops).  Such tiles drop all control
     entries plus the statically-clipped draws; only tiles actually touched
     by a clip shape keep the dynamic mask lanes (this is what keeps the
-    fused composite's clip lanes out of ~99% of tiles on clipped frames)."""
+    fused composite's clip lanes out of ~99% of tiles on clipped frames).
+
+    DEPTH CAP: a tile left with more than plan.depth_cap entries keeps its
+    last depth_cap draws; the tiles so cut are plan.stats
+    ["depth_capped_tiles"] and, with a profiler, its counter of that name.
+    The cut warns too: a capped tile drops content."""
     resolved_fancy = None
     if plan is not None and entry_kind is not None and tile_entries.size:
         # native fast path: one C pass over the tile table does all four
@@ -245,6 +251,8 @@ def compute_tile_buckets(
                     f"oldest draw entries in {capped} tiles",
                     RuntimeWarning, stacklevel=2)
                 plan.stats["depth_capped_tiles"] = capped
+                if profiler is not None:
+                    profiler.count("depth_capped_tiles", int(capped))
 
     if (resolved_fancy is None and plan is not None and tile_entries.size
             and STATIC_CLIP_RESOLVE):
@@ -403,6 +411,8 @@ def compute_tile_buckets(
         if plan is not None:
             # tiles that actually overflowed (same metric as the native path)
             plan.stats["depth_capped_tiles"] = n_capped
+        if profiler is not None:
+            profiler.count("depth_capped_tiles", n_capped)
     width = tile_entries.shape[1]
 
     # per-tile feature signature: tiles whose entries are all simple
@@ -864,6 +874,45 @@ def _assemble_native(raw, width, height, tile_h, tile_w, color_tiles) -> FramePl
     )
 
 
+def _quad_tiles(op: RasterOp, width, height, tile_w, tile_h, mx, my):
+    """The tiles (row-major ids, int64) of a textured-quad op: every tile a
+    quad's bbox overlaps, the bbox grown by (mx, my) on its min side under a
+    pan margin; None if there is none.  Colour tiles are filled by the
+    sampling pass (raster/sampling.py).  Pan margin: content only shifts
+    left/up by a sub-tile residual, so the left/upper neighbour tiles need
+    entries for quads that can shift into them."""
+    ntx = -(-width // tile_w)
+    nty = -(-height // tile_h)
+    q = np.asarray(op.tex_quads, np.float64)
+    if len(q) == 0:
+        return None
+    cx = np.stack([q[:, 0], q[:, 0] + q[:, 2], q[:, 0] + q[:, 4], q[:, 0] + q[:, 2] + q[:, 4]])
+    cy = np.stack([q[:, 1], q[:, 1] + q[:, 3], q[:, 1] + q[:, 5], q[:, 1] + q[:, 3] + q[:, 5]])
+    sc = op.scissor if op.scissor is not None else (0.0, 0.0, float(width), float(height))
+    qx0 = np.maximum(cx.min(axis=0) - 1.0 - mx, max(0.0, sc[0] - mx))
+    qy0 = np.maximum(cy.min(axis=0) - 1.0 - my, max(0.0, sc[1] - my))
+    qx1 = np.minimum(cx.max(axis=0) + 1.0, min(float(width), sc[2]))
+    qy1 = np.minimum(cy.max(axis=0) + 1.0, min(float(height), sc[3]))
+    live = (qx1 > qx0) & (qy1 > qy0)
+    grid = np.zeros((nty, ntx), bool)
+    qtx0 = (qx0[live] // tile_w).astype(np.int64)
+    qtx1 = (np.ceil(qx1[live] / tile_w)).astype(np.int64) - 1
+    qty0 = (qy0[live] // tile_h).astype(np.int64)
+    qty1 = (np.ceil(qy1[live] / tile_h)).astype(np.int64) - 1
+    for a, b, c2, d2 in zip(qty0, qty1, qtx0, qtx1):
+        grid[a : b + 1, c2 : d2 + 1] = True
+    lty, ltx = np.nonzero(grid)
+    if len(lty) == 0:
+        return None
+    return (lty * ntx + ltx).astype(np.int64)
+
+
+def _starts(counts) -> np.ndarray:
+    """Where each run starts in runs of `counts` laid end to end (int64)."""
+    counts = np.asarray(counts, np.int64)
+    return np.cumsum(counts) - counts
+
+
 def bin_frame_numpy(
     ops: list[RasterOp],
     width: int,
@@ -874,7 +923,13 @@ def bin_frame_numpy(
     color_tiles: np.ndarray | None = None,
     pan_margin: bool = False,
 ) -> FramePlan:
-    """pan_margin=True bins a RETAINED scene for device-resident panning
+    """The numpy binner: vgtpu's bin_frame_numpy plan, array for array,
+    with every edge op binned in one vectorised pass (a scene of ~20,000
+    draws, a city map, spent seconds in one pass an op); control ops and
+    textured quads are taken one by one.  Each op's backdrop grid is
+    accumulated and summed along x alone, as one pass an op does.
+
+    pan_margin=True bins a RETAINED scene for device-resident panning
     (raster/retained.py): every edge is additionally assigned to the tile
     column left / tile row above its span (content only ever shifts by a
     LEFT/UP sub-tile residual in [0, tile) — whole-tile shifts are a tile
@@ -885,259 +940,224 @@ def bin_frame_numpy(
     ntx = -(-width // tile_w)
     nty = -(-height // tile_h)
     T = ntx * nty
-    mx = float(tile_w) if pan_margin else 0.0   # leftward x-residual reach
-    my = float(tile_h) if pan_margin else 0.0   # upward y-residual reach
+    W, H = float(width), float(height)
+    mx = float(tile_w) if pan_margin else 0.0
+    my = float(tile_h) if pan_margin else 0.0
     bd_rows = 2 * tile_h if pan_margin else tile_h
 
-    # accumulators across ops (entry-major)
-    ent_tile: list[np.ndarray] = []
-    ent_backdrop: list[np.ndarray] = []
-    ent_kind: list[np.ndarray] = []
-    ent_rule: list[np.ndarray] = []
-    ent_aa: list[np.ndarray] = []
-    ent_pk: list[np.ndarray] = []
-    ent_paint: list[np.ndarray] = []
-    ent_scissor: list[np.ndarray] = []
-    ent_image: list[np.ndarray] = []
-    ent_op: list[np.ndarray] = []
-    ent_ctile: list[np.ndarray] = []
-    chunk_blocks: list[np.ndarray] = []
-    chunk_entry: list[np.ndarray] = []
-    n_entries = 0
-    n_chunks = 0
-
-    def _append_entries(tiles_flat, backdrops, op: RasterOp, op_index: int, ctile=None):
-        nonlocal n_entries
-        k = len(tiles_flat)
-        if k == 0:
-            return np.zeros(0, np.int64)
-        ids = np.arange(n_entries, n_entries + k, dtype=np.int64)
-        n_entries += k
-        ent_tile.append(tiles_flat.astype(np.int32))
-        ent_backdrop.append(backdrops.astype(np.float32))
-        ent_kind.append(np.full(k, op.kind, np.int32))
-        ent_rule.append(np.full(k, op.fill_rule, np.int32))
-        ent_aa.append(np.full(k, 1 if op.aa else 0, np.int32))
-        ent_pk.append(np.full(k, op.paint_kind, np.int32))
-        paint = op.paint if op.paint is not None else np.zeros(PAINT_NF, np.float32)
-        ent_paint.append(np.broadcast_to(paint, (k, PAINT_NF)).copy())
-        sc = op.scissor if op.scissor is not None else (0.0, 0.0, float(width), float(height))
-        ent_scissor.append(np.broadcast_to(np.asarray(sc, np.float32), (k, 4)).copy())
-        ent_image.append(np.full(k, op.image_id, np.int32))
-        ent_op.append(np.full(k, op_index, np.int32))
-        if ctile is None:
-            ent_ctile.append(np.full(k, -1, np.int32))
-        else:
-            ent_ctile.append(ctile.astype(np.int32))
-        return ids
-
-    for op_index, op in enumerate(ops):
+    # per-op pieces: control ops and textured quads one by one
+    other_op, other_tile = [], []
+    edge_ops = []
+    for i, op in enumerate(ops):
         if op.kind in (K_CLIP_COMMIT, K_CLIP_RESET):
-            # global control ops: present in every tile
             tiles = np.arange(T, dtype=np.int64)
-            _append_entries(tiles, np.zeros((T, bd_rows), np.float32), op, op_index)
-            continue
-
-        if op.paint_kind == P_TEXTURE:
-            # textured quads (parallelograms p0 + a*ex + b*ey): entries for
-            # every tile a quad bbox overlaps; color tiles are filled by the
-            # sampling pass (raster/sampling.py).  pan margin: content only
-            # shifts left/up by a sub-tile residual, so the bbox extends one
-            # tile on the min side (the left/upper neighbour tiles need
-            # entries for quads that can shift into them)
-            q = np.asarray(op.tex_quads, np.float64)
-            if len(q) == 0:
+        elif op.paint_kind == P_TEXTURE:
+            tiles = _quad_tiles(op, width, height, tile_w, tile_h, mx, my)
+            if tiles is None:
                 continue
-            cx = np.stack([q[:, 0], q[:, 0] + q[:, 2], q[:, 0] + q[:, 4], q[:, 0] + q[:, 2] + q[:, 4]])
-            cy = np.stack([q[:, 1], q[:, 1] + q[:, 3], q[:, 1] + q[:, 5], q[:, 1] + q[:, 3] + q[:, 5]])
-            sc = op.scissor if op.scissor is not None else (0.0, 0.0, float(width), float(height))
-            qx0 = np.maximum(cx.min(axis=0) - 1.0 - mx, max(0.0, sc[0] - mx))
-            qy0 = np.maximum(cy.min(axis=0) - 1.0 - my, max(0.0, sc[1] - my))
-            qx1 = np.minimum(cx.max(axis=0) + 1.0, min(float(width), sc[2]))
-            qy1 = np.minimum(cy.max(axis=0) + 1.0, min(float(height), sc[3]))
-            live = (qx1 > qx0) & (qy1 > qy0)
-            grid = np.zeros((nty, ntx), bool)
-            qtx0 = (qx0[live] // tile_w).astype(np.int64)
-            qtx1 = (np.ceil(qx1[live] / tile_w)).astype(np.int64) - 1
-            qty0 = (qy0[live] // tile_h).astype(np.int64)
-            qty1 = (np.ceil(qy1[live] / tile_h)).astype(np.int64) - 1
-            for a, b, c2, d2 in zip(qty0, qty1, qtx0, qtx1):
-                grid[a : b + 1, c2 : d2 + 1] = True
-            lty, ltx = np.nonzero(grid)
-            if len(lty) == 0:
-                continue
-            tiles = lty * ntx + ltx
-            _append_entries(tiles.astype(np.int64),
-                            np.zeros((len(tiles), bd_rows), np.float32), op, op_index)
+        else:
+            if op.edges is not None and len(op.edges):
+                edge_ops.append(i)
             continue
+        other_op.append(np.full(len(tiles), i, np.int64))
+        other_tile.append(tiles)
 
-        e = op.edges
-        if e is None or len(e) == 0:
-            continue
-        e = np.asarray(e, np.float64)
-        finite = np.isfinite(e).all(axis=1)
-        live = finite & (np.abs(e[:, 3] - e[:, 1]) > 1e-9)
-        e = e[live]
-        if len(e) == 0:
-            continue
+    # ---- every edge op at once: slot j is ops[edge_ops[j]] ----
+    n_eo = len(edge_ops)
+    lens = [len(ops[i].edges) for i in edge_ops]
+    e = (np.concatenate([np.asarray(ops[i].edges, np.float64) for i in edge_ops])
+         if n_eo else np.zeros((0, 4)))
+    eop = np.repeat(np.arange(n_eo, dtype=np.int64), lens)
+    live = np.isfinite(e).all(axis=1)
+    live &= np.abs(e[:, 3] - e[:, 1]) > 1e-9
+    e, eop = e[live], eop[live]
+    ex0, ey0, ex1, ey1 = e[:, 0], e[:, 1], e[:, 2], e[:, 3]
+    exmin, exmax = np.minimum(ex0, ex1), np.maximum(ex0, ex1)
+    eymin, eymax = np.minimum(ey0, ey1), np.maximum(ey0, ey1)
 
-        ex0, ey0, ex1, ey1 = e[:, 0], e[:, 1], e[:, 2], e[:, 3]
-        exmin = np.minimum(ex0, ex1)
-        exmax = np.maximum(ex0, ex1)
-        eymin = np.minimum(ey0, ey1)
-        eymax = np.maximum(ey0, ey1)
+    # per-op extents over the op's live edges (slots without one: skipped)
+    has = np.zeros(n_eo, bool)
+    xmax_o = np.zeros(n_eo)
+    ymax_o = np.zeros(n_eo)
+    ymin_o = np.zeros(n_eo)
+    if len(e):
+        slots, starts = np.unique(eop, return_index=True)
+        has[slots] = True
+        xmax_o[slots] = np.maximum.reduceat(exmax, starts)
+        ymax_o[slots] = np.maximum.reduceat(eymax, starts)
+        ymin_o[slots] = np.minimum.reduceat(eymin, starts)
+    sc = np.array([(0.0, 0.0, W, H) if ops[i].scissor is None else ops[i].scissor
+                   for i in edge_ops], np.float64).reshape(n_eo, 4)
+    rx0 = np.maximum(0.0, sc[:, 0] - mx)
+    ry0 = np.maximum(0.0, sc[:, 1] - my)
+    rx1 = np.minimum(np.minimum(W, sc[:, 2]), np.ceil(xmax_o))
+    ry1 = np.minimum(np.minimum(H, sc[:, 3]), np.ceil(ymax_o))
+    ry0 = np.maximum(ry0, np.floor(ymin_o - my))
+    run = has & (rx1 > rx0) & (ry1 > ry0)
+    tx0 = np.floor_divide(rx0, tile_w).astype(np.int64)
+    tx1 = np.ceil(rx1 / tile_w).astype(np.int64) - 1
+    ty0 = np.floor_divide(ry0, tile_h).astype(np.int64)
+    ty1 = np.ceil(ry1 / tile_h).astype(np.int64) - 1
+    gw = np.where(run, tx1 - tx0 + 2, 0)            # the op's grid: ntx_op + 1 columns
+    gh = np.where(run, ty1 - ty0 + 1, 0)
+    off = _starts(gw * gh)
+    n_cells = int((gw * gh).sum())
 
-        sc = op.scissor if op.scissor is not None else (0.0, 0.0, float(width), float(height))
-        rx0 = max(0.0, sc[0] - mx)
-        ry0 = max(0.0, sc[1] - my)
-        rx1 = min(float(width), sc[2], float(np.ceil(exmax.max())))
-        ry1 = min(float(height), sc[3], float(np.ceil(eymax.max())))
-        ry0 = max(ry0, float(np.floor(eymin.min() - my)))
-        if rx1 <= rx0 or ry1 <= ry0:
-            continue
-        tx0 = int(rx0 // tile_w)
-        tx1 = int(np.ceil(rx1 / tile_w)) - 1
-        ty0 = int(ry0 // tile_h)
-        ty1 = int(np.ceil(ry1 / tile_h)) - 1
-        ntx_op = tx1 - tx0 + 1
-        nty_op = ty1 - ty0 + 1
+    # ---- per-edge tile ranges (pan margin: the column left, the row above) ----
+    ety_lo = np.maximum(np.floor((eymin - my) / tile_h).astype(np.int64), ty0[eop])
+    ety_hi = np.minimum(((np.ceil(eymax) - 1) // tile_h).astype(np.int64), ty1[eop])
+    etx_lo = np.maximum(np.floor((exmin - 1.0 - mx) / tile_w).astype(np.int64), tx0[eop])
+    etx_hi_e = np.minimum(((np.ceil(exmax) - 1) // tile_w).astype(np.int64), tx1[eop])
+    idx = np.nonzero(run[eop] & (ety_lo <= ety_hi) & (etx_lo <= tx1[eop]))[0]
+    sgn = np.sign(ey1 - ey0)
 
-        # per-edge tile ranges (pan margin: also the tile column left / tile
-        # row above the span — residual shifts only move content left/up)
-        ety_lo = np.maximum(np.floor((eymin - my) / tile_h).astype(np.int64), ty0)
-        ety_hi = np.minimum(((np.ceil(eymax) - 1) // tile_h).astype(np.int64), ty1)
-        etx_lo = np.maximum(np.floor((exmin - 1.0 - mx) / tile_w).astype(np.int64), tx0)
-        etx_hi_e = np.minimum(((np.ceil(exmax) - 1) // tile_w).astype(np.int64), tx1)
-        ok = (ety_lo <= ety_hi) & (etx_lo <= tx1)
-        idx = np.nonzero(ok)[0]
-        if len(idx) == 0:
-            continue
+    # ---- (edge, ty) pairs ----
+    nty_e = ety_hi[idx] - ety_lo[idx] + 1
+    pe = np.repeat(idx, nty_e)
+    base = _starts(nty_e)
+    pty = ety_lo[idx].repeat(nty_e) + (np.arange(len(pe), dtype=np.int64)
+                                       - np.repeat(base, nty_e))
+    pop = eop[pe]
+    rowy = (pty * tile_h)[:, None] + np.arange(bd_rows)[None, :]
+    ov = np.clip(np.minimum(eymax[pe][:, None], rowy + 1.0)
+                 - np.maximum(eymin[pe][:, None], rowy), 0.0, 1.0) * sgn[pe][:, None]
+    p_etx_lo = etx_lo[pe]
+    p_etx_hi = etx_hi_e[pe]
+    b_lo = np.maximum(p_etx_hi + 1, tx0[pop])
 
-        sgn = np.sign(ey1 - ey0)
+    # ---- (edge, ty, tx) triples ----
+    e_cnt = np.where(p_etx_hi >= p_etx_lo, p_etx_hi - p_etx_lo + 1, 0)
+    te = np.repeat(np.arange(len(pe), dtype=np.int64), e_cnt)
+    base2 = _starts(e_cnt)
+    ttx = p_etx_lo[te] + (np.arange(len(te), dtype=np.int64) - np.repeat(base2, e_cnt))
+    tty = pty[te]
+    tedge = pe[te]
+    top = pop[te]
 
-        # ---- expand (edge, ty) pairs ----
-        nty_e = (ety_hi[idx] - ety_lo[idx] + 1)
-        pe = np.repeat(idx, nty_e)                       # edge index per pair
-        base = np.concatenate([[0], np.cumsum(nty_e)[:-1]])
-        loc = np.arange(nty_e.sum(), dtype=np.int64) - np.repeat(base, nty_e)
-        pty = ety_lo[idx].repeat(nty_e) + loc            # tile row per pair
+    # ---- backdrops: each op's (ty, tx) grid, summed along tx row by row ----
+    bgrid = np.zeros((n_cells, bd_rows), np.float64)
+    bsel = b_lo <= tx1[pop]
+    np.add.at(bgrid, off[pop[bsel]] + (pty[bsel] - ty0[pop[bsel]]) * gw[pop[bsel]]
+              + (b_lo[bsel] - tx0[pop[bsel]]), ov[bsel])
+    for w in np.unique(gw[run]):
+        js = np.nonzero(run & (gw == w))[0]
+        r0 = np.repeat(off[js], gh[js]) + w * (np.arange(int(gh[js].sum()))
+                                               - np.repeat(_starts(gh[js]), gh[js]))
+        rows = r0[:, None] + np.arange(w)[None, :]
+        bgrid[rows] = np.cumsum(bgrid[rows], axis=1)
 
-        # per-(edge,ty) row overlaps for backdrop use (pan: 2*tile_h window
-        # rows starting at the tile top, sliced by the y-residual on device)
-        rowy = (pty * tile_h)[:, None] + np.arange(bd_rows)[None, :]
-        ov = np.clip(
-            np.minimum(eymax[pe][:, None], rowy + 1.0)
-            - np.maximum(eymin[pe][:, None], rowy),
-            0.0,
-            1.0,
-        ) * sgn[pe][:, None]
+    # ---- entries: cells (not the extra column) with edges or a backdrop ----
+    cell_of = off[top] + (tty - ty0[top]) * gw[top] + (ttx - tx0[top])
+    egrid = np.bincount(cell_of, minlength=n_cells)
+    cell_slot = np.repeat(np.arange(n_eo, dtype=np.int64), gw * gh)
+    rel = np.arange(n_cells, dtype=np.int64) - off[cell_slot]
+    cty, ctx_ = rel // np.maximum(gw[cell_slot], 1), rel % np.maximum(gw[cell_slot], 1)
+    tile_live = ((egrid > 0) | (np.abs(bgrid).max(axis=1, initial=0.0) > 1e-9)) \
+        & (ctx_ < gw[cell_slot] - 1)
+    cells = np.nonzero(tile_live)[0]
+    e_op = np.asarray(edge_ops, np.int64)[cell_slot[cells]] if n_eo else np.zeros(0, np.int64)
+    e_tile = (ty0[cell_slot[cells]] + cty[cells]) * ntx + tx0[cell_slot[cells]] + ctx_[cells]
 
-        # split pairs into edge-class x-span and backdrop-class x-span
-        p_etx_lo = etx_lo[pe]
-        p_etx_hi = etx_hi_e[pe]                          # may be < p_etx_lo (edge fully left)
-        has_edge_span = p_etx_hi >= p_etx_lo
-        b_lo = np.maximum(p_etx_hi + 1, tx0)             # backdrop span: (edge-hi, tx1]
+    # ---- every entry in op order: edge ops' and the others' ----
+    all_op = np.concatenate([e_op] + other_op)
+    all_tile = np.concatenate([e_tile] + other_tile)
+    order = np.argsort(all_op, kind="stable")
+    n_entries = len(order)
+    gid = np.empty(n_entries, np.int64)
+    gid[order] = np.arange(n_entries)
+    entry_of_cell = np.full(n_cells, -1, np.int64)
+    entry_of_cell[cells] = gid[: len(cells)]
+    backdrop = np.zeros((n_entries, bd_rows), np.float32)
+    backdrop[gid[: len(cells)]] = bgrid[cells].astype(np.float32)
+    eo = all_op[order]
 
-        # ---- edge-class (edge, ty, tx) triples ----
-        e_cnt = np.where(has_edge_span, p_etx_hi - p_etx_lo + 1, 0)
-        te = np.repeat(np.arange(len(pe)), e_cnt)        # pair index per triple
-        base2 = np.concatenate([[0], np.cumsum(e_cnt)[:-1]])
-        loc2 = np.arange(e_cnt.sum(), dtype=np.int64) - np.repeat(base2, e_cnt)
-        ttx = p_etx_lo[te] + loc2
-        tty = pty[te]
-        tedge = pe[te]
+    def per_op(get, dtype, tail=()):
+        vals = np.array([get(op) for op in ops], dtype).reshape((len(ops),) + tail)
+        return vals[eo]
 
-        # ---- backdrop accumulation on the op's dense tile grid ----
-        # difference-array along tx then cumsum: ov added to [b_lo, tx1]
-        bgrid = np.zeros((nty_op, ntx_op + 1, bd_rows), np.float64)
-        bsel = b_lo <= tx1
-        np.add.at(bgrid, (pty[bsel] - ty0, b_lo[bsel] - tx0), ov[bsel])
-        bgrid = np.cumsum(bgrid, axis=1)[:, :-1, :]
+    entries = {
+        "tile": all_tile[order].astype(np.int32),
+        "backdrop": backdrop,
+        "kind": per_op(lambda o: o.kind, np.int32),
+        "rule": per_op(lambda o: o.fill_rule, np.int32),
+        "aa": per_op(lambda o: 1 if o.aa else 0, np.int32),
+        "paint_kind": per_op(lambda o: o.paint_kind, np.int32),
+        "paint": per_op(lambda o: (o.paint if o.paint is not None
+                                   else np.zeros(PAINT_NF, np.float32)),
+                        np.float32, (PAINT_NF,)),
+        "scissor": per_op(lambda o: (o.scissor if o.scissor is not None
+                                     else (0.0, 0.0, W, H)), np.float32, (4,)),
+        "image": per_op(lambda o: o.image_id, np.int32),
+        "op": eo.astype(np.int32),
+        "ctile": np.full(n_entries, -1, np.int32),
+    }
 
-        # ---- entries: tiles with edges or nonzero backdrop ----
-        egrid = np.zeros((nty_op, ntx_op), np.int64)
-        np.add.at(egrid, (tty - ty0, ttx - tx0), 1)
-        tile_live = (egrid > 0) | (np.abs(bgrid).max(axis=2) > 1e-9)
-        lty, ltx = np.nonzero(tile_live)
-        if len(lty) == 0:
-            continue
-        tiles_flat = (lty + ty0) * ntx + (ltx + tx0)
-        # entry index per live tile on the op grid
-        entry_of_tile = np.full((nty_op, ntx_op), -1, np.int64)
-        ids = _append_entries(tiles_flat, bgrid[lty, ltx], op, op_index)
-        entry_of_tile[lty, ltx] = ids
+    # ---- chunks: each op's triples by tile, cut every `chunk` edges ----
+    o2 = np.lexsort((np.arange(len(te)), tty * ntx + ttx, top))
+    key_t, key_o = (tty * ntx + ttx)[o2], top[o2]
+    start = np.ones(len(o2), bool)
+    start[1:] = (key_t[1:] != key_t[:-1]) | (key_o[1:] != key_o[:-1])
+    grp = np.cumsum(start) - 1
+    first = np.nonzero(start)[0]
+    pos = np.arange(len(o2)) - first[grp]
+    per_grp = (np.bincount(grp) + chunk - 1) // chunk if len(o2) else np.zeros(0, np.int64)
+    gchunk = _starts(per_grp)[grp] + pos // chunk
+    n_chunks = int(per_grp.sum())
+    ce = np.zeros((n_chunks, chunk, 4), np.float32)
+    s_ty, s_tx = tty[o2], ttx[o2]
+    r = e[tedge[o2]].copy()
+    r[:, 0] -= s_tx * tile_w
+    r[:, 2] -= s_tx * tile_w
+    r[:, 1] -= s_ty * tile_h
+    r[:, 3] -= s_ty * tile_h
+    ce[gchunk, pos % chunk] = r.astype(np.float32)
+    centry = np.zeros(n_chunks, np.int64)
+    centry[gchunk] = entry_of_cell[cell_of[o2]]
 
-        # ---- chunks: group edge-class triples by tile, split by CHUNK ----
-        if len(te):
-            order = np.lexsort((np.arange(len(te)), tty * ntx + ttx))
-            s_tty = tty[order] - ty0
-            s_ttx = ttx[order] - tx0
-            s_edge = tedge[order]
-            tkey = s_tty * ntx_op + s_ttx
-            # position within tile group
-            grp_start = np.concatenate([[True], tkey[1:] != tkey[:-1]])
-            grp_id = np.cumsum(grp_start) - 1
-            first_of_grp = np.nonzero(grp_start)[0]
-            pos_in_grp = np.arange(len(tkey)) - first_of_grp[grp_id]
-            cidx_in_grp = pos_in_grp // chunk
-            # global chunk ids: number chunks per group
-            chunks_per_grp = (np.bincount(grp_id) + chunk - 1) // chunk
-            chunk_base = np.concatenate([[0], np.cumsum(chunks_per_grp)[:-1]])
-            gchunk = chunk_base[grp_id] + cidx_in_grp
-            n_op_chunks = int(chunks_per_grp.sum())
-            pos_in_chunk = pos_in_grp % chunk
+    return _assemble_plan(width, height, tile_h, tile_w, chunk, bd_rows, pan_margin,
+                          color_tiles, entries, ce, centry)
 
-            ce = np.zeros((n_op_chunks, chunk, 4), np.float32)
-            # tile-origin-relative coordinates
-            tile_ox = (s_ttx + tx0) * tile_w
-            tile_oy = (s_tty + ty0) * tile_h
-            rel = e[s_edge].copy()
-            rel[:, 0] -= tile_ox
-            rel[:, 2] -= tile_ox
-            rel[:, 1] -= tile_oy
-            rel[:, 3] -= tile_oy
-            ce[gchunk, pos_in_chunk] = rel.astype(np.float32)
 
-            centry = np.zeros(n_op_chunks, np.int64)
-            centry[gchunk] = entry_of_tile[s_tty, s_ttx]
-            chunk_blocks.append(ce)
-            chunk_entry.append(centry)
-            n_chunks += n_op_chunks
-
-    # ---- assemble + pad ----
+def _assemble_plan(width, height, tile_h, tile_w, chunk, bd_rows, pan_margin,
+                   color_tiles, entries: dict, chunk_edges, chunk_entry) -> FramePlan:
+    """A numpy binner's FramePlan from its entries (op-major arrays, one
+    row an entry: tile, backdrop rows, kind, rule, aa, paint_kind, paint,
+    scissor, image, op, ctile) and its chunks (edges (N, chunk, 4), entry
+    ids): padded to device buckets, with the per-tile draw-ordered entry
+    table."""
+    ntx = -(-width // tile_w)
+    nty = -(-height // tile_h)
+    T = ntx * nty
+    n_entries = len(entries["tile"])
+    n_chunks = len(chunk_edges)
     NE = _bucket(max(n_entries, 1))
     NC = _bucket(max(n_chunks, 1))
 
-    def cat(parts, shape_tail, dtype, fill=0):
+    def cat(name, shape_tail, dtype, fill=0):
         out = np.full((NE,) + shape_tail, fill, dtype)
-        if parts:
-            data = np.concatenate(parts, axis=0)
-            out[: len(data)] = data
+        out[:n_entries] = entries[name]
         return out
 
-    entry_tile = cat(ent_tile, (), np.int32, fill=0)
-    bd_full = cat(ent_backdrop, (bd_rows,), np.float32)
+    entry_tile = cat("tile", (), np.int32, fill=0)
+    bd_full = cat("backdrop", (bd_rows,), np.float32)
     entry_backdrop = bd_full[:, :tile_h]   # zero-shift rows
-    entry_kind = cat(ent_kind, (), np.int32, fill=K_DRAW)
-    entry_rule = cat(ent_rule, (), np.int32)
-    entry_aa = cat(ent_aa, (), np.int32)
-    entry_paint_kind = cat(ent_pk, (), np.int32)
-    entry_paint = cat(ent_paint, (PAINT_NF,), np.float32)
-    entry_scissor = cat(ent_scissor, (4,), np.float32)
-    entry_image = cat(ent_image, (), np.int32, fill=-1)
-    entry_op = cat(ent_op, (), np.int32, fill=-1)
-    entry_ctile = cat(ent_ctile, (), np.int32, fill=-1)
+    entry_kind = cat("kind", (), np.int32, fill=K_DRAW)
+    entry_rule = cat("rule", (), np.int32)
+    entry_aa = cat("aa", (), np.int32)
+    entry_paint_kind = cat("paint_kind", (), np.int32)
+    entry_paint = cat("paint", (PAINT_NF,), np.float32)
+    entry_scissor = cat("scissor", (4,), np.float32)
+    entry_image = cat("image", (), np.int32, fill=-1)
+    entry_op = cat("op", (), np.int32, fill=-1)
+    entry_ctile = cat("ctile", (), np.int32, fill=-1)
     # padding entries: draw with zero paint alpha and empty scissor -> no-ops
     entry_scissor[n_entries:] = 0.0
 
-    chunk_edges = np.zeros((NC, chunk, 4), np.float32)
+    chunk_edges_p = np.zeros((NC, chunk, 4), np.float32)
     chunk_entry_arr = np.full((NC,), NE - 1, np.int32)  # pad chunks -> last pad entry
-    if chunk_blocks:
-        cb = np.concatenate(chunk_blocks, axis=0)
-        centry = np.concatenate(chunk_entry, axis=0)
-        chunk_edges[: len(cb)] = cb
-        chunk_entry_arr[: len(centry)] = centry.astype(np.int32)
-    chunk_pools = [(chunk_edges, chunk_entry_arr)]
+    chunk_edges_p[:n_chunks] = chunk_edges
+    chunk_entry_arr[:n_chunks] = chunk_entry.astype(np.int32)
+    chunk_pools = [(chunk_edges_p, chunk_entry_arr)]
 
     # per-tile draw-ordered entry table
     et = entry_tile[:n_entries].astype(np.int64)

@@ -89,14 +89,16 @@ def _compact_culled_chunks(plan: FramePlan) -> None:
     plan.chunk_pools = new_pools
 
 
-def _prepare_plan(plan: FramePlan):
+def _prepare_plan(plan: FramePlan, profiler=None):
     """Tile buckets, chunk compaction and, at ss > 1, the resolve split
     (raster/resolve.build_resolve_split: RES pools first, then RAW pools),
     in vgtpu's order: after compaction, before any pool is taken.  Each step
-    is idempotent; returns the split's host aux or None."""
+    is idempotent; returns the split's host aux or None.  profiler: where
+    the buckets count the tiles the depth cap cut (depth_capped_tiles)."""
     if plan.tile_buckets is None:
         plan.tile_buckets = compute_tile_buckets(
-            plan.tile_entries, plan.tile_entries.shape[0], plan.entry_kind, plan)
+            plan.tile_entries, plan.tile_entries.shape[0], plan.entry_kind, plan,
+            profiler=profiler)
     _compact_culled_chunks(plan)
     if plan.supersample > 1 and plan.entry_backdrop_pan is None:
         return build_resolve_split(plan)
@@ -232,10 +234,11 @@ def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
 
     profiler: optional FrameProfiler for sub-stage attribution (upload.*),
     the bytes put (upload_bytes) and the host-to-device copies issued
-    (upload_copies, one per numpy array)."""
+    (upload_copies, one per numpy array), and the tiles the depth cap cut
+    (depth_capped_tiles)."""
     stage = stage_of(profiler)
     with stage("upload.resolve_split"):
-        _prepare_plan(plan)
+        _prepare_plan(plan, profiler)
     with stage("upload.aux"):
         host = plan_host_arrays(plan)
     device = torch.device(device)

@@ -160,48 +160,48 @@ def _op_fingerprints(ops) -> list:
 def _repack_ladder(chunk_pools, num_entries: int, ladder=(2, 4, 8, 24)):
     """Repack the numpy binner's single fixed-size chunk pool into the
     finer slot ladder the coverage kernels like (one-time, at bake): each
-    entry's live edges are regrouped greedily into the largest-fitting
-    chunk sizes.  Order within an entry may change — coverage is a sum."""
-    # per-entry live edges, in (chunk, slot) order
-    per_entry: list[list[np.ndarray]] = [[] for _ in range(num_entries)]
+    entry's live edges, in (chunk, slot) order, are cut into blocks of the
+    largest size while more than that remains, the rest into the smallest
+    size that holds it; each pool keeps its blocks in entry order.  Order
+    within an entry may change — coverage is a sum."""
+    ladder = sorted(ladder)
+    big = ladder[-1]
+    # every live edge of a real entry, grouped by entry in (chunk, slot) order
+    ents, edges = [], []
     for ce, cent in chunk_pools:
         live = np.abs(ce[:, :, 3] - ce[:, :, 1]) > 1e-12
-        for ci in range(len(ce)):
-            e = int(cent[ci])
-            if 0 <= e < num_entries and live[ci].any():
-                per_entry[e].append(ce[ci][live[ci]])
-    ladder = sorted(ladder)
-    pools: dict[int, tuple[list, list]] = {s: ([], []) for s in ladder}
-
-    def best_size(n):
-        for s in ladder:
-            if n <= s:
-                return s
-        return ladder[-1]
-
-    for e, parts in enumerate(per_entry):
-        if not parts:
-            continue
-        edges = np.concatenate(parts, axis=0)
-        i, n = 0, len(edges)
-        while i < n:
-            rem = n - i
-            s = ladder[-1] if rem > ladder[-1] else best_size(rem)
-            blk = np.zeros((s, 4), np.float32)
-            take = min(s, rem)
-            blk[:take] = edges[i : i + take]
-            pools[s][0].append(blk)
-            pools[s][1].append(e)
-            i += take
+        ent = np.broadcast_to(cent[:, None], live.shape)
+        keep = live & (ent >= 0) & (ent < num_entries)
+        ents.append(ent[keep].astype(np.int64))
+        edges.append(ce[keep])
+    ent = np.concatenate(ents) if ents else np.zeros(0, np.int64)
+    edges = np.concatenate(edges) if edges else np.zeros((0, 4), np.float32)
+    order = np.argsort(ent, kind="stable")
+    ent, edges = ent[order], edges[order]
+    # blocks: per entry, (n - 1) // big full blocks, then the rest
+    uniq, first, n = np.unique(ent, return_index=True, return_counts=True)
+    nfull = (n - 1) // big
+    rest = n - nfull * big
+    rest_size = np.asarray(ladder)[np.searchsorted(ladder, rest)]
+    nblk = nfull + 1
+    b_ent = np.repeat(np.arange(len(uniq)), nblk)
+    b_k = np.arange(int(nblk.sum())) - np.repeat(np.cumsum(nblk) - nblk, nblk)
+    b_start = first[b_ent] + b_k * big
+    last = b_k == nfull[b_ent]
+    b_take = np.where(last, rest[b_ent], big)
+    b_size = np.where(last, rest_size[b_ent], big)
     out = []
-    for s in ladder:
-        blocks, ents = pools[s]
-        nc = _bucket(max(len(blocks), 1))
-        ce = np.zeros((nc, s, 4), np.float32)
+    for size in ladder:
+        sel = np.nonzero(b_size == size)[0]          # in entry order
+        nc = _bucket(max(len(sel), 1))
+        ce = np.zeros((nc, size, 4), np.float32)
         cent = np.full(nc, num_entries - 1, np.int32)
-        if blocks:
-            ce[: len(blocks)] = np.stack(blocks)
-            cent[: len(ents)] = np.asarray(ents, np.int32)
+        if len(sel):
+            take = b_take[sel]
+            blk = np.repeat(np.arange(len(sel)), take)
+            slot = np.arange(int(take.sum())) - np.repeat(np.cumsum(take) - take, take)
+            ce[blk, slot] = edges[np.repeat(b_start[sel], take) + slot]
+            cent[: len(sel)] = uniq[b_ent[sel]].astype(np.int32)
         out.append((ce, cent))
     return out
 
@@ -358,10 +358,12 @@ class RetainedScene:
         plan.supersample = ss
         if ss > 1 and plan.color_tiles.shape[1] != th:
             plan.color_tiles = np.zeros((1, th, tw, 4), np.float32)
-        # view_static: occlusion culling in its view-invariant form
+        # view_static: occlusion culling in its view-invariant form; the
+        # context's depth cap, its cuts counted on the context's profiler
+        plan.depth_cap = ctx.cfg.max_ops_per_tile_cap
         plan.tile_buckets = compute_tile_buckets(
             plan.tile_entries, plan.tile_entries.shape[0], plan.entry_kind,
-            plan=plan, view_static=True)
+            plan=plan, view_static=True, profiler=ctx.profiler)
         ne = plan.entry_backdrop.shape[0]
         plan.chunk_pools = _repack_ladder(
             plan.chunk_pools, ne, ladder=ctx.cfg.chunk_pools)
@@ -417,6 +419,7 @@ class RetainedScene:
             "uy": put(np.array([0, 1, 0, 1], np.float32)),
         }
         d["bucket_params"] = _param_views(d["params"], d["param_shapes"])
+        d["counts"] = _pan_counts(plan)
         if samp is None:
             from vgtpu_torch.raster.frame import color_tiles_flat
 
@@ -607,11 +610,15 @@ class RetainedScene:
                 plain: bool = False, tiles_only: bool = False) -> torch.Tensor:
         """One pan frame: vgtpu's chunk-gather pan body (_render_pan_body
         with pan_chunk_gather) then _pan_epilogue; stage pan, holding the
-        stages of _pan_inputs, pan.composite and pan.window."""
+        stages of _pan_inputs, pan.composite and pan.window, and the
+        bake's constant counters pan_tiles, pan_entries and pan_edges
+        (_pan_counts: host integers, no read of the device)."""
         d, plan = self.d, self.plan
         th, tw, ss = self.tile_h, self.tile_w, self.ss
         th_out = th // ss
         stage = self.profiler.stage
+        for name, n in d["counts"]:
+            self.profiler.count(name, n)
         with stage("pan"):
             cov, ct_flat = self._pan_inputs(rx, ry, plain)
             kw = {"bucket_fn": composite_bucket_into_torch} if plain else {}
@@ -626,6 +633,21 @@ class RetainedScene:
                                      nty_o=-(-self.out_h // th_out), th_out=th_out,
                                      tw=tw, out_w=self.out_w, out_h=self.out_h,
                                      tiles_only=tiles_only)
+
+
+def _pan_counts(plan) -> tuple:
+    """The counters every view adds, fixed at bake: the scene tiles K2
+    writes (pan_tiles: real rows of the tile buckets), the (op, tile)
+    entries it composites there (pan_entries) and the edge rows K1 walks
+    (pan_edges: every slot of every chunk pool, padding included)."""
+    tiles = entries = 0
+    n_tiles = plan.ntx * plan.nty
+    for te_b, ids, _flags in plan.tile_buckets:
+        real = ids < n_tiles
+        tiles += int(real.sum())
+        entries += int((te_b[real] >= 0).sum())
+    edges = sum(int(ce.shape[0]) * int(ce.shape[1]) for ce, _cent in plan.chunk_pools)
+    return (("pan_tiles", tiles), ("pan_entries", entries), ("pan_edges", edges))
 
 
 def _param_views(flat: torch.Tensor, shapes) -> list:
