@@ -141,6 +141,14 @@ Phases (any failure raises and the process exits non-zero):
      on every bucket of the ss=2 scene and of the small resolve scene
      baked at ss = 2 and 4 (every lane held).  Each path's launch counts
      zeroed before and read after.
+  10c. The pan's view window (phase_10c): one view of the city map (the
+     citymap_z17 cell's scene) and one of the 10b ss=1 scene, K1 over the
+     window's chunks + the fold against the plain twin on the rows the
+     window holds, K2 (a) into the view's image against the twin over the
+     same window and against the whole-scene route (K2 over every scene
+     tile into a framebuffer, the window copied out), render() against
+     them, each bit for bit with deterministic folds; K1's and K2's device
+     ms a view over the window and over the whole scene.
   11. The cached-list app at 1920x1080, bench.py's two app patterns over
      the tiger in a Cacheable command list with the demo UI drawn over it,
      at ss = 1 and 2 (phase_11): the app frame (the list at a fixed
@@ -821,6 +829,124 @@ def phase_10b(vg, card, zero_counts, read_counts, check_path) -> dict:
     if lanes != set(range(7)) or {ss for ss, _fl in flags_held} != {2, 4}:
         raise AssertionError(f"[10b] the pan buckets left lanes out: {sorted(flags_held)}")
     return {"scenes": scenes, "bake_ms": bake_ms}
+
+
+# [10c]: the map scene (vgbench's citymap_z17 cell: the city drawn from a
+# seed over MAP_REGION, viewed 1920x1080) and the view each scene is held at
+MAP_REGION = (2816, 2048)
+MAP_SEED = 2**31 + 11
+MAP_BG = (242 / 255, 239 / 255, 233 / 255, 1.0)
+WINDOW_VIEWS = {"map": (431.25, 377), "scroll ss=1": (128.5, 8)}
+
+
+def window_of(fb, w, background):
+    """The view window's image out of a whole-scene framebuffer (NT, TH,
+    TW, 4): output tile (ty, tx) shows scene tile (ty + vy, tx + vx), the
+    background off the scene; the pan's window copy before K2 wrote the
+    view itself."""
+    import torch
+
+    bg = torch.tensor(background, dtype=torch.float32, device=fb.device)
+    grid = fb.view(w.nty, w.ntx, w.th, w.tw, 4)
+    x0, y0, x1, y1 = w.tiles
+    img = bg.expand(w.rows, w.th, w.cols, w.tw, 4).clone()
+    if x0 < x1 and y0 < y1:
+        img[y0 - w.vy:y1 - w.vy, :, x0 - w.vx:x1 - w.vx] = grid[y0:y1, x0:x1].permute(
+            0, 2, 1, 3, 4)
+    return img.view(w.rows * w.th, w.cols * w.tw, 4)[:w.height, :w.width].contiguous()
+
+
+def hold_pan_window(scene, view, label: str, card: str) -> dict:
+    """[10c] The pan's view window on the card at one view: K1 over the
+    window's chunks and the fold against the same through the plain twin,
+    on the rows the window holds; K2 (a)/(d) straight into the view's image
+    against the twin over the same window; that image against the
+    whole-scene route's (every chunk, K2 over every scene tile into a
+    framebuffer, the window copied out); render() against them.  Each bit
+    for bit, every fold deterministic.  Then K1's and K2's device ms a view
+    over the window and over the whole scene (torch.profiler, 10 calls)."""
+    import torch
+    from vgtpu_torch.ops.composite import composite_bucket_into_torch, frame_fb
+    from vgtpu_torch.ops.coverage import (
+        cov_all,
+        cov_all_resolved,
+        cov_all_resolved_torch,
+    )
+
+    d, plan = scene.d, scene.plan
+    th, tw, ss = scene.tile_h, scene.tile_w, scene.ss
+    vx, vy, rx, ry = scene._offsets(*view)
+    w = scene._window(vx, vy)
+    pools = scene._shifted_pools(rx, ry)
+    tiles = d["chunk_tiles"]
+    _cov, ct = scene._pan_inputs(rx, ry, w)       # patches the params, resamples
+    held = torch.cat([w.holds(t.long()) for t in tiles]
+                     + [torch.ones(1, dtype=torch.bool, device=tiles[0].device)])
+    with deterministic_fold():
+        cov_w = cov_all_resolved(pools, d["cov_map"], th, tw, w, tiles)
+        cov_t = cov_all_resolved_torch(pools, d["cov_map"], th, tw, w, tiles)
+        cov_all_rows = cov_all_resolved(pools, d["cov_map"], th, tw)
+        got = scene.render(*view)
+    args = (d["bucket_ids"], d["bucket_pteb"], d["bucket_params"], d["bucket_ctile"],
+            ct, scene.background)
+    kw = dict(tile_h=th, tile_w=tw, num_tiles=plan.ntx * plan.nty,
+              bucket_flags=d["bucket_flags"], ss=ss)
+    img_w = frame_fb(cov_w, *args, window=w, **kw)
+    img_t = frame_fb(cov_w, *args, window=w, bucket_fn=composite_bucket_into_torch, **kw)
+    img_whole = window_of(frame_fb(cov_all_rows, *args, **kw), w, scene.background)
+    checks = {
+        "K1 + fold vs twin (held rows)": torch.equal(cov_w[held], cov_t[held]),
+        "K1 window vs whole scene (held rows)": torch.equal(cov_w[held], cov_all_rows[held]),
+        "K2 window vs twin": torch.equal(img_w, img_t),
+        "K2 window vs whole-scene route": torch.equal(img_w, img_whole),
+        "render() vs K2 window": torch.equal(got, img_w),
+    }
+    x0, y0, x1, y1 = w.tiles
+    print(f"[10c] pan window, {label} at {view}: scene {plan.ntx}x{plan.nty} tiles, "
+          f"window columns [{x0}, {x1}) rows [{y0}, {y1}); {int(held.sum()) - 1} of "
+          f"{held.numel() - 1} chunks held; bit for bit: {checks}")
+    if not all(checks.values()):
+        worst = float((img_w - img_whole).abs().max())
+        raise AssertionError(f"[10c] the pan window on {label} at {view} is not bit for "
+                             f"bit: {checks}; max|window - whole| = {worst:.3e}")
+    times = {}
+    for route, win, tl in (("window", w, tiles), ("whole scene", None, None)):
+        k1, _c, _b, _w = device_breakdown(lambda: cov_all(pools, th, tw, win, tl))
+        if win is None:
+            run = lambda: window_of(frame_fb(cov_all_rows, *args, **kw), w,  # noqa: E731
+                                    scene.background)
+        else:
+            run = lambda: frame_fb(cov_w, *args, window=w, **kw)   # noqa: E731
+        k2, _c, busy, _w = device_breakdown(run)
+        times[route] = (k1.get("K1", 0.0), k2.get("K2 (a)/(d)", 0.0),
+                        busy - k2.get("K2 (a)/(d)", 0.0))
+    render_by, _c, render_busy, render_win = device_breakdown(lambda: scene.render(*view))
+    print(f"[10c] pan window, {label}: device ms a view (torch.profiler, 10 calls), "
+          f"window / whole scene: K1 {times['window'][0]:.4f} / "
+          f"{times['whole scene'][0]:.4f}, K2 {times['window'][1]:.4f} / "
+          f"{times['whole scene'][1]:.4f}, the composite's fills and copies "
+          f"{times['window'][2]:.4f} / {times['whole scene'][2]:.4f}; render() busy "
+          f"{render_busy:.4f} of {render_win:.4f} ms a view ({card})")
+    return {"checks": checks, "times": times, "render_busy": render_busy}
+
+
+def phase_10c(vg, card, scroll_scene, device: str = "cuda",
+              region: tuple = MAP_REGION) -> dict:
+    """[10c] the pan's view window (hold_pan_window) on one map view, the
+    city baked over `region` as the citymap_z17 cell bakes it, and on one
+    view of [10b]'s ss=1 scroll scene."""
+    from vgtpu_torch.raster.retained import RetainedScene
+    from vgtpu_torch.scenes.citymap import draw_city
+
+    c = vg.createContext(vg.ContextConfig(coverage_supersample=1, tile_w=128, tile_h=8,
+                                          device_sampling=True), device=device)
+    vg.begin(c, 0, 1920, 1080, 1.0)
+    draw_city(c, MAP_SEED, *region)
+    t0 = time.perf_counter()
+    city = RetainedScene.bake(c, *region, background=MAP_BG)
+    print(f"[10c] the city baked over {region} in {time.perf_counter() - t0:.1f} s host")
+    return {label: hold_pan_window(sc, WINDOW_VIEWS[label], label, card)
+            for label, sc in (("map", city), ("scroll ss=1", scroll_scene))}
 
 
 def tiger_list(vg, ctx, draw_tiger):
@@ -2529,6 +2655,8 @@ def main() -> int:
     stamp("[10a]")
     pan = phase_10b(vg, card, zero_counts, read_counts, check_path)
     stamp("[10b]")
+    phase_10c(vg, card, pan["scenes"]["ss=1"])
+    stamp("[10c]")
 
     # ---- 11. the cached-list app; 11b. render_edges ------------------------
     phase_11(vg, card, zero_counts, read_counts, check_path)

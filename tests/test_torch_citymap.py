@@ -147,21 +147,46 @@ def test_the_bake_honours_and_counts_the_depth_cap():
 
 
 def test_the_pan_counters_equal_the_plan(city):
-    """Each view adds pan_tiles, pan_entries and pan_edges (pool slots,
-    padding included), counted by hand from the baked plan, and
-    sample_rotated_pairs, the (entry, quad) pairs of the non-separable
-    groups in the sampler's tile index."""
+    """Each view adds pan_tiles, pan_entries and pan_edges over the scene
+    tiles its window reaches, counted by hand from the baked plan: the
+    bucket rows of those tiles, their entries, and the pool slots of the
+    chunks whose entry lies on one of them (padding included); each view's
+    counts are below the whole scene's.  sample_rotated_pairs counts the
+    (entry, quad) pairs of the non-separable groups in the sampler's tile
+    index."""
     ctx, _drawn, scene, _r = city
     plan = scene.plan
     nt = plan.ntx * plan.nty
-    tiles = entries = 0
-    for te, ids, _f in plan.tile_buckets:
-        for row, tid in zip(te, ids):
-            if tid < nt:
-                tiles += 1
-                entries += int((row >= 0).sum())
-    edges = sum(ce.shape[0] * ce.shape[1] for ce, _cent in plan.chunk_pools)
-    assert edges == scene.d["edges"].shape[0]
+    tw, th = plan.tile_w, plan.tile_h
+    cols, rows = -(-VIEW[0] // tw), -(-VIEW[1] // th)
+
+    def window(vx, vy):
+        """Whether each flat scene tile id lies in the view's window."""
+        tx0 = int(np.floor((vx + scene.off[0]) / tw))
+        ty0 = int(np.floor((vy + scene.off[1]) / th))
+        tile = np.arange(nt + 1)
+        tx, ty = tile % plan.ntx, tile // plan.ntx
+        return ((tx >= tx0) & (tx < tx0 + cols) & (ty >= ty0) & (ty < ty0 + rows)
+                & (tile < nt))
+
+    def counts(inside):
+        tiles = entries = 0
+        for te, ids, _f in plan.tile_buckets:
+            for row, tid in zip(te, ids):
+                if inside[tid]:
+                    tiles += 1
+                    entries += int((row >= 0).sum())
+        edges = sum(int(inside[plan.entry_tile[cent]].sum()) * ce.shape[1]
+                    for ce, cent in plan.chunk_pools)
+        return tiles, entries, edges
+
+    whole = counts(np.arange(nt + 1) < nt)
+    assert whole[2] == scene.d["edges"].shape[0]
+    want = np.zeros(3, np.int64)
+    for vx, vy in VIEWS[:2]:
+        got = counts(window(vx, vy))
+        assert all(0 < g < w for g, w in zip(got, whole)), (got, whole)
+        want += got
     g = scene.d["samp"]
     pairs = g.words[g.at["pairs"]:].view(-1, 2).numpy()
     rotated = sum(int((pairs[:, 1] == k).sum())
@@ -172,10 +197,9 @@ def test_the_pan_counters_equal_the_plan(city):
     for vx, vy in VIEWS[:2]:
         scene.render(vx, vy)
     c = prof.counters
-    assert (c["pan_tiles"], c["pan_entries"], c["pan_edges"]) == (2 * tiles, 2 * entries,
-                                                                   2 * edges)
+    assert (c["pan_tiles"], c["pan_entries"], c["pan_edges"]) == tuple(want)
     assert c["sample_rotated_pairs"] == 2 * rotated
-    assert entries > 10 * tiles
+    assert want[1] > 10 * want[0]
 
 
 def plans_equal(a, b):

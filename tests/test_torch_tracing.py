@@ -3,7 +3,7 @@ FrameProfiler stage keeps its host-clock total and, while a torch profiler
 records, is also a CPU range vg.<stage> on the profiler's clock, nested as
 the code nests and never a user annotation (which a CUDA trace would mirror
 as device events).  The frame path's stages (end(), the recorder's text,
-the native binner, the upload's copies), the retained pan's six phases and
+the native binner, the upload's copies), the retained pan's five phases and
 renderFrames' fused dispatch; with no profiler recording, no range."""
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ FONT = (Path(vgt.__file__).parent / "fonts" / "data" / "DejaVuSans.ttf").read_by
 W, H = 512, 256
 BG = (0.1, 0.1, 0.12, 1.0)
 PAN_PHASES = ("pan.shift", "pan.coverage", "pan.patch", "pan.resample",
-              "pan.composite", "pan.window")
+              "pan.composite")
 
 
 def _record(ctx, shift=0.0):

@@ -11,6 +11,18 @@ extern "C" const char* vg_error_string(int code) {
 
 namespace vg {
 
+// A retained pan's view window over a scene grid of tiles (ops/coverage.
+// ViewWindow.tiles): columns [x0, x1) and rows [y0, y1) of a grid ntx tiles
+// wide; on == 0 without a window.  K1 and K2 take it.
+struct TileWindow {
+  int on, x0, y0, x1, y1, ntx;
+  __device__ __forceinline__ bool holds(int tile) const {
+    const int ty = tile / ntx;
+    const int tx = tile - ty * ntx;
+    return tx >= x0 && tx < x1 && ty >= y0 && ty < y1;
+  }
+};
+
 // Every entry point takes the device of its tensors and launches under this
 // scope: it makes that device current only when the calling thread's current
 // device is another (a multi-GPU caller launching on a second card) and

@@ -38,6 +38,13 @@
 //       ctile and ids are read at t, the coverage row at pteb[t % nbp1], so
 //       the variants share one block of winding coverage (vgtpu's index map
 //       i % bpv), re-read from L2 across variants.
+// A view window (a retained pan, vgtpu_torch/raster/retained.py) combines
+// with forms (a) and (d): the launch takes the scene tiles a view reaches
+// and the view's output layout.  A lane whose tile lies outside the window
+// (pad lanes included) does no work; an in-window tile is written at its
+// output position, straight into the view's image (the right and bottom
+// tiles clipped to it) or its output tile grid, not into a framebuffer row.
+// Without a window the lanes write their framebuffer rows as always.
 // The seven lane flags (gradient, tri, texture, clip, even-odd, non-AA,
 // scissor) are the template bit mask F of forms (a)/(d), so a bucket
 // compiles only its lanes; ss is a runtime value.  Form (e) reads only four
@@ -124,6 +131,17 @@ constexpr int kStages = 3;       // coverage ring depth: slots in flight
 constexpr int kWindow = 64;      // slots staged per window
 constexpr int kMeta = 30;        // params rows 0..29 staged per slot
 
+// The view window (w.on == 0 without one): its scene tiles w; output tile
+// (oy, ox) shows scene tile (vy + oy, vx + ox), and its output pixel (row
+// r, column c) sits at pixel oy * s_ty + ox * s_tx + r * s_r + c of the
+// output, written where ox * tile_w + c < clip_w and oy * th_out + r <
+// clip_h (ops/coverage.ViewWindow.layout).
+struct View {
+  TileWindow w;
+  int vx, vy, clip_w, clip_h;
+  long long s_ty, s_tx, s_r;
+};
+
 struct Args {
   const float* cov;
   const int* pteb;
@@ -133,7 +151,8 @@ struct Args {
   const float* rbd;
   const int* ids;
   float4 bg;
-  float* fb;
+  float* fb;   // the framebuffer, or under a view window the output
+  View view;
   int nbp, nbp1, mo, npp, rbr, tile_w, npx_out, ss, init, scratch;
   int group;  // output pixels per block: threads * kPix
   int rows;   // output rows a group spans at most
@@ -193,6 +212,9 @@ __device__ __forceinline__ void composite_tile(const Args& a) {
   const int nthr = blockDim.x;
   const int tid = threadIdx.x;
   const int t = blockIdx.x;
+  const int row = a.ids[t];
+  // block-uniform, before any barrier: a lane outside the window does no work
+  if (a.view.w.on && !a.view.w.holds(row)) return;
   const int tc = t % a.nbp1;                // coverage rows: variant block 0
   const int ss = a.ss;
   const int chunks = kFinal ? 1 : ss;       // 16-byte coverage pieces a slot
@@ -218,7 +240,6 @@ __device__ __forceinline__ void composite_tile(const Args& a) {
   const int nrows = a.rows < th_out - ro_lo ? a.rows : th_out - ro_lo;
   const int r_first = kFinal ? ro_lo : ro_lo * ss;  // first staged bd/rbd row
   const int nstage = kMeta + nrows * chunks;        // rows staged per slot
-  const int row = a.ids[t];
 
   float fr[kPix], fg[kPix], fbl[kPix], fa[kPix];
   {
@@ -405,7 +426,21 @@ __device__ __forceinline__ void composite_tile(const Args& a) {
     }
   }
 
-  if (active) {
+  if (active && a.view.w.on) {
+    // output pixel (oty * th_out + ro, otx * tile_w + col0 + k), clipped
+    const int ty = row / a.view.w.ntx;
+    const int otx = row - ty * a.view.w.ntx - a.view.vx;
+    const int oty = ty - a.view.vy;
+    if (oty * th_out + ro < a.view.clip_h) {
+      float4* out = reinterpret_cast<float4*>(a.fb) + oty * a.view.s_ty +
+                    otx * a.view.s_tx + ro * a.view.s_r + col0;
+      const int x = otx * a.tile_w + col0;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if (x + k < a.view.clip_w) out[k] = make_float4(fr[k], fg[k], fbl[k], fa[k]);
+      }
+    }
+  } else if (active) {
     float4* out = reinterpret_cast<float4*>(a.fb) + static_cast<size_t>(row) * a.npx_out + p0;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) out[k] = make_float4(fr[k], fg[k], fbl[k], fa[k]);
@@ -487,6 +522,10 @@ struct DispatchFinal<-1> {
 // npp >= 32 + TH.  Form (e), rbd != null: cov (R, npx_out) final coverage,
 // rbd (mo, rbr, nbp) with rbr >= TH_OUT; the clip lane and form (c) are
 // refused.
+// view: null, or 12 host words (x0, y0, x1, y1, ntx, vx, vy, clip_w,
+// clip_h, s_ty, s_tx, s_r; struct View), a view window over forms (a)/(d):
+// fb is then the view's output, and init, form (c) and form (e) are
+// refused.
 // cov, ct and fb 16-byte aligned, tile_w a multiple of 4 dividing npx_out
 // (checked by the Python wrapper, which also computes smem_bytes with
 // k2_geometry: a value other than geometry()'s is refused).  All on
@@ -496,7 +535,8 @@ extern "C" int vg_composite_bucket(const float* cov, const int* pteb,
                                    const float* params, const float* ct,
                                    const int* ctile, const float* rbd,
                                    const int* ids, float bg_r, float bg_g,
-                                   float bg_b, float bg_a, float* fb, int nbp,
+                                   float bg_b, float bg_a, float* fb,
+                                   const long long* view, int nbp,
                                    int nbp1, int mo, int npp, int rbr,
                                    int tile_w, int npx_out, int ss, int flags,
                                    int init, int scratch, int smem_bytes,
@@ -513,10 +553,24 @@ extern "C" int vg_composite_bucket(const float* cov, const int* pteb,
   if (g.smem != static_cast<size_t>(smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  View v{};
+  if (view != nullptr) {
+    const TileWindow w{1, static_cast<int>(view[0]), static_cast<int>(view[1]),
+                       static_cast<int>(view[2]), static_cast<int>(view[3]),
+                       static_cast<int>(view[4])};
+    v = View{w, static_cast<int>(view[5]), static_cast<int>(view[6]),
+             static_cast<int>(view[7]), static_cast<int>(view[8]), view[9],
+             view[10], view[11]};
+    const bool empty = w.x1 == w.x0 || w.y1 == w.y0;
+    if (is_final || init != 0 || nbp1 != nbp || w.ntx < 1 || w.x1 < w.x0 ||
+        w.y1 < w.y0 || (!empty && (w.x0 < v.vx || w.y0 < v.vy))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const vg::DeviceScope scope(device);
   if (nbp > 0) {
     const Launch l{{cov, pteb, params, ct, ctile, rbd, ids,
-                    make_float4(bg_r, bg_g, bg_b, bg_a), fb, nbp, nbp1, mo, npp,
+                    make_float4(bg_r, bg_g, bg_b, bg_a), fb, v, nbp, nbp1, mo, npp,
                     rbr, tile_w, npx_out, ss, init, scratch, g.group, g.rows, g.nr},
                    g,
                    stream};

@@ -65,6 +65,15 @@
 //   so the deep form equals the twin bit for bit too.  Shallow launches
 //   (every pool of the default configurations) keep the form above and
 //   its source.
+// - A view window (a retained pan, vgtpu_torch/raster/retained.py): the
+//   launch takes the scene tiles a view reaches (columns [x0, x1), rows
+//   [y0, y1) of a grid ntx tiles wide) and each pool the scene tile of
+//   each chunk (the descriptor's rp word).  A chunk outside the window is
+//   neither staged nor computed and its row is not written; a block with
+//   none inside exits at once.  The rows an in-window tile reads are
+//   written all the same: its entries' chunks, primary and extra, share
+//   its tile, and the dead row has no tiles.  Without a window (every
+//   frame-path launch) every chunk is walked as before.
 //
 // Rounding: IEEE division is kept (no --use_fast_math), and the library is
 // built with -fmad=false, so nvcc contracts no a*b+c into an FMA on its own.
@@ -93,13 +102,33 @@ inline size_t block_smem(int ch, int win) {
          sizeof(unsigned) * kChunksPerBlock * win * nwords;
 }
 
+using vg::TileWindow;
+
+// The pool's chunk tiles under a window, else null: every chunk is live.
+__device__ __forceinline__ const int* window_tiles(const TileWindow& W,
+                                                   const vg::PoolDesc& d) {
+  return W.on ? reinterpret_cast<const int*>(d.rp) : nullptr;
+}
+
 __global__ void __launch_bounds__(kThreads)
-coverage_chunks_kernel(const vg::Pools P, int th, int tile_w, int win) {
+coverage_chunks_kernel(const vg::Pools P, int th, int tile_w, int win,
+                       const TileWindow W) {
   extern __shared__ __align__(16) float smem[];
   const vg::PoolDesc d = vg::pick_pool(P);
   const int ch = d.ch;
   const int nwords = (ch + 31) >> 5;
   const int c0 = (static_cast<int>(blockIdx.x) - d.block0) * kChunksPerBlock;
+  // bit lc: chunk c0 + lc lies in the window; the same in every thread, so
+  // a block with none returns before any barrier
+  unsigned live = ~0u;
+  const int* tiles = window_tiles(W, d);
+  if (tiles != nullptr) {
+    live = 0u;
+    for (int lc = 0; lc < kChunksPerBlock && c0 + lc < d.nc; ++lc) {
+      if (W.holds(__ldg(tiles + c0 + lc))) live |= 1u << lc;
+    }
+    if (live == 0u) return;
+  }
   float* sp = smem;
   unsigned* masks =
       reinterpret_cast<unsigned*>(smem + kChunksPerBlock * ch * vg::kEdgeScalars);
@@ -109,13 +138,15 @@ coverage_chunks_kernel(const vg::Pools P, int th, int tile_w, int win) {
   for (int r0 = 0; r0 < th; r0 += win) {
     const int nr = th - r0 < win ? th - r0 : win;
     if (r0 > 0) __syncthreads();  // every warp is done with the last window
-    vg::stage_chunks(d.edges, d.nc, ch, c0, kChunksPerBlock, r0, nr, sp, masks);
+    vg::stage_chunks(d.edges, d.nc, ch, c0, kChunksPerBlock, r0, nr, sp, masks,
+                     live);
     const int per_chunk = nr * groups;
     for (int t = threadIdx.x >> 5; t < kChunksPerBlock * per_chunk;
          t += kThreads / 32) {
       const int lc = t / per_chunk;
       const int c = c0 + lc;
       if (c >= d.nc) break;  // t rises, so every later task is past nc too
+      if (!((live >> lc) & 1u)) continue;  // outside the window: no row
       const int rg = t - lc * per_chunk;
       const int r = rg / groups;
       const int px0 = (rg - r * groups) * kGroupCols + lane * 4;
@@ -134,10 +165,13 @@ coverage_chunks_kernel(const vg::Pools P, int th, int tile_w, int win) {
 // a block) and the units y * 4 .. y * 4 + 3 of its tile (strided by
 // gridDim.y * 4); windows of ew edges.
 __global__ void __launch_bounds__(kThreads)
-coverage_chunks_deep_kernel(const vg::Pools P, int th, int tile_w, int ew) {
+coverage_chunks_deep_kernel(const vg::Pools P, int th, int tile_w, int ew,
+                            const TileWindow W) {
   extern __shared__ __align__(16) float smem[];
   const vg::PoolDesc d = vg::pick_pool(P);
   const int c = static_cast<int>(blockIdx.x) - d.block0;
+  const int* tiles = window_tiles(W, d);
+  if (tiles != nullptr && !W.holds(__ldg(tiles + c))) return;  // block-uniform
   const int groups = tile_w / kGroupCols;
   const int npx = th * tile_w;
   const float* edges = d.edges + static_cast<size_t>(c) * d.ch * 4;
@@ -157,9 +191,13 @@ coverage_chunks_deep_kernel(const vg::Pools P, int th, int tile_w, int ew) {
 }  // namespace
 
 // desc: npools descriptors, vg::kDescWords 64-bit words each (edges, rp
-// (unused), out, nc, ch, block0: ops/coverage_cuda.pack_pools), read on the
-// host; each pool's edges (nc, ch, 4) f32 and its output rows (nc, th *
-// tile_w) f32, 16-byte aligned, all on `device`.  tile_w a multiple of 128.
+// (the pool's (nc,) int32 chunk tiles under a view window, else null), out,
+// nc, ch, block0: ops/coverage_cuda.pack_pools), read on the host; each
+// pool's edges (nc, ch, 4) f32 and its output rows (nc, th * tile_w) f32,
+// 16-byte aligned, all on `device`.  tile_w a multiple of 128.  view: null,
+// or 5 host ints (x0, y0, x1, y1, ntx), the view window: only chunks whose
+// tile lies in columns [x0, x1) and rows [y0, y1) of a grid ntx tiles wide
+// (and pools without tiles) are computed.
 // ew: 0 for the shallow form (blocks of kChunksPerBlock chunks), else the
 // deep form's edge window (a multiple of 32; one chunk a block).  win: the
 // rows a shallow window stages (>= 1); smem_bytes: the launch's dynamic
@@ -170,8 +208,9 @@ coverage_chunks_deep_kernel(const vg::Pools P, int th, int tile_w, int ew) {
 // descriptor, is refused.  Launches on `stream`, does not synchronise;
 // returns cudaGetLastError().
 extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
-                                  int tile_w, int win, int ew, int smem_bytes,
-                                  int device, cudaStream_t stream) {
+                                  int tile_w, int win, const int* view, int ew,
+                                  int smem_bytes, int device,
+                                  cudaStream_t stream) {
   vg::Pools pools;
   int max_ch = 0;
   const bool deep = ew != 0;
@@ -186,6 +225,13 @@ extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
       smem_bytes < 0 || static_cast<size_t>(smem_bytes) < need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  TileWindow W{0, 0, 0, 0, 0, 1};
+  if (view != nullptr) {
+    W = TileWindow{1, view[0], view[1], view[2], view[3], view[4]};
+    if (W.ntx < 1 || W.x0 < 0 || W.y0 < 0 || W.x1 < W.x0 || W.y1 < W.y0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const vg::DeviceScope scope(device);
   if (deep) {
     static unsigned raised = 0;
@@ -196,7 +242,7 @@ extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
     const long long ys = (units + kThreads / 32 - 1) / (kThreads / 32);
     coverage_chunks_deep_kernel<<<dim3(blocks, ys < 65535 ? ys : 65535),
                                   kThreads, smem_bytes, stream>>>(
-        pools, th, tile_w, ew);
+        pools, th, tile_w, ew, W);
     return static_cast<int>(cudaGetLastError());
   }
   static unsigned raised = 0;
@@ -204,6 +250,6 @@ extern "C" int vg_coverage_chunks(const long long* desc, int npools, int th,
     vg::allow_dynamic_smem(coverage_chunks_kernel, &raised);
   }
   coverage_chunks_kernel<<<blocks, kThreads, smem_bytes, stream>>>(
-      pools, th, tile_w, win);
+      pools, th, tile_w, win, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -122,7 +122,9 @@ __device__ __forceinline__ void add_edge_row(const float* q, float py,
 // by edge_row_h, into masks[(lc * nr + r - r0) * nwords + w] (bit b <->
 // edge 32 w + b; nwords = ceil(ch / 32)).  One warp per (chunk, 32-edge
 // word): each lane stages one edge in registers and the warp takes one
-// ballot per row.  Ends with __syncthreads().  A kernel whose tile is
+// ballot per row.  Chunk lc is staged only where bit lc of `live` is set
+// (K1 under a view window); the others get no scalars and empty masks.
+// Ends with __syncthreads().  A kernel whose tile is
 // taller than its window calls this once per window, after a barrier that
 // ends the previous window's reads: the scalars are written again with the
 // same values, the masks are the new window's.  So the staging is sized by
@@ -130,7 +132,8 @@ __device__ __forceinline__ void add_edge_row(const float* q, float py,
 __device__ __forceinline__ void stage_chunks(const float* edges, int nc,
                                              int ch, int c0, int nchunks,
                                              int r0, int nr, float* sp,
-                                             unsigned* masks) {
+                                             unsigned* masks,
+                                             unsigned live = ~0u) {
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int nwords = (ch + 31) >> 5;
@@ -139,7 +142,7 @@ __device__ __forceinline__ void stage_chunks(const float* edges, int nc,
     const int w = t - lc * nwords;
     const int c = c0 + lc;
     const int e = w * 32 + lane;
-    const bool valid = c < nc && e < ch;
+    const bool valid = c < nc && e < ch && ((live >> lc) & 1u);
     float q[kEdgeScalars] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (valid) {
       stage_edge(edges + (static_cast<size_t>(c) * ch + e) * 4, q);
@@ -295,7 +298,10 @@ constexpr int kPoolThreads = 128;
 
 struct PoolDesc {
   const float* edges;  // (nc, ch, 4); unread when ch == 0 (K1's dead row)
-  const float* rp;     // K3: (RP_ROWS, nc); K1, K4: unused
+  // K3: (RP_ROWS, nc) rparams; K1: the (nc,) int32 scene tiles of the
+  // chunks under a view window, or null (no window, and the dead row);
+  // K4: unused
+  const float* rp;
   float* out;          // the pool's first output row (K4: its output)
   int nc, ch, block0;
 };

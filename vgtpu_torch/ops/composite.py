@@ -386,7 +386,7 @@ def composite_bucket_flat(ew_t: torch.Tensor, params_t: torch.Tensor,
 def composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile, ids,
                                 background, *, tile_w: int, flags: tuple,
                                 ss: int = 1, rbd=None, init: bool = False,
-                                k_rep: int = 1) -> None:
+                                k_rep: int = 1, window=None) -> None:
     """Plain twin of K2 on the tensors' own device: gather the bucket's
     coverage (and colour tiles), run composite_bucket_torch, scatter the
     tiles into fb (T+1, TH//ss, TW, 4) in place at rows ids (the last row
@@ -395,12 +395,26 @@ def composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile, ids,
     final coverage (R, TH//ss*TW) when the bucket's resolved-backdrop rows
     rbd (MO, RBR, NbP) are given (form (e)).  init (form (b)): each tile
     starts from its own fb row, pad tiles from the background.  k_rep
-    (form (c)): pteb holds one variant block, params/ctile/ids k_rep."""
+    (form (c)): pteb holds one variant block, params/ctile/ids k_rep.
+    window (ops/coverage.ViewWindow, forms (a) and (d)): fb is the view's
+    output; only the tiles window.tiles holds are composited, each as it
+    would be among all, and placed at its output position
+    (ViewWindow.place), as K2 writes them."""
     nb = ids.shape[0]
     if pteb.shape[0] * k_rep != nb:
         raise ValueError(f"composite_bucket_into_torch: {nb} tiles for "
                          f"{pteb.shape[0]} coverage rows x k_rep={k_rep}")
-    th_out = fb.shape[1]
+    if window is not None:
+        if init or k_rep != 1 or rbd is not None:
+            raise ValueError("composite_bucket_into_torch: a view window takes "
+                             "forms (a) and (d) only")
+        keep = window.holds(ids.long()).nonzero().flatten()
+        if not keep.numel():
+            return
+        pteb, params, ids = pteb[keep], params[:, :, keep], ids[keep]
+        ctile = None if ctile is None else ctile[keep]
+        nb = ids.shape[0]
+    th_out = fb.shape[1] if window is None else window.th
     npx_out = th_out * tile_w
     ew_t = cov[pteb].permute(1, 2, 0)                       # (MO, NPX|NPX_OUT, NbP1)
     ct_t = ct_flat[ctile].permute(1, 2, 0) if flags[2] else None
@@ -413,19 +427,25 @@ def composite_bucket_into_torch(fb, cov, pteb, params, ct_flat, ctile, ids,
                                   flags=tuple(flags), ss=ss,
                                   cov_final=rbd is not None, rbd_t=rbd,
                                   k_rep=k_rep)
-    fb[ids] = fb_t.reshape(4, th_out, tile_w, nb).permute(3, 1, 2, 0)
+    tiles = fb_t.reshape(4, th_out, tile_w, nb).permute(3, 1, 2, 0)
+    if window is None:
+        fb[ids] = tiles
+    else:
+        window.place(fb, tiles, ids.long())
 
 
 def composite_bucket(fb, cov, pteb, params, ct_flat, ctile, ids,
                      background, *, tile_w: int, flags: tuple, ss: int = 1,
-                     rbd=None, init: bool = False, k_rep: int = 1) -> None:
+                     rbd=None, init: bool = False, k_rep: int = 1,
+                     window=None) -> None:
     """Composite one bucket into fb (T+1, TH//ss, TW, 4) in place (the
     update saves a per-bucket framebuffer copy): kernel K2 on CUDA, the plain
     twin on the CPU.  rbd given: form (e) over final coverage; init: form
-    (b); k_rep > 1: form (c)."""
+    (b); k_rep > 1: form (c); window: into the view's output (forms (a)
+    and (d))."""
     dev = fb.device
     kw = dict(tile_w=tile_w, flags=flags, ss=ss, rbd=rbd, init=init,
-              k_rep=k_rep)
+              k_rep=k_rep, window=window)
     if dev.type == "cuda":
         from vgtpu_torch.ops.composite_cuda import composite_bucket_cuda
 
@@ -442,7 +462,7 @@ def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
              ct_flat, background, *, tile_h: int, tile_w: int, num_tiles: int,
              bucket_flags: tuple, bucket_fn=composite_bucket, ss: int = 1,
              cov_final_arr=None, bucket_rbd=None, init_tiles=None,
-             k_rep: int = 1) -> torch.Tensor:
+             k_rep: int = 1, window=None) -> torch.Tensor:
     """Fused frame composite -> (T, TH//ss, TW, 4) tiles: the twin of
     vgtpu's frame_fb_pallas.  Buckets gather straight from chunk coverage
     via the host-built primary-chunk ids; tiles no bucket covers keep the
@@ -464,20 +484,36 @@ def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
 
     background is the 4 premultiplied RGBA floats; bucket_ids are padded to
     NbP with the scratch row num_tiles; bucket_fn is composite_bucket (K2 on
-    CUDA) or composite_bucket_into_torch."""
+    CUDA) or composite_bucket_into_torch.
+
+    window (ops/coverage.ViewWindow; forms (a) and (d), no init_tiles): the
+    retained pan's view.  The result is then the view's output
+    (window.out_shape()), filled with the background once; only the bucket
+    rows of the window's tiles are composited, each straight into its
+    output position, and no framebuffer of the scene is made."""
     background = tuple(float(v) for v in background)
     th_out = tile_h // ss
-    fb = torch.empty((num_tiles + 1, th_out, tile_w, 4), dtype=torch.float32,
-                     device=cov_all.device)
-    bg = background_tensor(background, fb.device)
-    if init_tiles is None:
-        fb.copy_(bg.expand(num_tiles + 1, th_out, tile_w, 4))
+    bg = background_tensor(background, cov_all.device)
+    if window is not None:
+        if init_tiles is not None or cov_final_arr is not None or k_rep != 1:
+            raise ValueError("frame_fb: a view window takes forms (a) and (d) only")
+        if (window.th, window.tw) != (th_out, tile_w):
+            raise ValueError(f"frame_fb: a window of {window.th}x{window.tw} "
+                             f"tiles over {th_out}x{tile_w} output tiles")
+        fb = torch.empty(window.out_shape(), dtype=torch.float32,
+                         device=cov_all.device)
+        fb.copy_(bg.expand(fb.shape))
     else:
-        if tuple(init_tiles.shape) != (num_tiles, th_out, tile_w, 4):
-            raise ValueError(f"frame_fb: init_tiles {tuple(init_tiles.shape)}, "
-                             f"expected {(num_tiles, th_out, tile_w, 4)}")
-        fb[:num_tiles].copy_(init_tiles)
-        fb[num_tiles].copy_(bg.expand(th_out, tile_w, 4))
+        fb = torch.empty((num_tiles + 1, th_out, tile_w, 4), dtype=torch.float32,
+                         device=cov_all.device)
+        if init_tiles is None:
+            fb.copy_(bg.expand(num_tiles + 1, th_out, tile_w, 4))
+        else:
+            if tuple(init_tiles.shape) != (num_tiles, th_out, tile_w, 4):
+                raise ValueError(f"frame_fb: init_tiles {tuple(init_tiles.shape)}, "
+                                 f"expected {(num_tiles, th_out, tile_w, 4)}")
+            fb[:num_tiles].copy_(init_tiles)
+            fb[num_tiles].copy_(bg.expand(th_out, tile_w, 4))
     if bucket_rbd is None:
         bucket_rbd = (None,) * len(bucket_pteb)
     for ids, pteb, pp, ctile, flags, rbd in zip(
@@ -491,8 +527,8 @@ def frame_fb(cov_all, bucket_ids, bucket_pteb, bucket_params, bucket_ctile,
         bucket_fn(fb, cov_final_arr if covf else cov_all, pteb, pp, ct_flat,
                   ctile, ids, background, tile_w=tile_w, flags=tuple(flags),
                   ss=ss, rbd=rbd if covf else None,
-                  init=init_tiles is not None, k_rep=k_rep)
-    return fb[:num_tiles]
+                  init=init_tiles is not None, k_rep=k_rep, window=window)
+    return fb if window is not None else fb[:num_tiles]
 
 
 def _sdroundrect(ux, uy, ex, ey, rad):

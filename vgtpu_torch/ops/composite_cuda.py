@@ -12,12 +12,16 @@ tensors here and nowhere else.
 K2.launches counts every launch; FORM_LAUNCHES counts them per form: each
 launch adds one to its coverage form (a, d or e) and one to b and c when it
 takes them.  k2_geometry is the kernel's launch geometry, a pure function
-of the tile shape and the bucket's lanes.
+of the tile shape and the bucket's lanes.  A view window
+(ops/coverage.ViewWindow) makes forms (a) and (d) composite only the tiles
+a retained pan's view reaches, straight into the view's output.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +41,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 K2 = CudaKernel("composite", {"vg_composite_bucket": [
-    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _f, _f, _f, _f, _vp,
+    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _f, _f, _f, _f, _vp, _vp,
     _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
 ]})
 FORM_LAUNCHES = dict.fromkeys("abcde", 0)
@@ -78,10 +82,19 @@ def k2_geometry(th_out: int, tile_w: int, ss: int, *, mo: int = 1,
             "windows": -(-mo // WINDOW), "stages": STAGES, "smem_bytes": smem}
 
 
+@functools.lru_cache(maxsize=64)
+def _view_words(window) -> array.array:
+    """A view window as csrc/composite.cu's struct View reads it on the
+    host at each launch: once a window, not once a bucket."""
+    s_ty, s_tx, s_r, clip_w, clip_h = window.layout()
+    return array.array("q", (*window.tiles, window.ntx, window.vx, window.vy,
+                             clip_w, clip_h, s_ty, s_tx, s_r))
+
+
 def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
                           background, *, tile_w: int, flags: tuple,
                           ss: int = 1, rbd=None, init: bool = False,
-                          k_rep: int = 1) -> None:
+                          k_rep: int = 1, window=None) -> None:
     """Launch K2 for one bucket: writes the bucket's tiles into
     fb (T+1, TH//ss, TW, 4) at rows ids (pad rows hit the scratch row T,
     the last row).  Without rbd, cov is raw sub-row coverage (NC+1, TH*TW)
@@ -91,12 +104,25 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
     (c)): pteb holds one variant block of NbP1 rows and params, ctile and
     ids k_rep * NbP1 (not with rbd).  background: the 4 premultiplied RGBA
     floats (host values, no sync).  fb, cov and ct_flat are 16-byte
-    aligned (the kernel moves them as float4)."""
+    aligned (the kernel moves them as float4).
+
+    window (ops/coverage.ViewWindow, forms (a) and (d) only): fb is the
+    view's output (window.out_shape()); tiles outside window.tiles do no
+    work and the others are written at their output positions."""
     who = "composite_bucket_cuda"
     if not fb.is_cuda:
         raise ValueError(f"composite_bucket_cuda: framebuffer on {fb.device}")
     index = fb.get_device()
-    nt1, th_out, tw, _c = fb.shape
+    view = None
+    if window is None:
+        nt1, th_out, tw, _c = fb.shape
+    else:
+        if init or k_rep != 1 or rbd is not None:
+            raise ValueError("composite_bucket_cuda: a view window takes "
+                             "forms (a) and (d) only")
+        th_out, tw, nt1 = window.th, window.tw, 1   # no scratch row: no init
+        check_tensor(who, "out", fb, torch.float32, window.out_shape(), index, 16)
+        view = _view_words(window)
     npx_out = th_out * tw
     th = th_out * ss                          # sub-rows
     if tw != tile_w:
@@ -111,7 +137,8 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
     if k_rep < 1 or (k_rep > 1 and rbd is not None):
         raise ValueError(f"composite_bucket_cuda: k_rep={k_rep}; k_rep > 1 "
                          f"takes raw sub-row coverage (no rbd)")
-    check_tensor(who, "fb", fb, torch.float32, (nt1, th_out, tw, 4), index, 16)
+    if window is None:
+        check_tensor(who, "fb", fb, torch.float32, (nt1, th_out, tw, 4), index, 16)
     check_tensor(who, "pteb", pteb, torch.int32, (nbp1, mo), index)
     check_tensor(who, "params", params, torch.float32, (mo, npp, nbp), index)
     check_tensor(who, "ids", ids, torch.int32, (nbp,), index)
@@ -141,7 +168,9 @@ def composite_bucket_cuda(fb, cov, pteb, params, ct_flat, ctile, ids,
     r, g, b, a = (float(v) for v in background)
     K2.launch("vg_composite_bucket", cov.data_ptr(), pteb.data_ptr(),
               params.data_ptr(), ct_ptr, ctile_ptr, rbd_ptr, ids.data_ptr(),
-              r, g, b, a, fb.data_ptr(), nbp, nbp1, mo, npp, rbr, tw, npx_out,
+              r, g, b, a, fb.data_ptr(),
+              None if view is None else view.buffer_info()[0],
+              nbp, nbp1, mo, npp, rbr, tw, npx_out,
               ss, bits, int(bool(init)), nt1 - 1, geo["smem_bytes"], index,
               current_stream(index))
     FORM_LAUNCHES["e" if rbd is not None else "d" if ss > 1 else "a"] += 1

@@ -17,9 +17,17 @@ K4 on one pool or, with variant="flat", K5 (csrc/coverage_t_flat.cu, via
 ops/coverage_t_flat_cuda.py); on a CPU tensor they run the plain torch
 twins `cov_all_torch`, `coverage_chunks_torch` and
 `coverage_chunks_t_torch`.  Any other device raises.
+
+ViewWindow is the view of a retained pan (raster/retained.py): `cov_all`
+computes only the chunks of the scene tiles it reaches, and
+ops/composite.frame_fb composites only their bucket rows, straight into the
+view's output.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -31,6 +39,74 @@ def fma(a, b, c):
     """a*b + c rounded once to float32 (a fused multiply-add), computed in
     float64: the 48-bit product is exact there."""
     return (a.double() * b.double() + c.double()).float()
+
+
+@dataclass(frozen=True)
+class ViewWindow:
+    """The view of a retained pan: output tile (oy, ox), oy < rows and ox <
+    cols, shows scene tile (vy + oy, vx + ox) of a scene grid ntx x nty
+    tiles of th output rows by tw columns.  `tiles` are the scene tiles the
+    view reaches, clipped to the grid.  The output is an image of width x
+    height pixels (width > 0: the last column and row of tiles clipped to
+    it) or, width == 0, the (rows * cols, th, tw, 4) output tile grid."""
+
+    vx: int
+    vy: int
+    cols: int
+    rows: int
+    ntx: int
+    nty: int
+    th: int
+    tw: int
+    width: int = 0
+    height: int = 0
+
+    @cached_property
+    def tiles(self) -> tuple:
+        """(x0, y0, x1, y1): scene columns [x0, x1) and rows [y0, y1), empty
+        (x0 == x1 or y0 == y1) for a view off the scene."""
+        x0 = min(max(self.vx, 0), self.ntx)
+        y0 = min(max(self.vy, 0), self.nty)
+        x1 = max(min(self.vx + self.cols, self.ntx), x0)
+        y1 = max(min(self.vy + self.rows, self.nty), y0)
+        return x0, y0, x1, y1
+
+    def holds(self, tile: torch.Tensor) -> torch.Tensor:
+        """Whether each flat scene tile id (ty * ntx + tx) lies in `tiles`
+        (the scratch id ntx * nty never does)."""
+        x0, y0, x1, y1 = self.tiles
+        tx, ty = tile % self.ntx, tile // self.ntx
+        return (tx >= x0) & (tx < x1) & (ty >= y0) & (ty < y1)
+
+    def out_shape(self) -> tuple:
+        if self.width:
+            return (self.height, self.width, 4)
+        return (self.rows * self.cols, self.th, self.tw, 4)
+
+    def layout(self) -> tuple:
+        """(s_ty, s_tx, s_r, clip_w, clip_h): output pixel (row r, column c)
+        of output tile (oy, ox) sits at pixel oy * s_ty + ox * s_tx + r *
+        s_r + c of the output, and is written only where ox * tw + c <
+        clip_w and oy * th + r < clip_h (kernel K2's addressing)."""
+        th, tw = self.th, self.tw
+        if self.width:
+            return th * self.width, tw, self.width, self.width, self.height
+        return (self.cols * th * tw, th * tw, tw, self.cols * tw,
+                self.rows * th)
+
+    def place(self, out: torch.Tensor, tiles: torch.Tensor,
+              tile_ids: torch.Tensor) -> None:
+        """Writes tiles (n, th, tw, 4) of scene tiles tile_ids (inside
+        `tiles`) at their output positions in out, K2's addressing."""
+        s_ty, s_tx, s_r, clip_w, clip_h = self.layout()
+        dev = out.device
+        ox = (tile_ids % self.ntx - self.vx)[:, None, None]
+        oy = (tile_ids // self.ntx - self.vy)[:, None, None]
+        r = torch.arange(self.th, device=dev)[None, :, None]
+        c = torch.arange(self.tw, device=dev)[None, None, :]
+        keep = (ox * self.tw + c < clip_w) & (oy * self.th + r < clip_h)
+        pix = oy * s_ty + ox * s_tx + r * s_r + c
+        out.view(-1, 4)[pix[keep]] = tiles[keep]
 
 
 def _edge_contribution(px, py, x0, y0, x1, y1):
@@ -282,29 +358,50 @@ def build_cov_gather_map(chunk_pools, num_entries: int) -> dict:
     }
 
 
-def cov_all_torch(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
+def cov_all_torch(chunk_edges: list, tile_h: int, tile_w: int,
+                  window: ViewWindow | None = None,
+                  chunk_tiles: list | None = None) -> torch.Tensor:
     """All pools' per-chunk coverage as ONE (NC+1, NPX) tensor, the last row
     the all-zeros dead chunk that chunkless entries index: the plain twin of
-    vgtpu's _cov_all, on the tensors' own device."""
+    vgtpu's _cov_all, on the tensors' own device.  With a view window
+    (chunk_tiles: each pool's (NC,) scene tile ids) only the chunks of the
+    window's tiles are computed, each as it would be among all; the other
+    rows hold zeros here (K1 leaves them unwritten)."""
+    if (window is None) != (chunk_tiles is None) or (
+            chunk_tiles is not None and len(chunk_tiles) != len(chunk_edges)):
+        raise ValueError("cov_all_torch: a view window takes one chunk-tile "
+                         "array a pool")
     npx = tile_h * tile_w
-    covs = [coverage_chunks_torch(ce, tile_h, tile_w).reshape(-1, npx)
-            for ce in chunk_edges]
+    covs = []
+    for k, ce in enumerate(chunk_edges):
+        if window is None:
+            covs.append(coverage_chunks_torch(ce, tile_h, tile_w).reshape(-1, npx))
+            continue
+        keep = window.holds(chunk_tiles[k].long()).nonzero().flatten()
+        part = ce.new_zeros((ce.shape[0], npx))
+        if keep.numel():
+            part[keep] = coverage_chunks_torch(ce[keep], tile_h, tile_w).reshape(-1, npx)
+        covs.append(part)
     covs.append(torch.zeros((1, npx), dtype=torch.float32,
                             device=chunk_edges[0].device))
     return torch.cat(covs, dim=0)
 
 
-def cov_all(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
+def cov_all(chunk_edges: list, tile_h: int, tile_w: int,
+            window: ViewWindow | None = None,
+            chunk_tiles: list | None = None) -> torch.Tensor:
     """(NC+1, NPX) chunk coverage of every pool: kernel K1 on CUDA (one
     launch over every pool and the dead row, written in place into one
-    preallocated tensor), the plain twin on the CPU."""
+    preallocated tensor), the plain twin on the CPU.  With a view window
+    and each pool's chunk tiles, only the chunks of the window's tiles and
+    the dead row are computed (cov_all_torch)."""
     dev = chunk_edges[0].device
     if dev.type == "cuda":
         from vgtpu_torch.ops.coverage_cuda import cov_all_cuda
 
-        return cov_all_cuda(chunk_edges, tile_h, tile_w)
+        return cov_all_cuda(chunk_edges, tile_h, tile_w, window, chunk_tiles)
     if dev.type == "cpu":
-        return cov_all_torch(chunk_edges, tile_h, tile_w)
+        return cov_all_torch(chunk_edges, tile_h, tile_w, window, chunk_tiles)
     raise ValueError(f"cov_all: unsupported device {dev}")
 
 
@@ -318,15 +415,21 @@ def fold_extras(cov: torch.Tensor, cov_map: dict) -> torch.Tensor:
 
 
 def cov_all_resolved(chunk_edges: list, cov_map: dict, tile_h: int,
-                     tile_w: int) -> torch.Tensor:
+                     tile_w: int, window: ViewWindow | None = None,
+                     chunk_tiles: list | None = None) -> torch.Tensor:
     """Chunk coverage with extras folded in, so entry coverage ==
     cov_all[primary[e]]: the fused composite gathers straight from it and
-    the (NE, NPX) entry coverage is never materialized."""
-    return fold_extras(cov_all(chunk_edges, tile_h, tile_w), cov_map)
+    the (NE, NPX) entry coverage is never materialized.  Under a view
+    window (cov_all) the rows of the window's entries are exact: an
+    entry's extra chunks share its tile."""
+    return fold_extras(cov_all(chunk_edges, tile_h, tile_w, window, chunk_tiles),
+                       cov_map)
 
 
 def cov_all_resolved_torch(chunk_edges: list, cov_map: dict, tile_h: int,
-                           tile_w: int) -> torch.Tensor:
+                           tile_w: int, window: ViewWindow | None = None,
+                           chunk_tiles: list | None = None) -> torch.Tensor:
     """cov_all_resolved through the plain twin, on the tensors' own device
     (the reference the CUDA path is held against)."""
-    return fold_extras(cov_all_torch(chunk_edges, tile_h, tile_w), cov_map)
+    return fold_extras(cov_all_torch(chunk_edges, tile_h, tile_w, window, chunk_tiles),
+                       cov_map)

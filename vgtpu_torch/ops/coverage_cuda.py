@@ -5,7 +5,9 @@ ops/coverage.py::coverage_chunks_torch; ops/coverage.py::cov_all routes CUDA
 tensors here and nowhere else.  pack_pools lays out the pool descriptors of
 K1's, K3's and K4's launches (csrc/edge_coverage.cuh vg::Pools); EDGE_WINDOW
 and deep_smem size the deep form every coverage kernel takes for chunks
-deeper than one edge window.
+deeper than one edge window.  A view window (ops/coverage.ViewWindow)
+restricts K1 to the chunks of the scene tiles a retained pan's view
+reaches.
 """
 
 from __future__ import annotations
@@ -16,7 +18,12 @@ import functools
 
 import torch
 
-from vgtpu_torch.utils.cuda_build import SMEM_LIMIT, CudaKernel, current_stream
+from vgtpu_torch.utils.cuda_build import (
+    SMEM_LIMIT,
+    CudaKernel,
+    check_tensor,
+    current_stream,
+)
 
 # K1's and K3's launch geometry: the one mirror of csrc/edge_coverage.cuh's
 # constants, which both kernels take (coverage_resolve_cuda imports it).  A
@@ -35,7 +42,7 @@ EDGE_WINDOW = 512
 
 K1 = CudaKernel("coverage", {"vg_coverage_chunks": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]})
 
 
@@ -143,7 +150,8 @@ _packed = functools.lru_cache(maxsize=256)(pack_pools)   # keyed by shapes, cpb
 def launch_pools(kernel: CudaKernel, symbol: str, pools: list, rps, out:
                  torch.Tensor, row_floats: int, geo: dict, *args) -> None:
     """Launch `symbol` of `kernel` over pools (each (NC, CH, 4), or None for
-    a chunk without edges), their rparams (K3; None for K1) and their rows
+    a chunk without edges), their rparams (K3) or chunk tiles (K1 under a
+    view window; None, or None for a pool, otherwise) and their rows
     of `out` (row_floats floats a row), as pack_pools lays them out with
     geo's chunks per block: one launch per MAX_POOLS pools, each with geo's
     dynamic shared bytes (the deepest pool's).  The descriptors go to the
@@ -159,20 +167,28 @@ def launch_pools(kernel: CudaKernel, symbol: str, pools: list, rps, out:
         for i, row, block0 in descs:
             ce = pools[i]
             words += (0 if ce is None else ce.data_ptr(),
-                      0 if rps is None else rps[i].data_ptr(),
+                      0 if rps is None or rps[i] is None else rps[i].data_ptr(),
                       base + row * row_bytes, shapes[i][0], shapes[i][1], block0)
         desc = array.array("q", words)
         kernel.launch(symbol, desc.buffer_info()[0], len(descs), *args,
                       geo["edge_window"], geo["smem_bytes"], index, stream)
 
 
-def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
+def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int, window=None,
+                 chunk_tiles: list | None = None) -> torch.Tensor:
     """(NC_total+1, NPX) coverage of every pool in one K1 launch (one per
     MAX_POOLS pools), each pool writing its own row range of one torch.empty
     tensor; the last (dead-chunk) row is a pool of one chunk without edges,
-    which K1 writes as zeros in the same launch."""
+    which K1 writes as zeros in the same launch.  With a view window
+    (ops/coverage.ViewWindow) and chunk_tiles, each pool's (NC,) int32 scene
+    tile ids, K1 computes and writes only the rows of chunks whose tile the
+    window holds, and the dead row: the other rows stay unwritten."""
     if not chunk_edges:
         raise ValueError("cov_all_cuda: no chunk pools")
+    if (window is None) != (chunk_tiles is None) or (
+            chunk_tiles is not None and len(chunk_tiles) != len(chunk_edges)):
+        raise ValueError("cov_all_cuda: a view window takes one chunk-tile "
+                         "array a pool")
     dev = chunk_edges[0].device
     index = chunk_edges[0].get_device()
     total = max_ch = 0
@@ -190,9 +206,19 @@ def cov_all_cuda(chunk_edges: list, tile_h: int, tile_w: int) -> torch.Tensor:
             raise ValueError(f"cov_all_cuda: CH={ce.shape[1]}")
         total += ce.shape[0]
         max_ch = max(max_ch, ce.shape[1])
+    view, tiles = None, None
+    if window is not None:
+        for ce, t in zip(chunk_edges, chunk_tiles):
+            check_tensor("cov_all_cuda", "chunk_tiles", t, torch.int32,
+                         (ce.shape[0],), index)
+        # columns [x0, x1), rows [y0, y1) of a grid ntx tiles wide; read on
+        # the host at the launch
+        view = array.array("i", (*window.tiles, window.ntx))
+        tiles = [*chunk_tiles, None]
     geo = k1_geometry(tile_h, tile_w, max_ch)
     npx = tile_h * tile_w
     out = torch.empty((total + 1, npx), dtype=torch.float32, device=dev)
-    launch_pools(K1, "vg_coverage_chunks", [*chunk_edges, None], None, out, npx,
-                 geo, tile_h, tile_w, geo["window_rows"])
+    launch_pools(K1, "vg_coverage_chunks", [*chunk_edges, None], tiles, out, npx,
+                 geo, tile_h, tile_w, geo["window_rows"],
+                 None if view is None else view.buffer_info()[0])
     return out

@@ -11,8 +11,8 @@ into
 
   view origin (Vx, Vy)  =  whole tiles (vx, vy)  +  residual (rx, ry)
 
-  * whole tiles: output tile (ty, tx) shows scene tile (ty+vy, tx+vx), a
-    copy of a window of the tile framebuffer (_pan_epilogue);
+  * whole tiles: output tile (ty, tx) shows scene tile (ty+vy, tx+vx): the
+    view window (ops/coverage.ViewWindow) of the scene's tiles;
   * the residual rx in [0, tile_w), ry in [0, tile_h) moves the content
     left/up by less than a tile.  The scene is binned with a pan margin
     (bin_frame_numpy(pan_margin=True)), so every tile's chunks already hold
@@ -21,18 +21,24 @@ into
     edges.  Backdrops carry a 2*tile_h row window, so ry is a row offset.
 
 Each pan frame runs the chunk-gather formulation, vgtpu's production pan
-(its _render_pan_body with pan_chunk_gather): the shifted pools through
-ops/coverage.cov_all_resolved (kernel K1 + the extras fold on CUDA), the
-per-offset backdrop rows (_P_BD) and origin rows (_P_OX, _P_OY) patched
-into the bake-time bucket params with one gather over tables concatenated
-at bake, textured scenes resampled at the shifted origins
-(ops/sampling_device.sample_tiles_flat: kernel S1 on CUDA, straight into
-K2's colour-tile layout), ops/composite.frame_fb (kernel K2 per bucket:
-form (a) at ss=1, form (d) on every bucket at ss>1, since the pan does not
-split the resolve), then the window copy.  On CPU tensors the same calls
-take the plain twins.  use_pallas, vgtpu's keyword on render, render_tiles
-and render_views, selects the route: None or True runs the kernels (on
-CUDA) and False the plain twins, on any device.
+(its _render_pan_body with pan_chunk_gather), over the view window only:
+the shifted pools through ops/coverage.cov_all_resolved (kernel K1 + the
+extras fold on CUDA; K1 computes the chunks of the window's tiles, found
+by the per-chunk scene tiles stored at bake), the per-offset backdrop
+rows (_P_BD) and origin rows (_P_OX, _P_OY) patched into the bake-time
+bucket params with one gather over tables concatenated at bake, textured
+scenes resampled at the shifted origins (ops/sampling_device.
+sample_tiles_flat: kernel S1 on CUDA, straight into K2's colour-tile
+layout), then ops/composite.frame_fb over the window (kernel K2 per
+bucket: form (a) at ss=1, form (d) on every bucket at ss>1, since the pan
+does not split the resolve), which composites the bucket rows of the
+window's tiles straight into the view's image or output tile grid, filled
+once with the background.  vgtpu composites every scene tile into a
+framebuffer and gathers the window from it; the images are the same, bit
+for bit.  On CPU tensors the same calls take the plain twins.
+use_pallas, vgtpu's keyword on render, render_tiles and render_views,
+selects the route: None or True runs the kernels (on CUDA) and False the
+plain twins, on any device.
 
 The translated cached-list layer (api/command_list._layer_submit) renders
 through PendingPanLayer: the pan body in its tiles-only form, the blend of
@@ -60,13 +66,13 @@ from vgtpu_torch.ops.composite import (
     _P_BD,
     _P_OX,
     _P_OY,
-    background_tensor,
     build_bucket_aux,
     build_bucket_pteb,
     composite_bucket_into_torch,
     frame_fb,
 )
 from vgtpu_torch.ops.coverage import (
+    ViewWindow,
     build_cov_gather_map,
     cov_all_resolved,
     cov_all_resolved_torch,
@@ -397,6 +403,7 @@ class RetainedScene:
             return torch.as_tensor(x).to(dev)
 
         edges = np.concatenate([ce.reshape(-1, 4) for ce, _cent in plan.chunk_pools])
+        chunk_tiles = _chunk_tiles(plan)
         bd_pan = np.concatenate([plan.entry_backdrop_pan,
                                  np.zeros((1, 2 * th * ss), np.float32)])
         d = {
@@ -415,11 +422,12 @@ class RetainedScene:
             "bucket_pteb": [put(x) for x in host["pteb"]],
             "bucket_ctile": [None if x is None else put(x) for x in host["ctile"]],
             "bucket_flags": tuple(host["flags"]),
+            "chunk_tiles": [put(t) for t in chunk_tiles],
             "ux": put(np.array([1, 0, 1, 0], np.float32)),
             "uy": put(np.array([0, 1, 0, 1], np.float32)),
         }
         d["bucket_params"] = _param_views(d["params"], d["param_shapes"])
-        d["counts"] = _pan_counts(plan)
+        d["counts"] = _pan_count_tables(plan, chunk_tiles)
         if samp is None:
             from vgtpu_torch.raster.frame import color_tiles_flat
 
@@ -572,28 +580,48 @@ class RetainedScene:
         vals = torch.cat([d["ox_base"] + rx, d["oy_base"] + float(ry), bd])
         d["params"].index_copy_(0, d["patch_pos"], vals)
 
-    def _pan_inputs(self, rx: float, ry: int, plain: bool = False) -> tuple:
+    def _window(self, vx: int, vy: int, tiles_only: bool = False) -> ViewWindow:
+        """The view window at whole-tile offset (vx, vy): the output's
+        tiles over the scene grid, and its layout, the (out_h, out_w)
+        image or (tiles_only) the output tile grid."""
+        th_out = self.tile_h // self.ss
+        return ViewWindow(vx, vy, -(-self.out_w // self.tile_w),
+                          -(-self.out_h // th_out), self.plan.ntx, self.plan.nty,
+                          th_out, self.tile_w,
+                          0 if tiles_only else self.out_w,
+                          0 if tiles_only else self.out_h)
+
+    def _shifted_pools(self, rx: float, ry: int) -> list:
+        """The chunk pools at residual (rx, ry): the content moves left/up
+        by (rx, ry); pad rows keep y0 == y1, so they still add exactly
+        zero."""
+        d = self.d
+        edges = d["edges"].sub(d["ux"], alpha=rx).sub_(d["uy"], alpha=float(ry))
+        pools, k0 = [], 0
+        for shape in d["pool_shapes"]:
+            n = shape[0] * shape[1]
+            pools.append(edges[k0 : k0 + n].view(shape))
+            k0 += n
+        return pools
+
+    def _pan_inputs(self, rx: float, ry: int, window: ViewWindow | None = None,
+                    plain: bool = False) -> tuple:
         """The composite's inputs at residual (rx, ry): the folded chunk
-        coverage of the shifted pools (K1 + the fold, or the plain twin)
-        and the colour tiles in K2's layout (resampled at the shifted tile
-        origins when the scene is textured); the bucket params are patched
-        in place for this offset.  Stages pan.shift, pan.coverage,
-        pan.patch and pan.resample."""
+        coverage of the shifted pools (K1 + the fold, or the plain twin),
+        over a view window only the rows of its tiles and the dead row
+        (the others unspecified), else every row, and the colour tiles in K2's
+        layout (resampled at the shifted tile origins when the scene is
+        textured); the bucket params are patched in place for this offset.
+        Stages pan.shift, pan.coverage, pan.patch and pan.resample."""
         d = self.d
         th, tw, ss = self.tile_h, self.tile_w, self.ss
         stage = self.profiler.stage
         with stage("pan.shift"):
-            # residual: content moves left/up by (rx, ry); pad rows keep
-            # y0 == y1, so they still add exactly zero
-            edges = d["edges"].sub(d["ux"], alpha=rx).sub_(d["uy"], alpha=float(ry))
-            pools, k0 = [], 0
-            for shape in d["pool_shapes"]:
-                n = shape[0] * shape[1]
-                pools.append(edges[k0 : k0 + n].view(shape))
-                k0 += n
+            pools = self._shifted_pools(rx, ry)
         with stage("pan.coverage"):
             resolve = cov_all_resolved_torch if plain else cov_all_resolved
-            cov = resolve(pools, d["cov_map"], th, tw)
+            cov = resolve(pools, d["cov_map"], th, tw, window,
+                          None if window is None else d["chunk_tiles"])
         with stage("pan.patch"):
             self._patch_params(rx, ry)
         if self.samp_meta is None:
@@ -608,46 +636,61 @@ class RetainedScene:
 
     def _render(self, vx: int, vy: int, rx: float, ry: int, background,
                 plain: bool = False, tiles_only: bool = False) -> torch.Tensor:
-        """One pan frame: vgtpu's chunk-gather pan body (_render_pan_body
-        with pan_chunk_gather) then _pan_epilogue; stage pan, holding the
-        stages of _pan_inputs, pan.composite and pan.window, and the
-        bake's constant counters pan_tiles, pan_entries and pan_edges
-        (_pan_counts: host integers, no read of the device)."""
+        """One pan frame over the view window: vgtpu's chunk-gather pan body
+        (_render_pan_body with pan_chunk_gather) and its window, in one
+        pass; stage pan, holding the stages of _pan_inputs and
+        pan.composite, and the counters pan_tiles, pan_entries and
+        pan_edges of the window's tiles (_pan_count_tables: four lookups
+        of host integers each, no read of the device)."""
         d, plan = self.d, self.plan
         th, tw, ss = self.tile_h, self.tile_w, self.ss
-        th_out = th // ss
         stage = self.profiler.stage
-        for name, n in d["counts"]:
-            self.profiler.count(name, n)
+        window = self._window(vx, vy, tiles_only)
+        x0, y0, x1, y1 = window.tiles
+        for name, p in d["counts"]:
+            self.profiler.count(name, int(p[y1, x1] - p[y0, x1] - p[y1, x0] + p[y0, x0]))
         with stage("pan"):
-            cov, ct_flat = self._pan_inputs(rx, ry, plain)
+            cov, ct_flat = self._pan_inputs(rx, ry, window, plain)
             kw = {"bucket_fn": composite_bucket_into_torch} if plain else {}
             with stage("pan.composite"):
-                fb = frame_fb(cov, d["bucket_ids"], d["bucket_pteb"], d["bucket_params"],
-                              d["bucket_ctile"], ct_flat, background, tile_h=th,
-                              tile_w=tw, num_tiles=plan.ntx * plan.nty,
-                              bucket_flags=d["bucket_flags"], ss=ss, **kw)
-            with stage("pan.window"):
-                return _pan_epilogue(fb, background, vx, vy, NTX=plan.ntx, NTY=plan.nty,
-                                     ntx_o=-(-self.out_w // tw),
-                                     nty_o=-(-self.out_h // th_out), th_out=th_out,
-                                     tw=tw, out_w=self.out_w, out_h=self.out_h,
-                                     tiles_only=tiles_only)
+                return frame_fb(cov, d["bucket_ids"], d["bucket_pteb"], d["bucket_params"],
+                                d["bucket_ctile"], ct_flat, background, tile_h=th,
+                                tile_w=tw, num_tiles=plan.ntx * plan.nty,
+                                bucket_flags=d["bucket_flags"], ss=ss, window=window,
+                                **kw)
 
 
-def _pan_counts(plan) -> tuple:
-    """The counters every view adds, fixed at bake: the scene tiles K2
-    writes (pan_tiles: real rows of the tile buckets), the (op, tile)
-    entries it composites there (pan_entries) and the edge rows K1 walks
-    (pan_edges: every slot of every chunk pool, padding included)."""
-    tiles = entries = 0
+def _chunk_tiles(plan) -> list:
+    """Each pool's (NC,) int32 scene tile of its chunks (ty * ntx + tx): the
+    tile of the chunk's entry, an (op, tile) pair.  Pad chunks belong to
+    the last entry, and take its tile."""
+    ne = plan.entry_tile.shape[0]
+    return [plan.entry_tile[np.clip(cent, 0, ne - 1)].astype(np.int32)
+            for _ce, cent in plan.chunk_pools]
+
+
+def _pan_count_tables(plan, chunk_tiles) -> tuple:
+    """2-D prefix sums over the scene grid, (NTY+1, NTX+1) each, of what a
+    view adds to its counters: the scene tiles K2 writes (pan_tiles: real
+    rows of the tile buckets), the (op, tile) entries it composites there
+    (pan_entries) and the edge rows K1 walks (pan_edges: every slot of the
+    tile's chunks, padding included).  A view's count over scene columns
+    [x0, x1) and rows [y0, y1) is p[y1, x1] - p[y0, x1] - p[y1, x0] +
+    p[y0, x0]."""
     n_tiles = plan.ntx * plan.nty
+    grids = {k: np.zeros(n_tiles, np.int64) for k in ("tiles", "entries", "edges")}
     for te_b, ids, _flags in plan.tile_buckets:
         real = ids < n_tiles
-        tiles += int(real.sum())
-        entries += int((te_b[real] >= 0).sum())
-    edges = sum(int(ce.shape[0]) * int(ce.shape[1]) for ce, _cent in plan.chunk_pools)
-    return (("pan_tiles", tiles), ("pan_entries", entries), ("pan_edges", edges))
+        np.add.at(grids["tiles"], ids[real], 1)
+        np.add.at(grids["entries"], ids[real], (te_b[real] >= 0).sum(axis=1))
+    for (ce, _cent), t in zip(plan.chunk_pools, chunk_tiles):
+        np.add.at(grids["edges"], t, ce.shape[1])
+    out = []
+    for key in ("tiles", "entries", "edges"):
+        p = np.zeros((plan.nty + 1, plan.ntx + 1), np.int64)
+        p[1:, 1:] = grids[key].reshape(plan.nty, plan.ntx).cumsum(0).cumsum(1)
+        out.append(("pan_" + key, p))
+    return tuple(out)
 
 
 def _param_views(flat: torch.Tensor, shapes) -> list:
@@ -660,31 +703,6 @@ def _param_views(flat: torch.Tensor, shapes) -> list:
         out.append(flat[k0 : k0 + n].view(shape))
         k0 += n
     return out
-
-
-def _pan_epilogue(fb, background, vx: int, vy: int, *, NTX, NTY, ntx_o, nty_o,
-                  th_out, tw, out_w, out_h, tiles_only):
-    """Viewport window: output tile (ty, tx) shows scene tile (ty+vy,
-    tx+vx), the background where that lies off the scene (vgtpu gathers a
-    relabel through an appended background row; here the whole-tile offset
-    is known on the host, so the window is one copy into a background-
-    filled output, the same values)."""
-    bg = background_tensor(tuple(float(v) for v in background), fb.device)
-    grid = fb.view(NTY, NTX, th_out, tw, 4)
-    y0, y1 = max(vy, 0), min(vy + nty_o, NTY)
-    x0, x1 = max(vx, 0), min(vx + ntx_o, NTX)
-    if tiles_only:
-        out = bg.expand(nty_o, ntx_o, th_out, tw, 4).clone()
-        if y0 < y1 and x0 < x1:
-            out[y0 - vy : y1 - vy, x0 - vx : x1 - vx] = grid[y0:y1, x0:x1]
-        return out.view(nty_o * ntx_o, th_out, tw, 4)
-    img = bg.expand(nty_o, th_out, ntx_o, tw, 4).clone()
-    if y0 < y1 and x0 < x1:
-        img[y0 - vy : y1 - vy, :, x0 - vx : x1 - vx] = grid[y0:y1, x0:x1].permute(0, 2, 1, 3, 4)
-    img = img.view(nty_o * th_out, ntx_o * tw, 4)
-    if img.shape[0] != out_h or img.shape[1] != out_w:
-        img = img[:out_h, :out_w].contiguous()
-    return img
 
 
 def measure_pan_ms_per_frame(scene: RetainedScene, reps_hi: int = 32,
