@@ -84,6 +84,133 @@ def test_plan_upload_rejects_out_of_range_tile_ids():
         plan_host_arrays(plan)
 
 
+def _pattern_image(ctx):
+    img = np.random.default_rng(7).integers(0, 256, (64, 64, 4), np.uint8)
+    return vgt.createImage(ctx, 64, 64, 0, img)
+
+
+def _textured_frame(ctx, h):
+    """Image h as a pattern beside a solid rect: a texture bucket and an
+    untextured one, small enough to bake, batch and shard on the CPU."""
+    vgt.beginPath(ctx)
+    vgt.rect(ctx, 10, 10, 200, 100)
+    vgt.fillPath(ctx, vgt.createImagePattern(ctx, 40, 20, 96, 96, 0.0, h),
+                 vgt.Colors.White, vgt.FillFlags.ConvexAA)
+    vgt.beginPath(ctx)
+    vgt.rect(ctx, 240, 20, 60, 40)
+    vgt.fillPath(ctx, vgt.color4ub(200, 60, 40, 255), vgt.FillFlags.ConvexAA)
+
+
+def _bad_tile_id(plan):
+    plan.tile_buckets[0][1][0] = plan.ntx * plan.nty + 1
+
+
+def _bad_colour_tile_id(plan):
+    te = next(te for te, _ids, fl in plan.tile_buckets if fl[2])
+    e = te[te >= 0]
+    plan.entry_color_tile[e[plan.entry_color_tile[e] >= 0][0]] = 10**6
+
+
+def _build_for_frame(plan, ctx):
+    from vgtpu_torch.raster.frame import plan_host_arrays
+
+    plan_host_arrays(plan)
+
+
+def _build_for_batch(plan, ctx):
+    from vgtpu_torch.raster.batch import VariantBatch
+
+    d = ctx.last_device_arrays
+    snap = {"entry_paint": plan.entry_paint.copy(), "ct_flat": d["ct_flat"]}
+    VariantBatch(plan, d, [snap, snap])
+
+
+def _build_for_sharded_fused(plan, ctx):
+    from vgtpu_torch.parallel.sharded_fused import build_sharded_fused
+    from vgtpu_torch.parallel.sharding import plan_dense_arrays
+
+    build_sharded_fused(plan, plan_dense_arrays(plan), 2)
+
+
+@pytest.mark.parametrize("corrupt", ["tile", "chunk", "colour_tile"])
+@pytest.mark.parametrize("caller", ["frame", "retained", "batch", "sharded_fused"])
+def test_every_table_builder_rejects_out_of_range_ids(caller, corrupt, monkeypatch):
+    """The frame, the pan bake, VariantBatch and the sharded fused frame
+    build K2's tables through one builder, which checks every id the
+    kernels read without bounds checks: a bucket's tile id, a slot's
+    coverage row (a gather map with a primary chunk past the dead row) and
+    a texture slot's colour-tile id, each corrupted in turn."""
+    import vgtpu_torch.ops.sampling_device as sampling_device
+    import vgtpu_torch.raster.frame as frame
+
+    gather_map = frame.build_cov_gather_map
+
+    def bad_gather_map(chunk_pools, num_entries):
+        m = gather_map(chunk_pools, num_entries)
+        dead = sum(len(cent) for _ce, cent in chunk_pools)
+        m["primary"] = np.full_like(m["primary"], dead + 1)
+        return m
+
+    def bad_chunk_id(plan):
+        monkeypatch.setattr(frame, "build_cov_gather_map", bad_gather_map)
+
+    bad_plan = {"tile": _bad_tile_id, "chunk": bad_chunk_id,
+                "colour_tile": _bad_colour_tile_id}[corrupt]
+    ctx = vgt.createContext(device="cpu")
+    vgt.begin(ctx, 0, 320, 128, 1.0)
+    _textured_frame(ctx, _pattern_image(ctx))
+    if caller == "retained":
+        from vgtpu_torch.raster.retained import RetainedScene
+
+        sampling_plan = sampling_device.build_sampling_plan
+
+        def bad_sampling_plan(plan, *args, **kwargs):
+            # the bake's plan, corrupted once its colour tiles are assigned
+            sp = sampling_plan(plan, *args, **kwargs)
+            bad_plan(plan)
+            return sp
+
+        monkeypatch.setattr(sampling_device, "build_sampling_plan", bad_sampling_plan)
+        with pytest.raises(ValueError, match="fused_tables"):
+            RetainedScene.bake(ctx)
+        return
+    vgt.end(ctx)
+    plan = ctx.last_plan
+    bad_plan(plan)
+    build = {"frame": _build_for_frame, "batch": _build_for_batch,
+             "sharded_fused": _build_for_sharded_fused}[caller]
+    with pytest.raises(ValueError, match="fused_tables"):
+        build(plan, ctx)
+
+
+def test_ct_flat_is_the_samplers_tensor():
+    """The device sampler's colour tiles reach the kernels with no copy: on
+    a _ct_memo miss and on a hit, the uploaded ct_flat is the tensor the
+    sampler wrote in K2's layout, and plan.color_tiles a view of it."""
+    ctx = vgt.createContext(vgt.ContextConfig(frame_memo=False), device="cpu")
+    vgt.begin(ctx, 0, 320, 128, 1.0)
+    h = _pattern_image(ctx)
+    flats = []
+    for moving_x in (0.0, 3.0):
+        vgt.begin(ctx, 0, 320, 128, 1.0)
+        _textured_frame(ctx, h)
+        vgt.beginPath(ctx)
+        vgt.rect(ctx, 10 + moving_x, 115, 40, 10)
+        vgt.fillPath(ctx, vgt.Colors.Red, vgt.FillFlags.ConvexAA)
+        vgt.end(ctx)
+        ct = ctx.last_plan.color_tiles
+        flat = ctx.last_device_arrays["ct_flat"]
+        assert isinstance(ct, torch.Tensor)
+        assert flat.untyped_storage().data_ptr() == ct.untyped_storage().data_ptr()
+        n, th, tw, _ = ct.shape
+        assert flat.shape == (n + 1, 4 * th * tw)
+        assert torch.equal(flat[:n].view(n, 4, th, tw).permute(0, 2, 3, 1), ct)
+        assert not flat[n].any()
+        flats.append(flat)
+    assert ctx.profiler.counters.get("ct_memo_hits", 0) == 1
+    assert flats[1] is flats[0]
+
+
 def test_port_imports_and_renders_with_jax_blocked():
     code = (
         "import sys\n"

@@ -34,7 +34,7 @@ from vgtpu_torch.ops.sampling_device import (
     upload_groups,
 )
 from vgtpu_torch.raster.binning import P_IMAGE, P_TEXTURE
-from vgtpu_torch.raster.frame import flat_color_tiles
+from vgtpu_torch.ops.composite import flat_color_tiles
 from vgtpu_torch.utils.profiler import FrameProfiler
 
 TH, TW = 8, 128

@@ -61,6 +61,7 @@ from vgtpu_torch.core import (
 )
 from vgtpu_torch.geometry.path import PathBuilder, make_path_builder, replay_packed
 from vgtpu_torch.geometry.stroker import contours_to_edges, polyline_to_fill_edges, stroke_outline
+from vgtpu_torch.ops.composite import color_tiles_flat
 from vgtpu_torch.raster.binning import (
     K_CLIP_ADD,
     K_CLIP_COMMIT,
@@ -79,12 +80,12 @@ from vgtpu_torch.raster.binning import (
     patch_entry_paint,
 )
 from vgtpu_torch.raster.frame import (
-    color_tiles_flat,
     execute_plan,
     execute_plan_tiles,
     image_to_u8,
     patch_bucket_paint,
     plan_to_device,
+    put_arrays,
 )
 from vgtpu_torch.raster.retained import PendingPanLayer, RetainedScene
 
@@ -773,16 +774,13 @@ class Context:
                     return False  # the full path rebuilds the plan
                 ct_flat = color_tiles_flat(plan)
         with prof.stage("patch.put"):
-            entry_paint = torch.as_tensor(plan.entry_paint).to(self.device)
-            patch_bucket_paint(d["bucket_params"], d["bucket_te"], entry_paint)
-            nbytes, copies = plan.entry_paint.nbytes, 1
+            put = {"entry_paint": plan.entry_paint}
             if ct_flat is not None:
-                if isinstance(ct_flat, np.ndarray):
-                    nbytes += ct_flat.nbytes
-                    copies += 1
-                d["ct_flat"] = torch.as_tensor(ct_flat).to(self.device)
-        prof.count("upload_bytes", nbytes)
-        prof.count("upload_copies", copies)
+                put["ct_flat"] = ct_flat
+            put = put_arrays(put, self.device, prof)
+            patch_bucket_paint(d["bucket_params"], d["bucket_te"], put["entry_paint"])
+            if ct_flat is not None:
+                d["ct_flat"] = put["ct_flat"]
         return True
 
     def _fill_textures(self, plan, ops=None) -> None:

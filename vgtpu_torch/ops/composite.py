@@ -24,7 +24,7 @@ raster/batch.VariantBatch.render_sharded take them.
 Reference behaviour: the end() draw loop vg.cpp:1162-1287, the four shader
 programs src/shaders/*.sc, and the stencil clip semantics vg.cpp:1193-1215.
 
-Per-bucket static data (host-built by raster/frame.plan_to_device):
+Per-bucket static data (host-built by raster/frame.fused_tables):
   params: (MO, _npp(tile_h), NbP) f32 — per (slot, tile) metadata rows (_P_*)
   pteb:   (NbP, MO) i32 — coverage row per (tile, slot): the entry's primary
           chunk, or the dead row if none (rows of cov_final in form (e));
@@ -34,6 +34,9 @@ Per-bucket static data (host-built by raster/frame.plan_to_device):
   ids:    (NbP,) i32 — framebuffer row per tile (pad rows: the scratch row)
   rbd:    (MO, RBR, NbP) f32 — form (e) only: resolved backdrop rows of the
           chunkless slots (raster/resolve.build_resolve_aux)
+and the colour tiles every bucket's ctile indexes, ct_flat: (NCT+1,
+4*NPX_OUT) f32 channel-major plus a zeros row, the layout this module owns
+(color_tiles_flat, flat_color_tiles, color_tiles_view).
 """
 
 from __future__ import annotations
@@ -128,6 +131,48 @@ def build_bucket_pteb(te_b: np.ndarray, primary: np.ndarray,
             [te_b, np.full((nbp - te_b.shape[0], te_b.shape[1]), -1, te_b.dtype)])
     return np.where(te_p >= 0, primary[np.maximum(te_p, 0)],
                     dead_id).astype(np.int32)
+
+
+def color_tiles_flat(plan):
+    """The plan's colour tiles in K2's layout: they live on the OUTPUT
+    domain, (NCT, TH//ss, TW, 4) -> (NCT+1, 4*NPX_OUT) channel-major plus
+    the zeros row that pad and untextured slots read.  Colour tiles the
+    device sampler left on a device (a tensor) stay there: the result is
+    flat_color_tiles' tensor on that device, with no copy through the host;
+    numpy tiles give a numpy array."""
+    ct = plan.color_tiles
+    if isinstance(ct, torch.Tensor):
+        return flat_color_tiles(ct)
+    npx_out = (plan.tile_h // plan.supersample) * plan.tile_w
+    ct = np.asarray(ct, np.float32)
+    return np.concatenate([
+        ct.transpose(0, 3, 1, 2).reshape(ct.shape[0], 4 * npx_out),
+        np.zeros((1, 4 * npx_out), np.float32)])
+
+
+def flat_color_tiles(ct: torch.Tensor) -> torch.Tensor:
+    """(NCT, TH, TW, 4) colour tiles on a device -> (NCT+1, 4*TH*TW)
+    channel-major plus the zeros row, on the same device.  Tiles that are
+    color_tiles_view's view of a tensor in that layout (the sampler's
+    output, S1's on CUDA) give that tensor back, no copy; other tiles are
+    copied into a new one."""
+    n, th, tw = ct.shape[:3]
+    base = ct._base
+    if (base is not None and base.shape == (n + 1, 4 * th * tw)
+            and base.is_contiguous() and ct.data_ptr() == base.data_ptr()
+            and ct.stride() == (4 * th * tw, tw, 1, th * tw)):
+        return base
+    flat = ct.new_zeros((n + 1, 4 * th * tw))
+    flat[:n] = ct.permute(0, 3, 1, 2).reshape(n, -1)
+    return flat
+
+
+def color_tiles_view(flat: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """K2's layout, (NCT+1, 4*th*tw) channel-major plus the zeros row ->
+    the (NCT, th, tw, 4) view of its tiles, no copy (flat_color_tiles'
+    inverse)."""
+    n = flat.shape[0] - 1
+    return flat[:n].view(n, 4, th, tw).permute(0, 2, 3, 1)
 
 
 _BACKGROUNDS: dict = {}    # (device, background) -> (4,) float32 tensor

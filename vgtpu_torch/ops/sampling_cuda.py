@@ -3,7 +3,7 @@ colour tiles in one launch, tile-major, written in K2's flat layout.
 
 Replaces no TPU kernel (vgtpu's sampler is plain XLA): it was added because
 the plain sampler materialises O(K * TW * IW) hat weights.  The plain twin
-is ops/sampling_device.py::sample_groups (with raster/frame.flat_color_tiles);
+is ops/sampling_device.py::sample_groups (with ops/composite.flat_color_tiles);
 ops/sampling_device.py::sample_tiles_flat routes CUDA groups here and
 nowhere else.
 """

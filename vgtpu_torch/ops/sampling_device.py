@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from vgtpu_torch.core import ImageFlags
+from vgtpu_torch.ops.composite import color_tiles_view, flat_color_tiles
 from vgtpu_torch.ops.coverage import fma
 from vgtpu_torch.raster.binning import P_IMAGE, P_TEXTURE, FramePlan, _bucket
 
@@ -490,8 +491,6 @@ def sample_tiles_flat(g: DeviceGroups, *, th: int, tw: int, shift=(0.0, 0.0),
         if profiler is not None:
             profiler.count("sample_kernel_launches", 1)
         return out
-    from vgtpu_torch.raster.frame import flat_color_tiles
-
     return flat_color_tiles(sample_groups(
         g.arrs, g.texs, g.clipmask, meta=g.meta, th=th, tw=tw,
         num_tiles=g.num_tiles, shift=shift))
@@ -502,12 +501,12 @@ def sample_color_tiles_device(sp: SamplingPlan, textures: dict,
                               profiler=None) -> torch.Tensor | None:
     """Run all sample groups on the textures' device -> (NCT, TH, TW, 4)
     premultiplied color tiles.  `textures` maps image id -> f32 tensor (h,
-    w, C in [0,1]; C=1 for A8).  On a CUDA device S1 writes them in K2's
-    layout and the result is a view of that (sample_tiles_flat)."""
+    w, C in [0,1]; C=1 for A8).  The result is color_tiles_view's view of
+    sample_tiles_flat's tiles in K2's layout (S1's on CUDA), which
+    flat_color_tiles gives back without a copy."""
     if sp.num_tiles == 0:
         return None
     texs = tuple(textures[g.image_id] for g in sp.groups)
-    flat = sample_tiles_flat(upload_groups(sp, texs, texs[0].device), th=tile_h,
-                             tw=tile_w, profiler=profiler)
-    n = sp.num_tiles
-    return flat[:n].view(n, 4, tile_h, tile_w).permute(0, 2, 3, 1)
+    return color_tiles_view(sample_tiles_flat(
+        upload_groups(sp, texs, texs[0].device), th=tile_h, tw=tile_w,
+        profiler=profiler), tile_h, tile_w)

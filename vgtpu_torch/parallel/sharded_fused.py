@@ -9,10 +9,10 @@ composite; this module shards the path a single device takes
   - the tile/entry/chunk co-partition comes from
     sharding.partition_plan_for_mesh;
   - the single-device fused tables (coverage gather map, per-bucket pteb,
-    params and colour-tile ids) are built globally on the host with the
-    same builders, then COLUMN-SELECTED per device: each bucket keeps its
-    global depth and lane flags, so every tile's kernel math is the
-    single-device path's;
+    params and colour-tile ids) are built globally on the host by the
+    single-device builder (raster/frame.fused_tables), then COLUMN-SELECTED
+    per device: each bucket keeps its global depth and lane flags, so every
+    tile's kernel math is the single-device path's;
   - per-device bucket widths pad to the across-device max; pad columns
     carry valid=0 params, dead-chunk pteb rows and the scratch tile row;
   - chunk ids in pteb are remapped to device-local coverage rows (a
@@ -29,13 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from vgtpu_torch.ops.composite import (
-    _pad_tiles,
-    build_bucket_aux,
-    build_bucket_pteb,
-    frame_fb,
-)
-from vgtpu_torch.ops.coverage import build_cov_gather_map, cov_all, fold_extras
+from vgtpu_torch.ops.composite import _pad_tiles, color_tiles_flat, frame_fb
+from vgtpu_torch.ops.coverage import cov_all, fold_extras
 from vgtpu_torch.parallel.sharding import (
     Mesh,
     ShardedFrame,
@@ -43,7 +38,7 @@ from vgtpu_torch.parallel.sharding import (
     partition_plan_for_mesh,
     plan_dense_arrays,
 )
-from vgtpu_torch.raster.frame import color_tiles_flat
+from vgtpu_torch.raster.frame import fused_tables
 
 
 def build_sharded_fused(plan, d: dict, n: int):
@@ -64,11 +59,12 @@ def build_sharded_fused(plan, d: dict, n: int):
     ne = plan.entry_backdrop.shape[0]
     ts = meta["t_pad"] // n
 
-    # ---- global fused tables (the single-device builders) ----
-    m = build_cov_gather_map(plan.chunk_pools, ne)
-    pool_lens = [len(cent) for _ce, cent in plan.chunk_pools]
-    glob_dead = int(sum(pool_lens))
+    # ---- global fused tables (the single-device builder) ----
     nct = plan.color_tiles.shape[0]
+    t = fused_tables(plan, nct)
+    m = t["cov_map"]
+    pool_lens = [len(cent) for _ce, cent in plan.chunk_pools]
+    glob_dead = t["dead_id"]
 
     # global chunk id -> owning device's local coverage row.  Local coverage
     # concatenates the device's per-pool groups in pool order + a dead row.
@@ -84,14 +80,9 @@ def build_sharded_fused(plan, d: dict, n: int):
 
     # ---- per-device column selection of every bucket class ----
     classes = []
-    bucket_flags = []
-    for te_b, ids_b, flags in plan.tile_buckets:
-        _nb, mo = te_b.shape
-        pp_glob, _ = build_bucket_aux(plan, te_b, need_ct=False)
-        pteb_glob = build_bucket_pteb(te_b, m["primary"], glob_dead)
-        ctile_glob = np.where(
-            te_b >= 0, plan.entry_color_tile[np.maximum(te_b, 0)], -1)
-        ctile_glob = np.where(ctile_glob >= 0, ctile_glob, nct).astype(np.int32)
+    for (te_b, ids_b, flags), pp_glob, pteb_glob, ctile_glob in zip(
+            plan.tile_buckets, t["params"], t["pteb"], t["ctile"]):
+        mo = te_b.shape[1]
         # bucket rows whose tile is the scratch id (== num_tiles) are global
         # padding, re-created per device below, so exclude them here
         real = ids_b < dev_of_tile.shape[0]
@@ -115,7 +106,6 @@ def build_sharded_fused(plan, d: dict, n: int):
                 ct_s[k, :c] = ctile_glob[ck]
         classes.append({"ids": ids_s, "pteb": pteb_s, "params": pp_s,
                         "ctile": ct_s})
-        bucket_flags.append(tuple(bool(f) for f in flags))
 
     # ---- per-device extras of the coverage fold ----
     alive_x = m["extra_chunk"] < glob_dead
@@ -145,7 +135,7 @@ def build_sharded_fused(plan, d: dict, n: int):
         "tile_h": plan.tile_h,
         "tile_w": plan.tile_w,
         "ss": plan.supersample,
-        "bucket_flags": tuple(bucket_flags),
+        "bucket_flags": t["flags"],
         "row_of_tile": meta["row_of_tile"],
         "meta": meta,
     }

@@ -36,17 +36,12 @@ import numpy as np
 import torch
 
 from vgtpu_torch.ops.composite import (
-    build_bucket_pteb,
     composite_bucketed_body,
     frame_fb,
     tiles_to_image,
 )
-from vgtpu_torch.ops.coverage import (
-    build_cov_gather_map,
-    cov_all_resolved,
-    entry_coverage_from_pools,
-)
-from vgtpu_torch.raster.frame import patch_bucket_paint
+from vgtpu_torch.ops.coverage import cov_all_resolved, entry_coverage_from_pools
+from vgtpu_torch.raster.frame import fused_tables, patch_bucket_paint
 
 
 def _record_snaps(ctx, draw_fns, width, height, dpr, background,
@@ -95,30 +90,25 @@ def _record_snaps(ctx, draw_fns, width, height, dpr, background,
 def _batch_tables(plan, d, K: int) -> dict:
     """Static (value-independent) batched bucket tables on the plan's device.
 
-    Coverage: a gather map and per-bucket coverage rows (pteb) over
-    plan.chunk_pools, the order of d["chunk_edges"].  A split plan (ss > 1)
-    keeps its own resident tables against cov_final/cov_sub; the batch, as
-    vgtpu's fused batch, runs K1 + the fold over all pools and K2 form (d)
-    on every bucket, so it builds these tables itself.
+    Coverage: fused_tables' gather map and per-bucket coverage rows (pteb)
+    over plan.chunk_pools, the order of d["chunk_edges"].  A split plan
+    (ss > 1) keeps its own resident tables against cov_final/cov_sub; the
+    batch, as vgtpu's fused batch, runs K1 + the fold over all pools and K2
+    form (d) on every bucket, so it takes the unsplit tables.
 
     Per bucket: ids are K blocks of the padded framebuffer rows, variant k
     offset by k*T, pad rows to the batch scratch row K*T."""
     dev = d["ct_flat"].device
     T = plan.ntx * plan.nty
-    ne = plan.entry_backdrop.shape[0]
-    m = build_cov_gather_map(plan.chunk_pools, ne)
-    dead = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
-    ptebs, ids_k = [], []
-    for (te_b, _ids, _fl), ids in zip(plan.tile_buckets, d["bucket_ids"]):
-        ptebs.append(torch.as_tensor(
-            build_bucket_pteb(te_b, m["primary"], dead)).to(dev))
-        ids_k.append(torch.cat([
-            torch.where(ids >= T, K * T, ids + k * T) for k in range(K)
-        ]).to(torch.int32))
+    t = fused_tables(plan, plan.color_tiles.shape[0])
+    m = t["cov_map"]
+    ids_k = [torch.cat([torch.where(ids >= T, K * T, ids + k * T)
+                        for k in range(K)]).to(torch.int32)
+             for ids in d["bucket_ids"]]
     return {
         "cov_map": {"extra_chunk": torch.as_tensor(m["extra_chunk"]).to(dev),
                     "extra_primary": torch.as_tensor(m["extra_primary"]).to(dev)},
-        "pteb": ptebs,
+        "pteb": [torch.as_tensor(p).to(dev) for p in t["pteb"]],
         "ids": ids_k,
     }
 

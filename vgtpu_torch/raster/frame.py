@@ -25,6 +25,7 @@ from vgtpu_torch.ops.composite import (
     background_tensor,
     build_bucket_aux,
     build_bucket_pteb,
+    color_tiles_flat,
     composite_bucket,
     composite_bucket_flat,
     composite_bucket_into_torch,
@@ -106,76 +107,63 @@ def _prepare_plan(plan: FramePlan, profiler=None):
 
 
 def plan_host_arrays(plan: FramePlan) -> dict:
-    """The fused path's host arrays for one plan (numpy; ct_flat stays a
-    tensor on its device when the device sampler left the colour tiles
-    there): tile buckets, chunk compaction, the resolve split (ss > 1), the
-    chunk->entry gather map, and per bucket (bucket_rows) its padded
-    framebuffer rows, padded entry table (entry ids, 0 where no entry: the
-    rows build_bucket_aux reads the paint from), coverage-row ids, params,
-    colour-tile ids and (split plans) resolved-backdrop rows.
-
-    With a split, "res" holds the K3 inputs and the extras/XE tables against
-    the RAW rows, and bucket_pteb indexes cov_sub (clip buckets) or
-    cov_final (every other bucket, with its bucket_rbd).  Without one
-    (ss = 1, or no resolvable chunk) "res" is None and every bucket indexes
-    the one folded coverage array."""
+    """The fused path's host arrays for one plan: tile buckets, chunk
+    compaction and the resolve split (ss > 1), then fused_tables' tables,
+    each bucket's entry table clamped to 0 (the rows patch_bucket_paint
+    reads the paint from), and ct_flat in K2's layout (a tensor on its
+    device when the device sampler left the colour tiles there, else
+    numpy).  Without a split "cov_map" is the fold's map and "res" None;
+    with one, "cov_map" is None and "res" holds the K3 inputs."""
     split = _prepare_plan(plan)
-    ne = plan.entry_backdrop.shape[0]
-    m = build_cov_gather_map(plan.chunk_pools, ne)
-    dead_id = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
-    rows = bucket_rows(plan, plan.color_tiles.shape[0])
-    flags_l = rows["flags"]
-    if split is None:
-        res = None
-        cov_map = {"extra_chunk": m["extra_chunk"],
-                   "extra_primary": m["extra_primary"]}
-        pteb_l = [build_bucket_pteb(te_b, m["primary"], dead_id)
-                  for te_b, _ids, _fl in plan.tile_buckets]
-        rbd_l = [None] * len(pteb_l)
-        ncr = [dead_id + 1] * len(pteb_l)   # coverage rows each bucket indexes
-    else:
-        aux = build_resolve_aux(plan, m, split, dead_id)
-        res = {k: aux[k] for k in ("rparams", "extra_chunk_raw",
-                                   "extra_primary_raw", "xe_primary_raw",
-                                   "xe_rparams")}
-        cov_map = None
-        pteb_l, rbd_l = list(aux["pteb"]), list(aux["rbd"])
-        n_final = split["nres"] + len(aux["xe_primary_raw"]) + 1
-        ncr = [split["nraw"] + 1 if fl[3] else n_final for fl in flags_l]
-        for k in ("extra_chunk_raw", "extra_primary_raw", "xe_primary_raw"):
-            if res[k].size and (res[k].min() < 0 or res[k].max() > split["nraw"]):
-                raise ValueError(f"plan_to_device: {k} outside the raw rows")
-    # indices come from the host binner: check them here, the kernels don't
-    for pteb, n in zip(pteb_l, ncr):
-        if pteb.size and (pteb.min() < 0 or pteb.max() >= n):
-            raise ValueError("plan_to_device: chunk id outside coverage rows")
+    t = fused_tables(plan, plan.color_tiles.shape[0], split)
+    m = t["cov_map"]
     return {
         "chunk_edges": [np.ascontiguousarray(ce, np.float32)
                         for ce, _cent in plan.chunk_pools],
-        "cov_map": cov_map,
-        "res": res,
-        "bucket_ids": rows["ids"],
-        "bucket_te": [np.maximum(te, 0) for te in rows["te"]],
-        "bucket_pteb": pteb_l,
-        "bucket_params": rows["params"],
-        "bucket_ctile": rows["ctile"],
-        "bucket_rbd": rbd_l,
+        "cov_map": None if split is not None else {
+            "extra_chunk": m["extra_chunk"],
+            "extra_primary": m["extra_primary"]},
+        "res": t["res"],
+        "bucket_ids": t["ids"],
+        "bucket_te": [np.maximum(te, 0) for te in t["te"]],
+        "bucket_pteb": t["pteb"],
+        "bucket_params": t["params"],
+        "bucket_ctile": t["ctile"],
+        "bucket_rbd": t["rbd"],
         "ct_flat": color_tiles_flat(plan),
-        "bucket_flags": flags_l,
+        "bucket_flags": t["flags"],
     }
 
 
-def bucket_rows(plan: FramePlan, nct: int) -> dict:
-    """Per tile bucket, padded to _pad_tiles rows: "ids", the framebuffer
-    rows (pad rows: the scratch row T); "te", the entry table (-1 where no
-    entry); "params", the host-built params (build_bucket_aux, bit-identical
-    to vgtpu's device-side build_bucket_params_jnp); "ctile", a texture
-    bucket's colour-tile ids (untextured and pad slots: row nct, the zeros
-    row color_tiles_flat appends), else None; and "flags", the lane flags.
-    Tile and colour-tile ids come from the host binner and are checked here:
-    the kernels index without bounds checks."""
+def fused_tables(plan: FramePlan, nct: int, split: dict | None = None) -> dict:
+    """K2's per-bucket input tables, and the gather map K1's fold reads,
+    over the plan's chunk pools as they stand: the one builder of the tables
+    the frame, the pan bake, VariantBatch and the sharded fused frame hand
+    to kernels that index them without bounds checks, so every id is
+    checked here.
+
+    "cov_map": build_cov_gather_map's map; "dead_id": the all-zeros
+    coverage row after the last chunk.  Per tile bucket, padded to
+    _pad_tiles rows: "ids", the framebuffer rows (pad rows: the scratch row
+    ntx*nty); "te", the entry table (-1 where no entry); "params", the
+    host-built params (build_bucket_aux, bit-identical to vgtpu's
+    device-side build_bucket_params_jnp); "ctile", a texture bucket's
+    colour-tile ids against nct tiles (untextured and pad slots: row nct,
+    the zeros row of K2's colour-tile layout), else None; "pteb", the
+    coverage row of each slot; "rbd", the resolved-backdrop rows or None;
+    and "flags", the lane flags.
+
+    split: build_resolve_split's aux of a split plan (ss > 1), else None.
+    Without it "pteb" holds each slot's primary chunk (invalid slots:
+    dead_id) and "res" is None; with it "pteb" and "rbd" are
+    build_resolve_aux's, against cov_sub (clip buckets) or cov_final, and
+    "res" holds the K3 inputs and the extras/XE tables against the RAW
+    rows."""
     num_tiles = plan.ntx * plan.nty
-    out = {"ids": [], "te": [], "params": [], "ctile": [], "flags": []}
+    m = build_cov_gather_map(plan.chunk_pools, plan.entry_backdrop.shape[0])
+    dead_id = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
+    out = {"cov_map": m, "dead_id": dead_id, "ids": [], "te": [],
+           "params": [], "ctile": [], "flags": []}
     for te_b, ids_b, flags in plan.tile_buckets:
         nbp = _pad_tiles(te_b.shape[0])
         ids = np.full(nbp, num_tiles, np.int32)
@@ -187,43 +175,37 @@ def bucket_rows(plan: FramePlan, nct: int) -> dict:
             ct = np.where(te_p >= 0, plan.entry_color_tile[np.maximum(te_p, 0)], -1)
             ctile = np.where(ct >= 0, ct, nct).astype(np.int32)
         if ids.size and (ids.min() < 0 or ids.max() > num_tiles):
-            raise ValueError("bucket_rows: bucket tile id outside the framebuffer")
+            raise ValueError("fused_tables: bucket tile id outside the framebuffer")
         if ctile is not None and ctile.size and (ctile.min() < 0 or ctile.max() > nct):
-            raise ValueError("bucket_rows: colour-tile id out of range")
+            raise ValueError("fused_tables: colour-tile id out of range")
         out["ids"].append(ids)
         out["te"].append(te_p)
         out["params"].append(build_bucket_aux(plan, te_b)[0])
         out["ctile"].append(ctile)
         out["flags"].append(tuple(bool(f) for f in flags))
     out["flags"] = tuple(out["flags"])
+    if split is None:
+        out["res"] = None
+        out["pteb"] = [build_bucket_pteb(te_b, m["primary"], dead_id)
+                       for te_b, _ids, _fl in plan.tile_buckets]
+        out["rbd"] = [None] * len(out["pteb"])
+        ncr = [dead_id + 1] * len(out["pteb"])   # coverage rows each bucket indexes
+    else:
+        aux = build_resolve_aux(plan, m, split, dead_id)
+        res = {k: aux[k] for k in ("rparams", "extra_chunk_raw",
+                                   "extra_primary_raw", "xe_primary_raw",
+                                   "xe_rparams")}
+        for k in ("extra_chunk_raw", "extra_primary_raw", "xe_primary_raw"):
+            if res[k].size and (res[k].min() < 0 or res[k].max() > split["nraw"]):
+                raise ValueError(f"fused_tables: {k} outside the raw rows")
+        out["res"] = res
+        out["pteb"], out["rbd"] = list(aux["pteb"]), list(aux["rbd"])
+        n_final = split["nres"] + len(aux["xe_primary_raw"]) + 1
+        ncr = [split["nraw"] + 1 if fl[3] else n_final for fl in out["flags"]]
+    for pteb, n in zip(out["pteb"], ncr):
+        if pteb.size and (pteb.min() < 0 or pteb.max() >= n):
+            raise ValueError("fused_tables: chunk id outside coverage rows")
     return out
-
-
-def color_tiles_flat(plan: FramePlan):
-    """The plan's colour tiles in K2's layout: they live on the OUTPUT
-    domain, (NCT, TH//ss, TW, 4) -> (NCT+1, 4*NPX_OUT) channel-major plus
-    the zeros row that pad and untextured slots read.  Colour tiles the
-    device sampler left on a device (a tensor) stay there: the result is a
-    tensor on that device, built with no copy through the host; numpy
-    tiles give a numpy array."""
-    ct = plan.color_tiles
-    if isinstance(ct, torch.Tensor):
-        return flat_color_tiles(ct)
-    npx_out = (plan.tile_h // plan.supersample) * plan.tile_w
-    ct = np.asarray(ct, np.float32)
-    return np.concatenate([
-        ct.transpose(0, 3, 1, 2).reshape(ct.shape[0], 4 * npx_out),
-        np.zeros((1, 4 * npx_out), np.float32)])
-
-
-def flat_color_tiles(ct: torch.Tensor) -> torch.Tensor:
-    """(NCT, TH, TW, 4) colour tiles on a device -> (NCT+1, 4*TH*TW)
-    channel-major plus the zeros row, on the same device (the tensor form
-    of color_tiles_flat)."""
-    n = ct.shape[0]
-    flat = ct.new_zeros((n + 1, 4 * ct.shape[1] * ct.shape[2]))
-    flat[:n] = ct.permute(0, 3, 1, 2).reshape(n, -1)
-    return flat
 
 
 def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
@@ -241,14 +223,22 @@ def plan_to_device(plan: FramePlan, device, profiler=None) -> dict:
         _prepare_plan(plan, profiler)
     with stage("upload.aux"):
         host = plan_host_arrays(plan)
-    device = torch.device(device)
     arrays = {k: v for k, v in host.items() if k != "bucket_flags"}
     with stage("upload.put"):
-        d = {k: _put(v, device) for k, v in arrays.items()}
+        d = put_arrays(arrays, device, profiler)
         d["bucket_flags"] = host["bucket_flags"]
+    return d
+
+
+def put_arrays(arrays: dict, device, profiler=None) -> dict:
+    """A dict of (nested) numpy arrays -> the same dict of tensors on
+    `device`, counting on `profiler` (if any) the bytes put (upload_bytes)
+    and the host-to-device copies issued (upload_copies, one per numpy
+    array).  Tensors, such as device-sampled colour tiles, are already on
+    the device: they pass through with neither bytes nor a copy."""
+    device = torch.device(device)
+    d = {k: _put(v, device) for k, v in arrays.items()}
     if profiler is not None:
-        # device-sampled colour tiles are already on the device: neither
-        # bytes nor a copy
         put = [x for x in _leaves(arrays) if isinstance(x, np.ndarray)]
         profiler.count("upload_bytes", sum(x.nbytes for x in put))
         profiler.count("upload_copies", len(put))

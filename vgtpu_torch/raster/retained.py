@@ -67,13 +67,12 @@ from vgtpu_torch.ops.composite import (
     _P_OX,
     _P_OY,
     build_bucket_aux,
-    build_bucket_pteb,
+    color_tiles_flat,
     composite_bucket_into_torch,
     frame_fb,
 )
 from vgtpu_torch.ops.coverage import (
     ViewWindow,
-    build_cov_gather_map,
     cov_all_resolved,
     cov_all_resolved_torch,
 )
@@ -92,7 +91,7 @@ from vgtpu_torch.raster.binning import (
     patch_entry_paint,
     scale_ops_y,
 )
-from vgtpu_torch.raster.frame import bucket_rows
+from vgtpu_torch.raster.frame import fused_tables
 
 
 def translate_ops(ops: list[RasterOp], dx: float, dy: float) -> list[RasterOp]:
@@ -209,26 +208,6 @@ def _repack_ladder(chunk_pools, num_entries: int, ladder=(2, 4, 8, 24)):
             ce[blk, slot] = edges[np.repeat(b_start[sel], take) + slot]
             cent[: len(sel)] = uniq[b_ent[sel]].astype(np.int32)
         out.append((ce, cent))
-    return out
-
-
-def _bucket_tables(plan, nct: int) -> dict:
-    """The view-invariant per-bucket host tables of the chunk-gather pan:
-    raster/frame.bucket_rows (framebuffer rows, entry tables, base params,
-    colour-tile ids against the sampler's nct tiles) and the primary-chunk
-    ids (pteb) over the plan's own pools, which the bake does not compact
-    (vgtpu's bake does not either)."""
-    ne = plan.entry_backdrop.shape[0]
-    m = build_cov_gather_map(plan.chunk_pools, ne)
-    dead_id = int(sum(len(cent) for _ce, cent in plan.chunk_pools))
-    out = bucket_rows(plan, nct)
-    out["cov_map"] = m
-    out["pteb"] = [build_bucket_pteb(te_b, m["primary"], dead_id)
-                   for te_b, _ids, _fl in plan.tile_buckets]
-    # chunk ids come from the host binner: the kernels index unchecked
-    for pteb in out["pteb"]:
-        if pteb.size and (pteb.min() < 0 or pteb.max() > dead_id):
-            raise ValueError("RetainedScene.bake: chunk id outside coverage rows")
     return out
 
 
@@ -396,7 +375,9 @@ class RetainedScene:
                 tex = ctx._device_textures(image_map, {g.image_id for g in sp.groups})
                 samp = upload_groups(sp, (tex[g.image_id] for g in sp.groups), dev)
         nct = samp.num_tiles if samp is not None else plan.color_tiles.shape[0]
-        host = _bucket_tables(plan, nct)
+        # the view-invariant tables over the plan's own pools, which the
+        # bake does not compact (vgtpu's bake does not either)
+        host = fused_tables(plan, nct)
         pt = _patch_tables(host["params"], host["te"], ne, th * ss)
 
         def put(x):
@@ -429,8 +410,6 @@ class RetainedScene:
         d["bucket_params"] = _param_views(d["params"], d["param_shapes"])
         d["counts"] = _pan_count_tables(plan, chunk_tiles)
         if samp is None:
-            from vgtpu_torch.raster.frame import color_tiles_flat
-
             d["ct_flat"] = put(color_tiles_flat(plan))
         else:
             d["samp"] = samp
