@@ -148,7 +148,10 @@ Phases (any failure raises and the process exits non-zero):
      same window and against the whole-scene route (K2 over every scene
      tile into a framebuffer, the window copied out), render() against
      them, each bit for bit with deterministic folds; K1's and K2's device
-     ms a view over the window and over the whole scene.
+     ms a view over the window and over the whole scene.  Then the whole
+     map's glyph resample through S1 against the twin on the card at
+     S1_SHIFTS (S1_BOUND), S1's and the twin's ms beside S1's bound
+     (hold_s1).
   11. The cached-list app at 1920x1080, bench.py's two app patterns over
      the tiger in a Cacheable command list with the demo UI drawn over it,
      at ss = 1 and 2 (phase_11): the app frame (the list at a fixed
@@ -643,9 +646,9 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
 
     # S1 against its twin on the card, on the frame's groups at the residuals
     texs = tuple(tex[g.image_id] for g in sp.groups)
-    g_dev = upload_groups(sp, texs, texs[0].device)
-    err_s1 = max(float((sample_tiles_flat(g_dev, th=8, tw=128, shift=sh)
-                        - sample_tiles_flat(g_dev, th=8, tw=128, shift=sh, plain=True))
+    g_dev = upload_groups(sp, texs, texs[0].device, (8, 128))
+    err_s1 = max(float((sample_tiles_flat(g_dev, shift=sh)
+                        - sample_tiles_flat(g_dev, shift=sh, plain=True))
                        .abs().max()) for sh in S1_SHIFTS)
     print(f"[10a] S1 against its twin on the card, the frame's groups at {S1_SHIFTS}: "
           f"max|diff| = {err_s1:.3e} (bound {S1_BOUND:.0e})")
@@ -655,8 +658,8 @@ def phase_10a(vg, card, zero_counts, read_counts, check_path) -> dict:
     # the sampler alone: CUDA events around one run (its one upload of the
     # group params included), the numpy sampler on the host clock
     ms_dev = time_ms(lambda: sample_color_tiles_device(sp, tex, 8, 128))
-    ms_s1 = time_ms(lambda: sample_tiles_cuda(g_dev, 8, 128))
-    ms_twin = time_ms(lambda: sample_tiles_flat(g_dev, th=8, tw=128, plain=True))
+    ms_s1 = time_ms(lambda: sample_tiles_cuda(g_dev))
+    ms_twin = time_ms(lambda: sample_tiles_flat(g_dev, plain=True))
     plan_h = ch.last_plan
     t_np = []
     for _ in range(3):
@@ -932,9 +935,10 @@ def hold_pan_window(scene, view, label: str, card: str) -> dict:
 
 def phase_10c(vg, card, scroll_scene, device: str = "cuda",
               region: tuple = MAP_REGION) -> dict:
-    """[10c] the pan's view window (hold_pan_window) on one map view, the
-    city baked over `region` as the citymap_z17 cell bakes it, and on one
-    view of [10b]'s ss=1 scroll scene."""
+    """[10c] the city baked over `region` as the citymap_z17 cell bakes
+    it: the pan's view window (hold_pan_window) on one map view and on one
+    view of [10b]'s ss=1 scroll scene; the map's glyph resample, S1
+    against the twin (hold_s1)."""
     from vgtpu_torch.raster.retained import RetainedScene
     from vgtpu_torch.scenes.citymap import draw_city
 
@@ -945,8 +949,57 @@ def phase_10c(vg, card, scroll_scene, device: str = "cuda",
     t0 = time.perf_counter()
     city = RetainedScene.bake(c, *region, background=MAP_BG)
     print(f"[10c] the city baked over {region} in {time.perf_counter() - t0:.1f} s host")
-    return {label: hold_pan_window(sc, WINDOW_VIEWS[label], label, card)
-            for label, sc in (("map", city), ("scroll ss=1", scroll_scene))}
+    out = {label: hold_pan_window(sc, WINDOW_VIEWS[label], label, card)
+           for label, sc in (("map", city), ("scroll ss=1", scroll_scene))}
+    out["map S1"] = hold_s1(city.d["samp"], f"[10c] map ({region})", card)
+    return out
+
+
+def hold_s1(samp, tag: str, card: str) -> dict:
+    """A baked scene's glyph resample: S1 against its twin on the card at
+    S1_SHIFTS (S1_BOUND), then S1 alone and the twin alone at one residual
+    (CUDA events, median of 12; torch.profiler's device ms and launches over
+    10 calls of S1, 3 of the twin's ~100-200 launches) beside S1's bound,
+    its colour tiles written once; one S1 launch
+    a resample (S1.launches: the profiler may drop a launch's record)."""
+    from vgtpu_torch.ops.sampling_cuda import S1, sample_tiles_cuda
+    from vgtpu_torch.ops.sampling_device import sample_tiles_flat
+
+    err = max(float((sample_tiles_flat(samp, shift=sh)
+                     - sample_tiles_flat(samp, shift=sh, plain=True)).abs().max())
+              for sh in S1_SHIFTS)
+
+    def s1():
+        return sample_tiles_cuda(samp, (7.37, 1.0))
+
+    def twin():
+        return sample_tiles_flat(samp, shift=(7.37, 1.0), plain=True)
+
+    n0 = S1.launches
+    s1()
+    n_s1 = S1.launches - n0
+    ms_s1, ms_twin = time_ms(s1), time_ms(twin)
+    by1, calls1, _busy, _window = device_breakdown(s1, 10)
+    by2, calls2, _busy, _window = device_breakdown(twin, 3)
+    dev_s1 = by1.get("S1", 0.0) / max(calls1.get("S1", 0.0), 1e-9)
+    th, tw = samp.tile
+    out_bytes = (samp.num_tiles + 1) * 4 * th * tw * 4
+    bound_ms = bound(out_bytes, 0)[0]
+    print(f"{tag} glyph resample, {samp.num_tiles} colour tiles, {samp.n_pairs} "
+          f"(entry, quad) pairs, {samp.footprint_px} footprint slots: S1 against its "
+          f"twin on the card at {S1_SHIFTS}: max|diff| = {err:.3e} (bound "
+          f"{S1_BOUND:.0e}); S1 {n_s1} launch a resample, {ms_s1:.4f} ms [device "
+          f"{dev_s1:.4f} a recorded launch, {calls1.get('S1', 0.0):g} recorded a call], "
+          f"twin {ms_twin:.4f} ms [device {sum(by2.values()):.4f}, "
+          f"{sum(calls2.values()):g} launches a call] (CUDA events, median of 12 "
+          f"[torch.profiler]); S1's bound {bound_ms:.5f} ms ({out_bytes} output bytes at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s) ({card})")
+    if not err <= S1_BOUND:
+        raise AssertionError(f"{tag}: S1 disagrees with its twin: {err}")
+    if n_s1 != 1:
+        raise AssertionError(f"{tag}: {n_s1} S1 launches a resample")
+    return {"err": err, "s1_ms": ms_s1, "s1_device_ms": dev_s1,
+            "twin_ms": ms_twin, "bound_ms": bound_ms}
 
 
 def tiger_list(vg, ctx, draw_tiger):
@@ -1169,11 +1222,9 @@ def phase_12(vg, card, zero_counts, read_counts, check_path) -> None:
 
     import torch
     from vgtpu_torch.fonts.fontstash import ATLAS_IMAGE_ID
-    from vgtpu_torch.ops.sampling_cuda import sample_tiles_cuda
     from vgtpu_torch.ops.sampling_device import (
         build_sampling_plan,
         sample_color_tiles_device,
-        sample_tiles_flat,
     )
     from vgtpu_torch.raster.binning import P_TEXTURE
     from vgtpu_torch.raster.frame import execute_plan_torch
@@ -1278,39 +1329,12 @@ def phase_12(vg, card, zero_counts, read_counts, check_path) -> None:
         # the scroll cells' scene: the glyph resample through S1
         record()
         scene = RetainedScene.bake(c, *PAN_SCENE, background=BG_APP)
-        samp, th_o, tw = scene.d["samp"], scene.tile_h // ss, scene.tile_w
-        err_pan = max(float((sample_tiles_flat(samp, th=th_o, tw=tw, shift=sh)
-                             - sample_tiles_flat(samp, th=th_o, tw=tw, shift=sh,
-                                                 plain=True)).abs().max())
-                      for sh in S1_SHIFTS)
-
-        def s1():
-            return sample_tiles_cuda(samp, th_o, tw, (7.37, 1.0))
-
-        def twin():
-            return sample_tiles_flat(samp, th=th_o, tw=tw, shift=(7.37, 1.0), plain=True)
-
-        ms_s1, ms_twin = time_ms(s1), time_ms(twin)
-        by1, calls1, _busy, _window = device_breakdown(s1, 10)
-        by2, calls2, _busy, _window = device_breakdown(twin, 10)
-        out_bytes = (samp.num_tiles + 1) * 4 * th_o * tw * 4
-        bound_ms = bound(out_bytes, 0)[0]
+        hold_s1(scene.d["samp"], f"[12] {tag}: scroll scene ({PAN_SCENE})", card)
         zero_counts()
         for v in PAN_VIEWS:
             scene.render(*v)
         n_pan = read_counts()["S1"]
-        print(f"[12] {tag}: scroll scene ({PAN_SCENE}) glyph resample, {samp.num_tiles} "
-              f"colour tiles, {samp.n_pairs} (entry, quad) pairs: S1 against its twin on "
-              f"the card at {S1_SHIFTS}: max|diff| = {err_pan:.3e} (bound "
-              f"{S1_BOUND:.0e}); S1 {ms_s1:.4f} ms [device {by1.get('S1', 0.0):.4f}, "
-              f"{calls1.get('S1', 0.0):g} launch a call], twin {ms_twin:.4f} ms [device "
-              f"{sum(by2.values()):.4f}, {sum(calls2.values()):g} launches a call] (CUDA "
-              f"events, median of 12 [torch.profiler]); S1's bound {bound_ms:.5f} ms "
-              f"({out_bytes} output bytes at {PEAK_BYTES / 1e12:.2f} TB/s); S1 launches "
-              f"over {len(PAN_VIEWS)} views: {n_pan} ({card})")
-        if not err_pan <= S1_BOUND:
-            raise AssertionError(f"[12] {tag}: S1 disagrees with its twin on the scroll "
-                                 f"scene: {err_pan}")
+        print(f"[12] {tag}: S1 launches over {len(PAN_VIEWS)} pan views: {n_pan} ({card})")
         if n_pan != len(PAN_VIEWS):
             raise AssertionError(f"[12] {tag}: {n_pan} S1 launches over "
                                  f"{len(PAN_VIEWS)} pan views")

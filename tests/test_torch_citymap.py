@@ -153,7 +153,9 @@ def test_the_pan_counters_equal_the_plan(city):
     chunks whose entry lies on one of them (padding included); each view's
     counts are below the whole scene's.  sample_rotated_pairs counts the
     (entry, quad) pairs of the non-separable groups in the sampler's tile
-    index."""
+    index, sample_footprint_px the (pair, pixel) slots of its footprints at
+    no shift: more than none, under a fortieth of every pair's whole tile
+    (~8 x 9 px glyph quads in 8 x 128 tiles)."""
     ctx, _drawn, scene, _r = city
     plan = scene.plan
     nt = plan.ntx * plan.nty
@@ -199,6 +201,8 @@ def test_the_pan_counters_equal_the_plan(city):
     c = prof.counters
     assert (c["pan_tiles"], c["pan_entries"], c["pan_edges"]) == tuple(want)
     assert c["sample_rotated_pairs"] == 2 * rotated
+    assert c["sample_footprint_px"] == 2 * g.footprint_px
+    assert 0 < 40 * g.footprint_px < g.n_pairs * th * tw
     assert want[1] > 10 * want[0]
 
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 from test_torch_sampling_index import FLAG_SETS, random_plan, twin_flat
 
+from vgtpu_torch.core import ImageFlags
 from vgtpu_torch.ops.sampling_device import sample_tiles_flat, upload_groups
 from vgtpu_torch.raster.binning import P_IMAGE, P_TEXTURE
 
@@ -57,18 +58,39 @@ def test_s1_matches_the_twin_on_every_group_form(card, flags, kind, sep, channel
     for texture in (None, (512, 512)):
         if texture is not None:
             sp, texs = random_plan(seed, kind, sep, flags, channels, texture=texture)
-        g = upload_groups(sp, [t.to(card) for t in texs], card)
+        g = upload_groups(sp, [t.to(card) for t in texs], card, (TH, TW))
         for shift in ((0.0, 0.0), (0.004, 0.5), (7.37, 3.0), (127.996, 7.5)):
             n0 = _launches()
-            got = sample_tiles_flat(g, th=TH, tw=TW, shift=shift)
-            want = sample_tiles_flat(g, th=TH, tw=TW, shift=shift, plain=True)
+            got = sample_tiles_flat(g, shift=shift)
+            want = sample_tiles_flat(g, shift=shift, plain=True)
             torch.cuda.synchronize()
             assert _launches() == n0 + 1
             err = float((got - want).abs().max())
             assert err <= S1_BOUND, (texture, shift, err)
             assert not got[-1].any()
-            cpu = twin_flat(upload_groups(sp, texs, torch.device("cpu")), TH, TW, shift)
+            cpu = twin_flat(upload_groups(sp, texs, torch.device("cpu"), (TH, TW)),
+                            TH, TW, shift)
             assert float((got.cpu() - cpu).abs().max()) <= S1_BOUND
+
+
+@pytest.mark.parametrize("th, tw", [(16, 256), (3, 100)])
+@pytest.mark.parametrize("kind, sep", [(P_TEXTURE, True), (P_TEXTURE, False),
+                                       (P_IMAGE, True), (P_IMAGE, False)])
+def test_s1_matches_the_twin_on_other_tile_shapes(card, th, tw, kind, sep):
+    """Tiles of more pixels than S1 sums in shared memory at once (16 x 256:
+    two passes over the tile) and of an odd shape (3 x 100: one partial
+    pass), bilinear and repeat, A8 and RGBA."""
+    seed = hash((th, tw, kind, sep)) % 2**31
+    for channels in (1, 4):
+        sp, texs = random_plan(seed, kind, sep, ImageFlags.Filter_Bilinear, channels)
+        g = upload_groups(sp, [t.to(card) for t in texs], card, (th, tw))
+        for shift in ((0.0, 0.0), (7.37, 0.5), (127.9, 3.0)):
+            got = sample_tiles_flat(g, shift=shift)
+            want = sample_tiles_flat(g, shift=shift, plain=True)
+            assert got.shape == (sp.num_tiles + 1, 4 * th * tw)
+            err = float((got - want).abs().max())
+            assert err <= S1_BOUND, (channels, shift, err)
+            assert not got[-1].any()
 
 
 def _scroll_scene(ss: int, card):
@@ -92,13 +114,12 @@ def test_s1_matches_the_twin_on_the_scroll_scene(card, ss):
     scene = _scroll_scene(ss, card)
     samp = scene.d["samp"]
     assert samp.words.is_cuda and samp.n_pairs > 0
-    th = scene.tile_h // ss
+    assert samp.tile == (scene.tile_h // ss, scene.tile_w)
     worst = 0.0
     for rx, ry in ((0.0, 0), (0.0001, 1), (7.37, ss), (63.5, 2 * ss - 1),
                    (127.99, 0), (127.9999, 3)):
-        got = sample_tiles_flat(samp, th=th, tw=scene.tile_w, shift=(rx, ry / ss))
-        want = sample_tiles_flat(samp, th=th, tw=scene.tile_w, shift=(rx, ry / ss),
-                                 plain=True)
+        got = sample_tiles_flat(samp, shift=(rx, ry / ss))
+        want = sample_tiles_flat(samp, shift=(rx, ry / ss), plain=True)
         worst = max(worst, float((got - want).abs().max()))
     assert worst <= S1_BOUND
     prof = scene.profiler
@@ -106,6 +127,37 @@ def test_s1_matches_the_twin_on_the_scroll_scene(card, ss):
     scene.render(37.25, 5.0)
     scene.render(1.5, 0.0, use_pallas=False)
     assert prof.counters.get("sample_kernel_launches", 0) == n0 + 1
+
+
+def test_s1_matches_the_twin_on_a_city_map_bake(card):
+    """A 1024 x 768 region of the map cell's city (its densities, dense
+    rotated labels), baked as the cell bakes it: S1 against the twin at
+    residuals of 0, a fraction and whole rows; each view adds the bake's
+    footprint count to sample_footprint_px, more than 0 and below every
+    pair's whole tile, so S1 culled."""
+    import vgtpu_torch as vg
+    from vgtpu_torch.raster.retained import RetainedScene
+    from vgtpu_torch.scenes.citymap import draw_city
+
+    c = vg.createContext(vg.ContextConfig(coverage_supersample=1, tile_w=TW, tile_h=TH,
+                                          device_sampling=True), device=card.type)
+    vg.begin(c, 0, 480, 270, 1.0)
+    draw_city(c, 1, 1024, 768)
+    scene = RetainedScene.bake(c, 1024, 768)
+    samp = scene.d["samp"]
+    assert samp.words.is_cuda and samp.n_pairs > 0 and samp.n_rotated_pairs > 0
+    for shift in ((0.0, 0.0), (37.3, 3.0), (100.5, 6.0)):
+        got = sample_tiles_flat(samp, shift=shift)
+        want = sample_tiles_flat(samp, shift=shift, plain=True)
+        err = float((got - want).abs().max())
+        assert err <= S1_BOUND, (shift, err)
+        assert got[:-1].any() and not got[-1].any()
+    prof = scene.profiler
+    n0 = prof.counters.get("sample_footprint_px", 0)
+    scene.render(37.25, 3.0)
+    fp = prof.counters["sample_footprint_px"] - n0
+    assert fp == samp.footprint_px
+    assert 0 < fp < samp.n_pairs * TH * TW
 
 
 def test_s1_matches_the_twin_on_the_pattern_panels(card):

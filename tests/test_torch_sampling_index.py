@@ -25,10 +25,12 @@ from vgtpu_torch.core import ImageFlags
 from vgtpu_torch.ops.coverage import fma
 from vgtpu_torch.ops.sampling_device import (
     GROUP_WORDS,
+    MAX_SPAN,
     ROW_WORDS,
     SampleGroup,
     SamplingPlan,
     build_tile_index,
+    footprint_boxes,
     sample_groups,
     sample_tiles_flat,
     upload_groups,
@@ -134,26 +136,46 @@ def _pair_rgba(grp, p, ox, oy, tex):
     return torch.cat([s[:, 0:3] * col[None, 0:3] * alpha[:, None], alpha[:, None]], dim=1)
 
 
-def two_tap_flat(g, th: int, tw: int, shift=(0.0, 0.0)) -> torch.Tensor:
+def pair_footprints(g, th: int, tw: int, shift=(0.0, 0.0)) -> np.ndarray:
+    """footprint_boxes over the uploaded pairs, in pair order: (P, 4)."""
+    w, at = g.words, g.at
+    table = w[: at["rows"]].view(-1, GROUP_WORDS).numpy()
+    rows = w[at["rows"] : at["offsets"]].view(torch.float32).view(-1, ROW_WORDS).numpy()
+    pairs = w[at["pairs"] : at["pairs"] + 2 * g.n_pairs].view(-1, 2).numpy()
+    grp = table[pairs[:, 1]]
+    return footprint_boxes(rows[pairs[:, 0]], grp[:, 6] == P_TEXTURE, grp[:, 7] != 0,
+                           th, tw, shift)
+
+
+def two_tap_flat(g, th: int, tw: int, shift=(0.0, 0.0), cull: bool = False) -> torch.Tensor:
     """S1's output computed as S1 computes it, from the uploaded words alone
-    (the table, the rows, the tile offsets, the clip flags, the pairs):
-    (NCT+1, 4*th*tw) channel-major, the last row zeros."""
+    (the table, the rows, the tile offsets, the clip flags, the pairs; the
+    tile order only orders S1's blocks):
+    (NCT+1, 4*th*tw) channel-major, the last row zeros.  cull: each pixel
+    takes only the pairs whose footprint (footprint_boxes) holds it, as S1
+    does; without, every pair of its tile."""
     w, at, nct = g.words, g.at, g.num_tiles
     table = w[: at["rows"]].view(-1, GROUP_WORDS)
     rows = w[at["rows"] : at["offsets"]].view(torch.float32).view(-1, ROW_WORDS)
     offsets = w[at["offsets"] : at["offsets"] + nct + 1].tolist()
     clip = w[at["clip"] : at["clip"] + nct + 1].tolist()
     pairs = w[at["pairs"] : at["pairs"] + 2 * g.n_pairs].view(-1, 2).tolist()
+    boxes = pair_footprints(g, th, tw, shift).tolist()
     sx, sy = (torch.tensor(v, dtype=torch.float32) for v in shift)
-    cx = (torch.arange(tw, dtype=torch.float32) + 0.5).repeat(th)
-    cy = (torch.arange(th, dtype=torch.float32) + 0.5).repeat_interleave(tw)
+    c = torch.arange(tw).repeat(th)
+    r = torch.arange(th).repeat_interleave(tw)
+    cx, cy = c.float() + 0.5, r.float() + 0.5
     out = torch.zeros((nct + 1, 4, th * tw), dtype=torch.float32)
     for t in range(nct):
         acc = torch.zeros((th * tw, 4), dtype=torch.float32)
-        for row, grp in pairs[offsets[t] : offsets[t + 1]]:
+        for i in range(offsets[t], offsets[t + 1]):
+            row, grp = pairs[i]
             p = rows[row]
             v = _pair_rgba(table[grp], p, (p[0] + sx) + cx, (p[1] + sy) + cy, g.texs[grp])
-            acc = acc + v if int(table[grp, 6]) == P_TEXTURE else v
+            x0, x1, y0, y1 = boxes[i] if cull else (0, tw, 0, th)
+            inside = ((c >= x0) & (c < x1) & (r >= y0) & (r < y1))[:, None]
+            v = acc + v if int(table[grp, 6]) == P_TEXTURE else v
+            acc = torch.where(inside, v, acc)
         if clip[t]:
             acc = torch.clamp(acc, 0.0, 1.0)
         out[t] = acc.T
@@ -259,7 +281,7 @@ def test_tile_index_orders_pairs_by_tile_then_row():
     """Pairs by tile; inside a tile, group 0's rows in row order, then
     group 1's: the order index_add_ adds them in on the CPU."""
     sp = _index_plan()
-    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)])
+    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)], (TH, TW))
     # rows: g0 0-7, g1 8-15, g2 16-23
     by_tile = {t: idx.pairs[idx.offsets[t] : idx.offsets[t + 1]].tolist()
                for t in range(sp.num_tiles)}
@@ -267,11 +289,13 @@ def test_tile_index_orders_pairs_by_tile_then_row():
                        3: [[0, 0], [2, 0], [9, 1]], 4: [[16, 2]]}
     assert idx.offsets.tolist() == [0, 3, 4, 4, 7, 8]
     assert idx.offsets.dtype == np.int32 and idx.pairs.dtype == np.int32
+    # S1's block order: by falling pair count, ties (and the zeros row) in order
+    assert idx.order.tolist() == [0, 3, 1, 4, 2, 5] and idx.order.dtype == np.int32
 
 
 def test_tile_index_leaves_pad_rows_out():
     sp = _index_plan()
-    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)])
+    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)], (TH, TW))
     ct = np.concatenate([g.ct for g in sp.groups])
     assert len(idx.pairs) == int((ct < sp.num_tiles).sum()) == 8
     assert (ct[idx.pairs[:, 0]] < sp.num_tiles).all()
@@ -280,7 +304,7 @@ def test_tile_index_leaves_pad_rows_out():
 
 def test_tile_index_two_groups_share_a_tile():
     sp = _index_plan()
-    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)])
+    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)], (TH, TW))
     for t in (0, 3):
         grp = idx.pairs[idx.offsets[t] : idx.offsets[t + 1], 1]
         assert sorted(set(grp.tolist())) == [0, 1]
@@ -292,12 +316,12 @@ def test_tile_index_empty_tiles_and_clip_flags():
     writes zeros there.  The clip flags are the textured-quad tiles, and 0
     on the zeros row."""
     sp = _index_plan()
-    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)])
+    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)], (TH, TW))
     assert idx.offsets[2] == idx.offsets[3]
     assert idx.clip.tolist() == [1, 1, 0, 1, 0, 0]
     empty = _plan([_group(P_TEXTURE, True, 0, [3] * 8, np.zeros((8, 12)),
                           np.zeros((8, 4)))], 3, [True] * 3)
-    ie = build_tile_index(empty, [(2, 2, 1)])
+    ie = build_tile_index(empty, [(2, 2, 1)], (TH, TW))
     assert ie.offsets.tolist() == [0, 0, 0, 0] and ie.pairs.shape == (0, 2)
 
 
@@ -306,7 +330,7 @@ def test_upload_of_tiles_without_pairs():
     upload still lays out the offsets and clip flags, and the twin's
     tiles are zeros (S1 walks the same empty ranges)."""
     sp = _plan([], 3, [True] * 3)
-    g = upload_groups(sp, (), torch.device("cpu"))
+    g = upload_groups(sp, (), torch.device("cpu"), (TH, TW))
     assert g.at["rows"] == 0 and g.n_pairs == 0
     assert g.words[g.at["offsets"] : g.at["clip"]].tolist() == [0, 0, 0, 0]
     for flat in (twin_flat(g, TH, TW), two_tap_flat(g, TH, TW)):
@@ -315,7 +339,7 @@ def test_upload_of_tiles_without_pairs():
 
 def test_tile_index_group_table():
     sp = _index_plan()
-    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)])
+    idx = build_tile_index(sp, [(8, 9, 1), (4, 4, 4), (16, 2, 4)], (TH, TW))
     assert idx.table.tolist() == [
         [8, 9, 1, ImageFlags.Filter_Bilinear, P_TEXTURE, 1],
         [4, 4, 4, ImageFlags.Filter_Nearest | ImageFlags.Clamp_UV, P_TEXTURE, 0],
@@ -325,19 +349,20 @@ def test_tile_index_group_table():
 def test_upload_is_one_copy_laid_out_for_s1_and_the_twin():
     """One int32 tensor: the table (texture pointers, then h, w, C, flags,
     kind, separable), the rows as float32 bits (the twin's triples are views
-    of them), the offsets, the clip flags and the pairs."""
+    of them), the offsets, the clip flags, the tile order and the pairs."""
     sp = _index_plan()
     texs = (torch.zeros(8, 9, 1), torch.zeros(4, 4, 4), torch.zeros(16, 2, 4))
-    g = upload_groups(sp, texs, torch.device("cpu"))
+    g = upload_groups(sp, texs, torch.device("cpu"), (TH, TW))
     w, at = g.words, g.at
     assert w.dtype == torch.int32 and w.dim() == 1
     table = w[: at["rows"]].view(-1, GROUP_WORDS)
     ptrs = table[:, 0:2].contiguous().view(torch.int64).view(-1).tolist()
     assert ptrs == [t.data_ptr() for t in texs]
-    idx = build_tile_index(sp, [tuple(t.shape) for t in texs])
+    idx = build_tile_index(sp, [tuple(t.shape) for t in texs], (TH, TW))
     assert table[:, 2:].tolist() == idx.table.tolist()
     assert w[at["offsets"] : at["clip"]].tolist() == idx.offsets.tolist()
-    assert w[at["clip"] : at["pairs"]].tolist() == idx.clip.tolist()
+    assert w[at["clip"] : at["order"]].tolist() == idx.clip.tolist()
+    assert w[at["order"] : at["pairs"]].tolist() == idx.order.tolist()
     assert w[at["pairs"] :].view(-1, 2).tolist() == idx.pairs.tolist()
     for (p, col, ct), sg in zip(g.arrs, sp.groups):
         assert np.array_equal(p.numpy(), sg.params)
@@ -364,6 +389,8 @@ def test_s1_constants_match_the_python_values():
     assert const("kClampV") == ImageFlags.Clamp_V
     assert const("kTextureQuad") == P_TEXTURE
     assert const("kRowWords") == ROW_WORDS and const("kGroupWords") == GROUP_WORDS
+    span = re.search(r"constexpr float kMaxSpan = ([0-9.e+]+)f;", src)
+    assert float(span.group(1)) == MAX_SPAN
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +405,7 @@ def test_s1_constants_match_the_python_values():
 def test_two_tap_equals_the_dense_twin(flags, kind, sep, channels):
     seed = hash((flags, kind, sep, channels)) % 2**31
     sp, texs = random_plan(seed, kind, sep, flags, channels)
-    g = upload_groups(sp, texs, torch.device("cpu"))
+    g = upload_groups(sp, texs, torch.device("cpu"), (TH, TW))
     for shift in ((0.0, 0.0), (7.37, 0.5), (127.9, 3.0)):
         want = twin_flat(g, TH, TW, shift)
         got = two_tap_flat(g, TH, TW, shift)
@@ -397,7 +424,7 @@ def test_two_tap_equals_the_dense_twin_on_an_atlas_sized_texture(flags, kind):
     ulp at 512 (3e-5); the two taps take the twin's formula, not 1 - fx,
     and so its rounding (1 - fx reads up to 1.3e-4 off here)."""
     sp, texs = random_plan(7, kind, True, flags, 1, texture=(512, 512))
-    g = upload_groups(sp, texs, torch.device("cpu"))
+    g = upload_groups(sp, texs, torch.device("cpu"), (TH, TW))
     for shift in ((0.0, 0.0), (7.37, 0.5)):
         err = float((two_tap_flat(g, TH, TW, shift) - twin_flat(g, TH, TW, shift)).abs().max())
         assert err <= TWO_TAP_BOUND, shift
@@ -415,7 +442,7 @@ def test_two_tap_nearest_ties_round_half_to_even(flags):
     sp = _plan([_group(P_IMAGE, True, flags, [0] + [1] * 7,
                        [params] + [[0.0] * 12] * 7, [[1, 1, 1, 1]] + [[0] * 4] * 7)],
                1, [False])
-    g = upload_groups(sp, (tex,), torch.device("cpu"))
+    g = upload_groups(sp, (tex,), torch.device("cpu"), (TH, TW))
     got = two_tap_flat(g, TH, TW)
     want = twin_flat(g, TH, TW)
     assert float((got - want).abs().max()) <= TWO_TAP_BOUND
@@ -441,7 +468,7 @@ def test_two_tap_one_texel_wide_textures():
             sp = _plan([_group(P_IMAGE, True, flags, [0] + [1] * 7,
                                [params] + [[0.0] * 12] * 7, [[0.5, 1, 1, 1]] + [[0] * 4] * 7)],
                        1, [False])
-            g = upload_groups(sp, (tex,), torch.device("cpu"))
+            g = upload_groups(sp, (tex,), torch.device("cpu"), (TH, TW))
             err = float((two_tap_flat(g, TH, TW) - twin_flat(g, TH, TW)).abs().max())
             assert err <= TWO_TAP_BOUND, (shape, flags)
 
@@ -459,10 +486,140 @@ def test_two_tap_mixed_groups_share_tiles():
     for g in groups[:4]:
         g.ct = np.where(g.ct < 6, g.ct, 12).astype(np.int32)
     sp = _plan(groups, 12, [True] * 6 + [False] * 6)
-    g = upload_groups(sp, ta + tb + tc, torch.device("cpu"))
+    g = upload_groups(sp, ta + tb + tc, torch.device("cpu"), (TH, TW))
     got, want = two_tap_flat(g, TH, TW, (3.25, 1.0)), twin_flat(g, TH, TW, (3.25, 1.0))
     assert float((got - want).abs().max()) <= TWO_TAP_BOUND
     assert float(got[:6].max()) <= 1.0   # textured-quad tiles clamped
+
+
+# ---------------------------------------------------------------------------
+# the footprints: a pixel skips the pairs whose coverage is zero there
+# ---------------------------------------------------------------------------
+
+# x residuals near 0 and a fraction, a half sub-row (ss = 2), whole rows
+CULL_SHIFTS = ((0.0, 0.0), (7.37, 0.0), (0.0, 0.5), (127.9, 3.0))
+TILE_ORIGINS = ((256.3, 64.0), (-128.0, 8.0), (1408.7, 200.0))
+
+
+def _quads_plan(quads, sep):
+    """One group of bilinear, repeating A8 quads (ex, ey, p0 relative to the
+    tile origin) over the TILE_ORIGINS tiles, each quad in every tile."""
+    rng = np.random.default_rng(0)
+    tex = torch.as_tensor(rng.uniform(0.2, 1, (9, 11, 1)), dtype=torch.float32)
+    cts, params = [], []
+    for t, (ox, oy) in enumerate(TILE_ORIGINS):
+        for (exx, exy), (eyx, eyy), (px, py) in quads:
+            cts.append(t)
+            params.append([ox, oy, ox + px, oy + py, exx, exy, eyx, eyy,
+                           -0.2, 0.1, 1.3, 0.9])
+    n = len(cts)
+    kp = max(8, n)
+    filler = [0, 0, 0, 0, 1, 0, 0, 1, 0, 0, 0, 0]
+    colors = np.concatenate([rng.uniform(0.3, 1.0, (n, 4)), np.zeros((kp - n, 4))])
+    g = _group(P_TEXTURE, sep, ImageFlags.Filter_Bilinear, cts + [3] * (kp - n),
+               params + [filler] * (kp - n), colors)
+    return _plan([g], 3, [True] * 3), (tex,)
+
+
+# (ex, ey, p0 relative to the tile origin) of quads no random plan makes
+ADVERSARIAL = {
+    # moderately sheared (box from the band's corners) and nearly flat
+    # (sheared past MAX_SPAN's reach: the whole tile)
+    "sheared": (False, [((12.0, 1.0), (10.0, 2.0), (30.0, 1.0)),
+                        ((60.0, 0.5), (59.9, 0.51), (20.0, 3.0))]),
+    # a fraction of a pixel: wa and wb from ~3 to 1e4, the band ~1 px
+    "sub_pixel": (False, [((0.3, 0.0), (0.0, 0.4), (17.2, 3.6)),
+                          ((0.2, 0.1), (-0.1, 0.3), (64.5, 4.0)),
+                          ((1e-3, 0.0), (0.0, 1e-4), (90.0, 2.5))]),
+    "sub_pixel_separable": (True, [((0.3, 0.0), (0.0, 0.4), (17.2, 3.6)),
+                                   ((1e-3, 0.0), (0.0, 1e-4), (90.0, 2.5))]),
+    # wa and wb at their 1e-9 clamp: a quad of 1e10 px, one edge in the tile
+    "wa_clamped": (True, [((3e10, 0.0), (0.0, 2e10), (50.0, -1e9))]),
+    "wa_clamped_rotated": (False, [((3e10, 1.0), (0.0, 2e10), (50.0, 3.0))]),
+    # det exactly 0 (parallel edges, a zero edge): a non-finite inverse
+    "degenerate_det": (False, [((10.0, 5.0), (20.0, 10.0), (30.0, 2.0)),
+                               ((12.0, 0.0), (0.0, 0.0), (40.0, 2.0))]),
+    # quads across each edge of the tile and past its corners
+    "tile_edge": (False, [((9.0, 1.0), (-1.0, 8.0), (-5.0, -4.0)),
+                          ((9.0, -1.0), (1.0, 9.0), (124.0, 5.0)),
+                          ((7.0, 0.0), (0.0, 9.0), (60.0, 7.6))]),
+    "tile_edge_separable": (True, [((9.0, 0.0), (0.0, 8.0), (-5.0, -4.0)),
+                                   ((9.0, 0.0), (0.0, 9.0), (124.0, 5.0)),
+                                   ((7.0, 0.0), (0.0, 9.0), (60.0, -8.4))]),
+}
+
+CULL_CASES = ([("random", flags, sep) for flags in FLAG_SETS for sep in (True, False)]
+              + [(name, None, None) for name in ADVERSARIAL])
+
+
+@pytest.mark.parametrize("case, flags, sep", CULL_CASES)
+def test_footprint_culling_changes_no_bit(case, flags, sep):
+    """S1 samples a pair only at the pixels of its footprint: outside it
+    the pair's coverage is exactly 0, so the culled walk equals the full
+    walk bit for bit, on random_plan's quads (every flag set, separable and
+    rotated, reaching into the pan's margin) and on quads built to break
+    the footprint: sheared, sub-pixel, wa at its clamp, a degenerate det
+    (the whole tile), across the tile's edges; at the pan's residuals."""
+    if case == "random":
+        # A8 and RGBA on alternate flag sets, the glyph atlas's 512x512 on
+        # every third case, a seed of each case's own
+        i = 2 * FLAG_SETS.index(flags) + int(sep)
+        sp, texs = random_plan(1000 + i, P_TEXTURE, sep, flags, (1, 4)[(i // 2) % 2],
+                               texture=(512, 512) if i % 3 == 0 else (13, 7))
+    else:
+        sep, quads = ADVERSARIAL[case]
+        sp, texs = _quads_plan(quads, sep)
+    g = upload_groups(sp, texs, torch.device("cpu"), (TH, TW))
+    whole = np.array([0, TW, 0, TH])
+    ink = False
+    for shift in CULL_SHIFTS:
+        full = two_tap_flat(g, TH, TW, shift)
+        culled = two_tap_flat(g, TH, TW, shift, cull=True)
+        # bit for bit: the degenerate quads' NaNs (torch.clamp keeps them) too
+        assert torch.equal(culled.view(torch.int32), full.view(torch.int32)), shift
+        ink = ink or bool(full[:-1].nan_to_num().any())
+        boxes = pair_footprints(g, TH, TW, shift)
+        area = (np.clip(boxes[:, 1] - boxes[:, 0], 0, None)
+                * np.clip(boxes[:, 3] - boxes[:, 2], 0, None))
+        if case in ("degenerate_det", "wa_clamped", "wa_clamped_rotated"):
+            assert (boxes == whole).all(), boxes
+        elif case == "sheared":
+            assert (boxes[1::2] == whole).all() and (area[0::2] < TH * TW).all()
+        else:
+            assert (area < TH * TW).any(), boxes
+    assert ink or case == "degenerate_det"     # NaN there, on either walk
+
+
+def test_footprints_bound_the_sub_pixel_quads():
+    """A quad of a fraction of a pixel reaches the pixels within 1 px of its
+    band (its own extent grown by half a pixel): at most 4 x 4 of them."""
+    sep, quads = ADVERSARIAL["sub_pixel"]
+    sp, texs = _quads_plan(quads, sep)
+    boxes = pair_footprints(upload_groups(sp, texs, torch.device("cpu"), (TH, TW)), TH, TW)
+    assert ((boxes[:, 1] - boxes[:, 0] <= 4) & (boxes[:, 3] - boxes[:, 2] <= 4)).all()
+    assert ((boxes[:, 1] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 2])).all()
+
+
+@pytest.mark.parametrize("kind", [P_TEXTURE, P_IMAGE])
+def test_tile_index_counts_the_footprint_slots(kind):
+    """build_tile_index's footprint_px is the (pair, pixel) slots inside the
+    footprints at no shift: below every pair's whole tile for quads, all of
+    it for pattern fills.  sample_tiles_flat adds it to sample_footprint_px
+    per resample."""
+    sp, texs = random_plan(9, kind, kind == P_TEXTURE, ImageFlags.Filter_Bilinear, 1)
+    g = upload_groups(sp, texs, torch.device("cpu"), (TH, TW))
+    boxes = pair_footprints(g, TH, TW)
+    area = int((np.clip(boxes[:, 1] - boxes[:, 0], 0, None)
+                * np.clip(boxes[:, 3] - boxes[:, 2], 0, None)).sum())
+    assert g.footprint_px == area
+    if kind == P_TEXTURE:
+        assert 0 < area < g.n_pairs * TH * TW
+    else:
+        assert area == g.n_pairs * TH * TW
+    prof = FrameProfiler()
+    for shift in ((0.0, 0.0), (7.37, 1.0)):
+        sample_tiles_flat(g, shift=shift, profiler=prof)
+    assert prof.counters["sample_footprint_px"] == 2 * area
 
 
 # ---------------------------------------------------------------------------
@@ -473,10 +630,9 @@ def test_two_tap_mixed_groups_share_tiles():
 @pytest.mark.parametrize("plain", [False, True])
 def test_cpu_groups_take_the_twin_and_count_no_launch(plain):
     sp, texs = random_plan(3, P_TEXTURE, True, ImageFlags.Filter_Bilinear, 1)
-    g = upload_groups(sp, texs, torch.device("cpu"))
+    g = upload_groups(sp, texs, torch.device("cpu"), (TH, TW))
     prof = FrameProfiler()
-    got = sample_tiles_flat(g, th=TH, tw=TW, shift=(7.37, 1.0), plain=plain,
-                            profiler=prof)
+    got = sample_tiles_flat(g, shift=(7.37, 1.0), plain=plain, profiler=prof)
     assert torch.equal(got, twin_flat(g, TH, TW, (7.37, 1.0)))
     assert prof.counters.get("sample_kernel_launches", 0) == 0
 
@@ -485,9 +641,9 @@ def test_s1_wrapper_refuses_cpu_groups():
     from vgtpu_torch.ops.sampling_cuda import S1, sample_tiles_cuda
 
     sp, texs = random_plan(4, P_IMAGE, True, 0, 4)
-    g = upload_groups(sp, texs, torch.device("cpu"))
+    g = upload_groups(sp, texs, torch.device("cpu"), (TH, TW))
     with pytest.raises(ValueError, match="not a CUDA device"):
-        sample_tiles_cuda(g, TH, TW)
+        sample_tiles_cuda(g)
     assert S1.launches == 0 and S1._lib is None
 
 

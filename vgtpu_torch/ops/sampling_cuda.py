@@ -19,17 +19,17 @@ from vgtpu_torch.utils.cuda_build import CudaKernel, current_stream
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 S1 = CudaKernel("sample_tiles", {"vg_sample_tiles": [
-    _vp, _i, _i, _i, _i, _vp, _i, _i, _i, _f, _f, _i, _vp,
+    _vp, _i, _i, _i, _i, _i, _vp, _i, _i, _i, _f, _f, _i, _vp,
 ]})
 
 
-def sample_tiles_cuda(g: DeviceGroups, th: int, tw: int,
-                      shift=(0.0, 0.0)) -> torch.Tensor:
-    """(NCT+1, 4*th*tw) float32 colour tiles, channel-major, the last row
-    zeros: one S1 launch on the groups' device and its current stream.
+def sample_tiles_cuda(g: DeviceGroups, shift=(0.0, 0.0)) -> torch.Tensor:
+    """(NCT+1, 4*th*tw) float32 colour tiles at the groups' tile size
+    g.tile = (th, tw), channel-major, the last row zeros: one S1 launch on
+    the groups' device and its current stream.
     shift (sx, sy): float32 amounts added to every tile origin, as
     sample_groups' shift."""
-    w = g.words
+    w, (th, tw) = g.words, g.tile
     if not w.is_cuda:
         raise ValueError(f"sample_tiles_cuda: groups on {w.device}, not a CUDA device")
     if w.dtype != torch.int32 or w.dim() != 1 or not w.is_contiguous():
@@ -48,6 +48,6 @@ def sample_tiles_cuda(g: DeviceGroups, th: int, tw: int,
     out = torch.empty((nct + 1, 4 * th * tw), dtype=torch.float32, device=w.device)
     at = g.at
     S1.launch("vg_sample_tiles", w.data_ptr(), at["rows"], at["offsets"], at["clip"],
-              at["pairs"], out.data_ptr(), nct, th, tw, float(shift[0]),
+              at["order"], at["pairs"], out.data_ptr(), nct, th, tw, float(shift[0]),
               float(shift[1]), index, current_stream(index))
     return out

@@ -28,11 +28,13 @@ to the same tolerance vgtpu's own test does.
 
 On CUDA the sampler is kernel S1 (csrc/sample_tiles.cu, ops/sampling_cuda.py):
 one launch for every group, tile-major, two taps per axis instead of dense
-weights, written straight into K2's colour-tile layout.  upload_groups
-packs what S1 reads (build_tile_index: each tile's pairs in index_add_'s
-order, the group table) into the same one host-to-device copy as the
-groups; sample_tiles_flat routes CUDA groups to S1 and CPU groups, or
-plain=True on any device, to sample_groups, which stays S1's twin.
+weights, each quad sampled only inside its footprint (footprint_boxes),
+written straight into K2's colour-tile layout.  upload_groups packs what S1
+reads (build_tile_index: each tile's pairs in index_add_'s order, the tiles
+by falling pair count, the group table) into the same one host-to-device
+copy as the groups; sample_tiles_flat routes CUDA groups to S1 and CPU
+groups, or plain=True on any device, to sample_groups, which stays S1's
+twin.
 """
 
 from __future__ import annotations
@@ -280,9 +282,66 @@ def _sample_gather(tex, u, v, flags: int):
 #   tile offsets  NCT+1: tile t's pairs are pairs[offsets[t]:offsets[t+1]]
 #   clip flags    NCT+1: 1 where the tile saturates (textured quads), 0 on
 #                 the zeros row
+#   tile order    NCT+1: the colour tiles (the zeros row NCT among them) by
+#                 falling pair count, S1's block order
 #   pairs         2 a pair: (row, group), sorted by tile
 GROUP_WORDS = 8
 ROW_WORDS = 17
+MAX_SPAN = 1e6      # csrc/sample_tiles.cu kMaxSpan: px, past it a footprint is the tile
+
+
+def footprint_boxes(rows: np.ndarray, quad: np.ndarray, separable: np.ndarray,
+                    th: int, tw: int, shift=(0.0, 0.0)) -> np.ndarray:
+    """S1's footprints (csrc/sample_tiles.cu quad_box) in numpy, the same
+    float32 operations: per pair, the pixels [x0, x1) x [y0, y1) of its
+    th x tw tile that S1 samples it at, at `shift`; outside them the twin
+    adds an exact zero.  rows: (P, >= 12) float32 pair rows (params first);
+    quad, separable: (P,) bool, the pair's group kind is P_TEXTURE, its
+    group separable.  Returns (P, 4) int64 x0, x1, y0, y1, clipped to the
+    tile (x1 <= x0 or y1 <= y0: empty).  Pattern fills, and quads whose
+    inverse is not finite, that are degenerate or sheared past MAX_SPAN's
+    reach, take the whole tile."""
+    f = np.float32
+    p = np.asarray(rows, np.float32)
+    n = len(p)
+    box = np.tile(np.array([0, tw, 0, th], np.int64), (n, 1))
+    if not n:
+        return box
+    gx, gy = p[:, 0] + f(shift[0]), p[:, 1] + f(shift[1])
+    exx, exy, eyx, eyy = p[:, 4], p[:, 5], p[:, 6], p[:, 7]
+    with np.errstate(all="ignore"):
+        det = exx * eyy - exy * eyx
+        i00, i01, i10, i11 = eyy / det, -eyx / det, -exy / det, exx / det
+        d = [i.astype(np.float64) for i in (i00, i01, i10, i11)]
+        wa = np.fmax(np.sqrt(d[0] * d[0] + d[1] * d[1]).astype(np.float32), f(1e-9))
+        wb = np.fmax(np.sqrt(d[2] * d[2] + d[3] * d[3]).astype(np.float32), f(1e-9))
+        qx, qy = p[:, 2] - gx, p[:, 3] - gy
+        a0, a1 = f(-0.5) * wa, f(1) + f(0.5) * wa
+        b0, b1 = f(-0.5) * wb, f(1) + f(0.5) * wb
+        sep = np.asarray(separable, bool)
+        xlo = np.where(sep, np.fmin(a0 / i00, a1 / i00),
+                       np.fmin(a0 * exx, a1 * exx) + np.fmin(b0 * eyx, b1 * eyx))
+        xhi = np.where(sep, np.fmax(a0 / i00, a1 / i00),
+                       np.fmax(a0 * exx, a1 * exx) + np.fmax(b0 * eyx, b1 * eyx))
+        ylo = np.where(sep, np.fmin(b0 / i11, b1 / i11),
+                       np.fmin(a0 * exy, a1 * exy) + np.fmin(b0 * eyy, b1 * eyy))
+        yhi = np.where(sep, np.fmax(b0 / i11, b1 / i11),
+                       np.fmax(a0 * exy, a1 * exy) + np.fmax(b0 * eyy, b1 * eyy))
+        ea, eb = np.abs(exx) + np.abs(exy), np.abs(eyx) + np.abs(eyy)
+        shear = np.fmax(wa * ea, wb * eb)
+        span = (shear * (ea + eb + f(4) * shear) + np.abs(qx) + np.abs(qy)
+                + np.abs(gx) + np.abs(gy))
+        x0, x1 = np.ceil(qx + xlo - f(1.5)), np.floor(qx + xhi + f(0.5)) + f(1)
+        y0, y1 = np.ceil(qy + ylo - f(1.5)), np.floor(qy + yhi + f(0.5)) + f(1)
+        finite = (np.isfinite(i00) & np.isfinite(i01) & np.isfinite(i10)
+                  & np.isfinite(i11))
+        ok = (np.asarray(quad, bool) & finite & (span <= f(MAX_SPAN))
+              & (x0 <= x1) & (y0 <= y1))
+    box[ok, 0] = np.fmax(x0[ok], 0)
+    box[ok, 1] = np.fmin(x1[ok], tw)
+    box[ok, 2] = np.fmax(y0[ok], 0)
+    box[ok, 3] = np.fmin(y1[ok], th)
+    return box
 
 
 @dataclass
@@ -293,15 +352,19 @@ class TileIndex:
     table: np.ndarray       # (G, 6) int32: h, w, C, flags, kind, separable
     offsets: np.ndarray     # (NCT+1,) int32
     clip: np.ndarray        # (NCT+1,) int32
+    order: np.ndarray       # (NCT+1,) int32: tiles by falling pair count, stable
     pairs: np.ndarray       # (P, 2) int32: (row, group), pad rows left out
     n_rotated: int = 0      # pairs in non-separable groups (the exact gather)
+    footprint_px: int = 0   # (pair, pixel) slots inside the footprints at no shift
 
 
-def build_tile_index(sp: SamplingPlan, shapes) -> TileIndex:
+def build_tile_index(sp: SamplingPlan, shapes, tile) -> TileIndex:
     """The pairs of each colour tile in the order the twin's index_add_
     adds them on the CPU: by tile, then by row (groups in order, rows in
     order within a group); pad rows (ct == NCT) are left out.  shapes: per
-    group its texture's (h, w, C)."""
+    group its texture's (h, w, C).  tile: the (th, tw) the tiles are
+    sampled at; footprint_px counts the (pair, pixel) slots S1 samples
+    there at no shift (footprint_boxes)."""
     nct = sp.num_tiles
     ct = np.concatenate([g.ct for g in sp.groups] + [np.zeros(0, np.int32)]).astype(np.int64)
     grp = np.repeat(np.arange(len(sp.groups), dtype=np.int32),
@@ -316,9 +379,17 @@ def build_tile_index(sp: SamplingPlan, shapes) -> TileIndex:
     table = np.array([(h, w, c, g.flags, g.kind, int(g.separable))
                       for g, (h, w, c) in zip(sp.groups, shapes)], np.int32)
     rotated = np.array([not g.separable for g in sp.groups] + [False], bool)
-    return TileIndex(table.reshape(-1, 6), offsets, clip,
+    footprint = 0
+    if len(rows):
+        params = np.concatenate([g.params for g in sp.groups])[rows]
+        quad = np.array([g.kind == P_TEXTURE for g in sp.groups])[grp[rows]]
+        box = footprint_boxes(params, quad, ~rotated[grp[rows]], *tile)
+        footprint = int((np.clip(box[:, 1] - box[:, 0], 0, None)
+                         * np.clip(box[:, 3] - box[:, 2], 0, None)).sum())
+    order = np.argsort(-np.diff(offsets, append=offsets[-1]), kind="stable")
+    return TileIndex(table.reshape(-1, 6), offsets, clip, order.astype(np.int32),
                      np.stack([rows.astype(np.int32), grp[rows]], axis=1),
-                     int(rotated[grp[rows]].sum()))
+                     int(rotated[grp[rows]].sum()), footprint)
 
 
 @dataclass
@@ -329,13 +400,15 @@ class DeviceGroups:
     ct (K,) int64) triples."""
 
     words: torch.Tensor
-    at: dict                # "table", "rows", "offsets", "clip", "pairs" -> word offset
+    at: dict                # "table", "rows", "offsets", "clip", "order", "pairs" -> word offset
     n_pairs: int
     arrs: tuple
     texs: tuple             # per group its f32 texture (h, w, C)
     meta: tuple             # per group (kind, separable, flags)
     num_tiles: int
+    tile: tuple                # (th, tw) the tiles are sampled at
     n_rotated_pairs: int = 0   # TileIndex.n_rotated
+    footprint_px: int = 0      # TileIndex.footprint_px
 
     @property
     def clipmask(self) -> torch.Tensor:
@@ -344,21 +417,21 @@ class DeviceGroups:
         return self.words[a : a + self.num_tiles + 1].bool()
 
 
-def upload_groups(sp: SamplingPlan, texs, device) -> DeviceGroups:
+def upload_groups(sp: SamplingPlan, texs, device, tile) -> DeviceGroups:
     """The plan's groups, their tile index and their textures' table on
     `device` from ONE host-to-device copy (the rows travel as float32 bits).
     texs: per group its f32 texture on `device` (h, w, C in [0, 1]; C=1 for
-    A8), whose data pointer the table holds."""
+    A8), whose data pointer the table holds.  tile: as build_tile_index's."""
     texs = tuple(texs)
-    idx = build_tile_index(sp, [tuple(t.shape) for t in texs])
+    idx = build_tile_index(sp, [tuple(t.shape) for t in texs], tile)
     ptrs = np.array([t.data_ptr() for t in texs], np.uint64).view(np.int32)
     table = np.concatenate([ptrs.reshape(-1, 2), idx.table], axis=1)
     rows = np.concatenate([np.zeros((0, ROW_WORDS), np.float32)] + [
         np.concatenate([g.params, g.color, g.ct[:, None].astype(np.float32)], axis=1)
         for g in sp.groups]).astype(np.float32)
-    parts = [table, rows.view(np.int32), idx.offsets, idx.clip, idx.pairs]
+    parts = [table, rows.view(np.int32), idx.offsets, idx.clip, idx.order, idx.pairs]
     at, n = {}, 0
-    for name, part in zip(("table", "rows", "offsets", "clip", "pairs"), parts):
+    for name, part in zip(("table", "rows", "offsets", "clip", "order", "pairs"), parts):
         at[name] = n
         n += part.size
     words = torch.as_tensor(np.concatenate([x.reshape(-1) for x in parts])).to(device)
@@ -370,7 +443,8 @@ def upload_groups(sp: SamplingPlan, texs, device) -> DeviceGroups:
         k0 += len(g.ct)
     return DeviceGroups(words, at, len(idx.pairs), tuple(arrs), texs,
                         tuple((g.kind, g.separable, g.flags) for g in sp.groups),
-                        sp.num_tiles, idx.n_rotated)
+                        sp.num_tiles, (int(tile[0]), int(tile[1])), idx.n_rotated,
+                        idx.footprint_px)
 
 
 def sample_groups(arrs, texs, clipmask, *, meta, th: int, tw: int,
@@ -472,25 +546,29 @@ def sample_groups(arrs, texs, clipmask, *, meta, th: int, tw: int,
     return tiles[:num_tiles]
 
 
-def sample_tiles_flat(g: DeviceGroups, *, th: int, tw: int, shift=(0.0, 0.0),
-                      plain: bool = False, profiler=None) -> torch.Tensor:
-    """Every group's colour tiles in K2's layout, (NCT+1, 4*th*tw)
-    channel-major plus the zeros row, on the groups' device: one S1 launch
+def sample_tiles_flat(g: DeviceGroups, *, shift=(0.0, 0.0), plain: bool = False,
+                      profiler=None) -> torch.Tensor:
+    """Every group's colour tiles in K2's layout, (NCT+1, 4*th*tw) at the
+    groups' tile size g.tile = (th, tw), channel-major plus the zeros row,
+    on the groups' device: one S1 launch
     for CUDA groups (counted as sample_kernel_launches on `profiler`), else,
     and with plain=True on any device, the twin sample_groups and
     flat_color_tiles.  Either route adds the (entry, quad) pairs of the
-    non-separable groups it samples, counted on the host when the tile
-    index was built, to `profiler`'s sample_rotated_pairs.  shift: as
-    sample_groups'."""
+    non-separable groups it samples, and the (pair, pixel) slots inside
+    S1's footprints at no shift, both counted on the host when the tile
+    index was built, to `profiler`'s sample_rotated_pairs and
+    sample_footprint_px.  shift: as sample_groups'."""
     if profiler is not None:
         profiler.count("sample_rotated_pairs", g.n_rotated_pairs)
+        profiler.count("sample_footprint_px", g.footprint_px)
     if g.words.is_cuda and not plain:
         from vgtpu_torch.ops.sampling_cuda import sample_tiles_cuda
 
-        out = sample_tiles_cuda(g, th, tw, shift)
+        out = sample_tiles_cuda(g, shift)
         if profiler is not None:
             profiler.count("sample_kernel_launches", 1)
         return out
+    th, tw = g.tile
     return flat_color_tiles(sample_groups(
         g.arrs, g.texs, g.clipmask, meta=g.meta, th=th, tw=tw,
         num_tiles=g.num_tiles, shift=shift))
@@ -508,5 +586,5 @@ def sample_color_tiles_device(sp: SamplingPlan, textures: dict,
         return None
     texs = tuple(textures[g.image_id] for g in sp.groups)
     return color_tiles_view(sample_tiles_flat(
-        upload_groups(sp, texs, texs[0].device), th=tile_h, tw=tile_w,
+        upload_groups(sp, texs, texs[0].device, (tile_h, tile_w)),
         profiler=profiler), tile_h, tile_w)

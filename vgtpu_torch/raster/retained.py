@@ -373,7 +373,8 @@ class RetainedScene:
             sp = build_sampling_plan(plan, ops_px, image_map, pan_margin=True)
             if sp.num_tiles:
                 tex = ctx._device_textures(image_map, {g.image_id for g in sp.groups})
-                samp = upload_groups(sp, (tex[g.image_id] for g in sp.groups), dev)
+                samp = upload_groups(sp, (tex[g.image_id] for g in sp.groups), dev,
+                                     (th, tw))
         nct = samp.num_tiles if samp is not None else plan.color_tiles.shape[0]
         # the view-invariant tables over the plan's own pools, which the
         # bake does not compact (vgtpu's bake does not either)
@@ -609,8 +610,7 @@ class RetainedScene:
 
         with stage("pan.resample"):
             # the sampler works on OUTPUT pixels: the y residual is ry/ss
-            return cov, sample_tiles_flat(d["samp"], th=th // ss, tw=tw,
-                                          shift=(rx, ry / ss), plain=plain,
+            return cov, sample_tiles_flat(d["samp"], shift=(rx, ry / ss), plain=plain,
                                           profiler=self.profiler)
 
     def _render(self, vx: int, vy: int, rx: float, ry: int, background,
