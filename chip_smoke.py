@@ -152,6 +152,12 @@ Phases (any failure raises and the process exits non-zero):
      map's glyph resample through S1 against the twin on the card at
      S1_SHIFTS (S1_BOUND), S1's and the twin's ms beside S1's bound
      (hold_s1).
+  10d. The satellite-hybrid map at dpr 2 (phase_10d: the
+     citymap_z17_hybrid2x cell's scene, 88 imagery tiles of 512x512 baked
+     over 5632x4096): every scene tile holds a pattern tile; the resample
+     (S1's pattern branch over every imagery tile, and the glyph quads)
+     against the twin at S1_SHIFTS (hold_s1); one 3840x2160 view,
+     fractional in x, through hold_pan_window.
   11. The cached-list app at 1920x1080, bench.py's two app patterns over
      the tiger in a Cacheable command list with the demo UI drawn over it,
      at ss = 1 and 2 (phase_11): the app frame (the list at a fixed
@@ -955,13 +961,64 @@ def phase_10c(vg, card, scroll_scene, device: str = "cuda",
     return out
 
 
+# [10d]: the satellite-hybrid map (vgbench's citymap_z17_hybrid2x cell: the
+# city of MAP_SEED over MAP_REGION at dpr 2 over 88 imagery tiles, baked over
+# the region's physical pixels, viewed 3840x2160), at a view fractional in x
+HYBRID_DPR = 2.0
+HYBRID_VIEW = (901.25, 1203)
+
+
+def phase_10d(vg, card, device: str = "cuda", region: tuple = MAP_REGION) -> dict:
+    """[10d] the hybrid map drawn over `region` at HYBRID_DPR and baked over
+    its physical pixels as the citymap_z17_hybrid2x cell bakes it: its
+    resample (every imagery pattern tile and the glyph quads) through S1
+    against the twin at S1_SHIFTS (hold_s1), and the pan's view window on
+    one 1920x1080 logical view at HYBRID_VIEW (hold_pan_window: K1, K2's
+    texture and non-AA lanes, render())."""
+    import torch
+    from vgtpu_torch.raster.retained import RetainedScene
+    from vgtpu_torch.scenes.citymap import IMAGERY_TILE_PX, draw_hybrid
+
+    c = vg.createContext(vg.ContextConfig(coverage_supersample=1, tile_w=128, tile_h=8,
+                                          device_sampling=True, max_images=128,
+                                          max_image_patterns=128), device=device)
+    vg.begin(c, 0, 1920, 1080, HYBRID_DPR)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    drawn = draw_hybrid(c, MAP_SEED, *region)
+    t1 = time.perf_counter()
+    phys = tuple(round(v * HYBRID_DPR) for v in region)
+    scene = RetainedScene.bake(c, *phys, background=(0.0, 0.0, 0.0, 1.0))
+    t2 = time.perf_counter()
+    samp = scene.d["samp"]
+    cols, rows = (-(-v // IMAGERY_TILE_PX) for v in region)
+    # every tile of the region holds an imagery entry (tiles on imagery seams two)
+    need = (phys[0] // scene.tile_w) * (phys[1] // scene.tile_h)
+    print(f"[10d] hybrid map: {drawn['imagery_tiles']} imagery tiles ({cols}x{rows}), "
+          f"{len(c.ops)} ops drawn in {t1 - t0:.1f} s, baked over {phys} in "
+          f"{t2 - t1:.1f} s host: {scene.plan.ntx}x{scene.plan.nty} tiles, "
+          f"{samp.num_tiles} colour tiles, {samp.pattern_tiles} pattern tiles, "
+          f"texture_bytes {c.profiler.counters.get('texture_bytes', 0)}")
+    if drawn["imagery_tiles"] != cols * rows or samp.pattern_tiles < need:
+        raise AssertionError(f"[10d] {drawn['imagery_tiles']} imagery tiles, "
+                             f"{samp.pattern_tiles} pattern tiles over the region's {need} tiles")
+    out = {"s1": hold_s1(samp, f"[10d] hybrid map ({phys})", card),
+           "window": hold_pan_window(scene, HYBRID_VIEW, "hybrid map", card)}
+    if device == "cuda":
+        print(f"[10d] hybrid map: device memory peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over the phase ({card})")
+    return out
+
+
 def hold_s1(samp, tag: str, card: str) -> dict:
-    """A baked scene's glyph resample: S1 against its twin on the card at
-    S1_SHIFTS (S1_BOUND), then S1 alone and the twin alone at one residual
-    (CUDA events, median of 12; torch.profiler's device ms and launches over
-    10 calls of S1, 3 of the twin's ~100-200 launches) beside S1's bound,
-    its colour tiles written once; one S1 launch
-    a resample (S1.launches: the profiler may drop a launch's record)."""
+    """A baked scene's resample (glyph quads, pattern tiles): S1 against
+    its twin on the card at S1_SHIFTS (S1_BOUND), then S1 alone and the
+    twin alone at one residual (CUDA events, median of 12; torch.profiler's
+    device ms and launches over 10 calls of S1, 3 of the twin's ~100-200
+    launches) beside S1's bound, its colour tiles written once; one S1
+    launch a resample (S1.launches: the profiler may drop a launch's
+    record)."""
     from vgtpu_torch.ops.sampling_cuda import S1, sample_tiles_cuda
     from vgtpu_torch.ops.sampling_device import sample_tiles_flat
 
@@ -985,7 +1042,7 @@ def hold_s1(samp, tag: str, card: str) -> dict:
     th, tw = samp.tile
     out_bytes = (samp.num_tiles + 1) * 4 * th * tw * 4
     bound_ms = bound(out_bytes, 0)[0]
-    print(f"{tag} glyph resample, {samp.num_tiles} colour tiles, {samp.n_pairs} "
+    print(f"{tag} resample, {samp.num_tiles} colour tiles, {samp.n_pairs} "
           f"(entry, quad) pairs, {samp.footprint_px} footprint slots: S1 against its "
           f"twin on the card at {S1_SHIFTS}: max|diff| = {err:.3e} (bound "
           f"{S1_BOUND:.0e}); S1 {n_s1} launch a resample, {ms_s1:.4f} ms [device "
@@ -2681,6 +2738,8 @@ def main() -> int:
     stamp("[10b]")
     phase_10c(vg, card, pan["scenes"]["ss=1"])
     stamp("[10c]")
+    phase_10d(vg, card)
+    stamp("[10d]")
 
     # ---- 11. the cached-list app; 11b. render_edges ------------------------
     phase_11(vg, card, zero_counts, read_counts, check_path)

@@ -356,6 +356,7 @@ class TileIndex:
     pairs: np.ndarray       # (P, 2) int32: (row, group), pad rows left out
     n_rotated: int = 0      # pairs in non-separable groups (the exact gather)
     footprint_px: int = 0   # (pair, pixel) slots inside the footprints at no shift
+    pattern_tiles: int = 0  # colour tiles holding a pattern fill's pair
 
 
 def build_tile_index(sp: SamplingPlan, shapes, tile) -> TileIndex:
@@ -364,7 +365,8 @@ def build_tile_index(sp: SamplingPlan, shapes, tile) -> TileIndex:
     order within a group); pad rows (ct == NCT) are left out.  shapes: per
     group its texture's (h, w, C).  tile: the (th, tw) the tiles are
     sampled at; footprint_px counts the (pair, pixel) slots S1 samples
-    there at no shift (footprint_boxes)."""
+    there at no shift (footprint_boxes); pattern_tiles the colour tiles
+    that hold a pattern fill's (P_IMAGE) pair."""
     nct = sp.num_tiles
     ct = np.concatenate([g.ct for g in sp.groups] + [np.zeros(0, np.int32)]).astype(np.int64)
     grp = np.repeat(np.arange(len(sp.groups), dtype=np.int32),
@@ -379,17 +381,18 @@ def build_tile_index(sp: SamplingPlan, shapes, tile) -> TileIndex:
     table = np.array([(h, w, c, g.flags, g.kind, int(g.separable))
                       for g, (h, w, c) in zip(sp.groups, shapes)], np.int32)
     rotated = np.array([not g.separable for g in sp.groups] + [False], bool)
-    footprint = 0
+    footprint = pattern = 0
     if len(rows):
         params = np.concatenate([g.params for g in sp.groups])[rows]
         quad = np.array([g.kind == P_TEXTURE for g in sp.groups])[grp[rows]]
         box = footprint_boxes(params, quad, ~rotated[grp[rows]], *tile)
         footprint = int((np.clip(box[:, 1] - box[:, 0], 0, None)
                          * np.clip(box[:, 3] - box[:, 2], 0, None)).sum())
+        pattern = len(np.unique(ct[rows][~quad]))
     order = np.argsort(-np.diff(offsets, append=offsets[-1]), kind="stable")
     return TileIndex(table.reshape(-1, 6), offsets, clip, order.astype(np.int32),
                      np.stack([rows.astype(np.int32), grp[rows]], axis=1),
-                     int(rotated[grp[rows]].sum()), footprint)
+                     int(rotated[grp[rows]].sum()), footprint, pattern)
 
 
 @dataclass
@@ -409,6 +412,7 @@ class DeviceGroups:
     tile: tuple                # (th, tw) the tiles are sampled at
     n_rotated_pairs: int = 0   # TileIndex.n_rotated
     footprint_px: int = 0      # TileIndex.footprint_px
+    pattern_tiles: int = 0     # TileIndex.pattern_tiles
 
     @property
     def clipmask(self) -> torch.Tensor:
@@ -444,7 +448,7 @@ def upload_groups(sp: SamplingPlan, texs, device, tile) -> DeviceGroups:
     return DeviceGroups(words, at, len(idx.pairs), tuple(arrs), texs,
                         tuple((g.kind, g.separable, g.flags) for g in sp.groups),
                         sp.num_tiles, (int(tile[0]), int(tile[1])), idx.n_rotated,
-                        idx.footprint_px)
+                        idx.footprint_px, idx.pattern_tiles)
 
 
 def sample_groups(arrs, texs, clipmask, *, meta, th: int, tw: int,
@@ -554,13 +558,15 @@ def sample_tiles_flat(g: DeviceGroups, *, shift=(0.0, 0.0), plain: bool = False,
     for CUDA groups (counted as sample_kernel_launches on `profiler`), else,
     and with plain=True on any device, the twin sample_groups and
     flat_color_tiles.  Either route adds the (entry, quad) pairs of the
-    non-separable groups it samples, and the (pair, pixel) slots inside
-    S1's footprints at no shift, both counted on the host when the tile
-    index was built, to `profiler`'s sample_rotated_pairs and
-    sample_footprint_px.  shift: as sample_groups'."""
+    non-separable groups it samples, the (pair, pixel) slots inside S1's
+    footprints at no shift and the colour tiles of pattern fills it writes,
+    all counted on the host when the tile index was built, to `profiler`'s
+    sample_rotated_pairs, sample_footprint_px and sample_pattern_tiles.
+    shift: as sample_groups'."""
     if profiler is not None:
         profiler.count("sample_rotated_pairs", g.n_rotated_pairs)
         profiler.count("sample_footprint_px", g.footprint_px)
+        profiler.count("sample_pattern_tiles", g.pattern_tiles)
     if g.words.is_cuda and not plain:
         from vgtpu_torch.ops.sampling_cuda import sample_tiles_cuda
 

@@ -357,24 +357,28 @@ class RetainedScene:
 
         # textured/text layers: colour tiles are tile-local, so every view
         # RESAMPLES them; the bake uploads the sampling groups (with the
-        # reachable-window pair set) and the textures
+        # reachable-window pair set) and the textures, in stage
+        # bake.textures; counter texture_bytes: the textures' device bytes
         samp = None
         n_real = plan.n_real_entries
         pk = plan.entry_paint_kind[:n_real]
         if ((pk == P_IMAGE) | (pk == P_TEXTURE)).any():
             from vgtpu_torch.ops.sampling_device import build_sampling_plan, upload_groups
 
-            image_map = {
-                idx: (img.data, img.flags, img.generation)
-                for idx, img in ctx.images.items()
-            }
-            if ctx.font_system is not None:
-                image_map.update(ctx.font_system.atlas_image_map())
-            sp = build_sampling_plan(plan, ops_px, image_map, pan_margin=True)
-            if sp.num_tiles:
-                tex = ctx._device_textures(image_map, {g.image_id for g in sp.groups})
-                samp = upload_groups(sp, (tex[g.image_id] for g in sp.groups), dev,
-                                     (th, tw))
+            with ctx.profiler.stage("bake.textures"):
+                image_map = {
+                    idx: (img.data, img.flags, img.generation)
+                    for idx, img in ctx.images.items()
+                }
+                if ctx.font_system is not None:
+                    image_map.update(ctx.font_system.atlas_image_map())
+                sp = build_sampling_plan(plan, ops_px, image_map, pan_margin=True)
+                if sp.num_tiles:
+                    tex = ctx._device_textures(image_map, {g.image_id for g in sp.groups})
+                    samp = upload_groups(sp, (tex[g.image_id] for g in sp.groups), dev,
+                                         (th, tw))
+                    ctx.profiler.counters["texture_bytes"] = sum(
+                        t.numel() * t.element_size() for t in tex.values())
         nct = samp.num_tiles if samp is not None else plan.color_tiles.shape[0]
         # the view-invariant tables over the plan's own pools, which the
         # bake does not compact (vgtpu's bake does not either)

@@ -34,6 +34,13 @@ the rotation of every quad.
 draw_city(ctx, seed, width, height, **stats) draws the region and returns
 what it drew (counts, kilometres, vertices).  A smaller region keeps the
 densities, widths and sizes: it holds fewer features, not smaller ones.
+
+draw_hybrid(ctx, seed, width, height, **stats) draws the same city in the
+satellite-hybrid style that map services serve on HiDPI screens
+(devicePixelRatio 2): one 512 x 512 imagery image a z17 tile (@2x) as an
+image pattern, the roads at opacity 0.7 over it, the labels in white; no
+land, landuse, water or building fills.  The imagery is procedural too
+(imagery(): value noise through a palette of ground colours).
 """
 
 from __future__ import annotations
@@ -433,8 +440,8 @@ def _ring(ctx, pts) -> None:
     vg.closePath(ctx)
 
 
-def _rgb(c):
-    return vg.color4ub(c[0], c[1], c[2], 255)
+def _rgb(c, alpha: int = 255):
+    return vg.color4ub(c[0], c[1], c[2], alpha)
 
 
 def draw_city(ctx, seed: int, width: int = 2816, height: int = 2048, **stats) -> dict:
@@ -467,12 +474,29 @@ def draw_city(ctx, seed: int, width: int = 2816, height: int = 2048, **stats) ->
         vg.fillPath(ctx, fill, evenodd if hole is not None else nonzero)
         vg.strokePath(ctx, line, BUILDING_LINE_PX, vg.StrokeFlags.ButtMiterAA)
 
+    _draw_roads(ctx, city["ways"])
+    glyphs = _draw_labels(ctx, city, _rgb(STREET_TEXT), _rgb(PLACE_TEXT))
+    return {
+        "km2": city["km2"],
+        "landuse": len(city["landuse"]),
+        "river_vertices": len(city["river"]) + sum(len(i) for i in city["islands"]),
+        "islands": len(city["islands"]),
+        "buildings": len(city["buildings"]),
+        "courtyards": courtyards,
+        **_way_counts(city),
+        "glyphs": glyphs,
+    }
+
+
+def _draw_roads(ctx, ways, alpha: int = 255) -> None:
+    """Road casings of every class, then the fills minor to major, at the
+    alpha byte `alpha`."""
     flags = vg.StrokeFlags.RoundRoundAA
-    by_class = [[pts.tolist() for c, pts, _s in city["ways"] if c == k]
+    by_class = [[pts.tolist() for c, pts, _s in ways if c == k]
                 for k in range(len(ROAD_CLASSES))]
     for casing in (True, False):
         for k, (_name, width_px, _share) in enumerate(ROAD_CLASSES):
-            col = _rgb(ROAD_CASING[k] if casing else ROAD_FILL[k])
+            col = _rgb(ROAD_CASING[k] if casing else ROAD_FILL[k], alpha)
             w = width_px + (CASING_EXTRA_PX if casing else 0.0)
             for xy in by_class[k]:
                 vg.beginPath(ctx)
@@ -481,9 +505,14 @@ def draw_city(ctx, seed: int, width: int = 2816, height: int = 2048, **stats) ->
                     vg.lineTo(ctx, x, y)
                 vg.strokePath(ctx, col, w, flags)
 
+
+def _draw_labels(ctx, city: dict, street_col, place_col) -> int:
+    """The street names along their ways and the place labels; returns
+    the glyphs drawn."""
+    st = city["stats"]
     font = _font(ctx)
     cfg = vg.makeTextConfig(ctx, font, st["street_font_px"], vg.TextAlign.MiddleCenter,
-                            _rgb(STREET_TEXT))
+                            street_col)
     glyphs = 0
     for x, y, ang, name in city["street_labels"]:
         vg.pushState(ctx)
@@ -493,19 +522,17 @@ def draw_city(ctx, seed: int, width: int = 2816, height: int = 2048, **stats) ->
         vg.popState(ctx)
         glyphs += len(name.replace(" ", ""))
     cfg = vg.makeTextConfig(ctx, font, st["place_font_px"], vg.TextAlign.MiddleCenter,
-                            _rgb(PLACE_TEXT))
+                            place_col)
     for x, y, name in city["place_labels"]:
         vg.text(ctx, cfg, x, y, name)
         glyphs += len(name.replace(" ", ""))
+    return glyphs
 
+
+def _way_counts(city: dict) -> dict:
+    """What draw_city and draw_hybrid report of the ways and labels."""
     ways = city["ways"]
     return {
-        "km2": city["km2"],
-        "landuse": len(city["landuse"]),
-        "river_vertices": len(city["river"]) + sum(len(i) for i in city["islands"]),
-        "islands": len(city["islands"]),
-        "buildings": len(city["buildings"]),
-        "courtyards": courtyards,
         "ways": len(ways),
         "streets": len({s for _c, _p, s in ways if s >= 0}),
         "ways_by_class": {ROAD_CLASSES[k][0]: sum(c == k for c, _p, _s in ways)
@@ -513,5 +540,114 @@ def draw_city(ctx, seed: int, width: int = 2816, height: int = 2048, **stats) ->
         "road_km": sum(_length(p) for _c, p, _s in ways) * M_PER_PX / 1e3,
         "street_labels": len(city["street_labels"]),
         "place_labels": len(city["place_labels"]),
-        "glyphs": glyphs,
     }
+
+
+# ---------------------------------------------------------------------------
+# the satellite-hybrid style at dpr 2
+# ---------------------------------------------------------------------------
+
+IMAGERY_TILE_PX = 256          # a z17 tile, logical pixels
+IMAGERY_PX = 512               # its @2x imagery, texels a side
+IMAGERY_FLAGS = vg.ImageFlags.Filter_Bilinear | vg.ImageFlags.Clamp_UV
+# octaves of the value noise, by lattice spacing in texels (powers of two,
+# coarsest first): the ground cover's patches, and the detail that
+# modulates their brightness
+IMAGERY_COVER_OCTAVES = (512, 256, 128, 64, 32)
+IMAGERY_DETAIL_OCTAVES = (16, 8, 4, 2)
+# ground colours (RGB), dark vegetation to bright pavement
+IMAGERY_PALETTE = ((46, 62, 38), (72, 88, 52), (104, 108, 80), (132, 124, 104),
+                   (150, 146, 138), (112, 116, 120), (176, 170, 160))
+ROAD_OPACITY = 0.7
+HYBRID_LABEL = (255, 255, 255)
+
+
+def _upsample2(a: np.ndarray) -> np.ndarray:
+    """(h, w) -> (2h, 2w): along each axis a cell splits in two, each 3/4
+    the cell and 1/4 its neighbour on that side (the edge cell its own)."""
+    f = np.float32
+    lo = np.concatenate([a[:, :1], a[:, :-1]], axis=1)
+    hi = np.concatenate([a[:, 1:], a[:, -1:]], axis=1)
+    x = np.empty((a.shape[0], 2 * a.shape[1]), np.float32)
+    x[:, 0::2] = f(0.75) * a + f(0.25) * lo
+    x[:, 1::2] = f(0.75) * a + f(0.25) * hi
+    lo = np.concatenate([x[:1], x[:-1]], axis=0)
+    hi = np.concatenate([x[1:], x[-1:]], axis=0)
+    out = np.empty((2 * x.shape[0], x.shape[1]), np.float32)
+    out[0::2] = f(0.75) * x + f(0.25) * lo
+    out[1::2] = f(0.75) * x + f(0.25) * hi
+    return out
+
+
+def _value_noise(rng, h: int, w: int, spacings) -> np.ndarray:
+    """(h, w) float32 in [0, 1]: a uniform random lattice at the coarsest
+    spacing, halved in spacing by _upsample2 down to one texel, with a
+    lattice of half the amplitude added at each later spacing listed;
+    h and w are multiples of the coarsest spacing."""
+    s = spacings[0]
+    acc = rng.random((h // s, w // s), dtype=np.float32)
+    amp = total = 1.0
+    while s > 1:
+        acc, s = _upsample2(acc), s // 2
+        if s in spacings:
+            amp *= 0.5
+            acc += np.float32(amp) * rng.random(acc.shape, dtype=np.float32)
+            total += amp
+    return acc / np.float32(total)
+
+
+def imagery(seed: int, cols: int, rows: int) -> list:
+    """The region's imagery tiles, row-major, each (IMAGERY_PX, IMAGERY_PX, 4) uint8
+    RGBA with alpha 255, from a generator of its own drawn from the seed:
+    two value noises over the whole region, so that the tiles join; the
+    ground cover picks one of 256 colours along IMAGERY_PALETTE and the
+    detail one of 64 brightness steps from 0.7 to 1.3."""
+    rng = np.random.default_rng([seed, 2])
+    n = IMAGERY_PX
+    H, W = rows * n, cols * n
+    cover = _value_noise(rng, H, W, IMAGERY_COVER_OCTAVES)
+    detail = _value_noise(rng, H, W, IMAGERY_DETAIL_OCTAVES)
+    pal = np.asarray(IMAGERY_PALETTE, np.float64)
+    ramp = np.stack([np.interp(np.arange(256) / 255.0, np.linspace(0.0, 1.0, len(pal)),
+                               pal[:, ch]) for ch in range(3)], axis=1)
+    lut = np.full((256, 64, 4), 255, np.uint8)
+    lut[..., :3] = np.clip(np.rint(ramp[:, None, :] * (0.7 + 0.6 * np.arange(64) / 63.0)
+                                   [None, :, None]), 0, 255)
+    t = np.clip((cover - np.float32(0.5)) * np.float32(3.0) + np.float32(0.5), 0, 1)
+    idx = np.rint(t * np.float32(255)).astype(np.intp) * 64
+    idx += np.rint(detail * np.float32(63)).astype(np.intp)
+    img = lut.reshape(-1, 4).view(np.uint32).reshape(-1)[idx].view(np.uint8).reshape(H, W, 4)
+    return [np.ascontiguousarray(img[r * n:(r + 1) * n, c * n:(c + 1) * n])
+            for r in range(rows) for c in range(cols)]
+
+
+def draw_hybrid(ctx, seed: int, width: int = 2816, height: int = 2048, **stats) -> dict:
+    """The satellite-hybrid style of the same city (plan_city from the
+    seed) on ctx (after begin): one imagery image a z17 tile, IMAGERY_PX
+    texels a side (@2x), filled as an IMAGERY_TILE_PX logical rect with its
+    image pattern at the tile's origin, without antialiasing, as a map
+    client rasterises raster tiles (each pixel shows one tile); then the
+    road casings and fills at ROAD_OPACITY, then the labels in
+    HYBRID_LABEL, without halo.  No land, landuse, water or building
+    fills: the imagery (imagery() from the seed) shows them.  The context
+    needs max_images and max_image_patterns of at least the tile count."""
+    city = plan_city(seed, width, height, **stats)
+    cols, rows = -(-width // IMAGERY_TILE_PX), -(-height // IMAGERY_TILE_PX)
+    tiles = imagery(seed, cols, rows)
+    size = float(IMAGERY_TILE_PX)
+    for k, data in enumerate(tiles):
+        x, y = (k % cols) * size, (k // cols) * size
+        img = vg.createImage(ctx, data.shape[1], data.shape[0], IMAGERY_FLAGS, data)
+        pat = vg.createImagePattern(ctx, x, y, size, size, 0.0, img)
+        if not vg.isValid(pat):
+            raise ValueError(f"imagery tile {k}: no image or pattern left (the context "
+                             f"holds {ctx.cfg.max_images} images and "
+                             f"{ctx.cfg.max_image_patterns} patterns)")
+        vg.beginPath(ctx)
+        vg.rect(ctx, x, y, size, size)
+        vg.fillPath(ctx, pat, vg.Colors.White, vg.FillFlags.Convex)
+    _draw_roads(ctx, city["ways"], int(ROAD_OPACITY * 255 + 0.5))
+    label = _rgb(HYBRID_LABEL)
+    glyphs = _draw_labels(ctx, city, label, label)
+    return {"km2": city["km2"], "imagery_tiles": len(tiles), **_way_counts(city),
+            "glyphs": glyphs}

@@ -14,7 +14,9 @@ surfaces the counters.  A RetainedScene reports to the profiler of the
 context it was baked from: its renders add the pan's stages (`pan`,
 `pan.shift`, `pan.coverage`, `pan.patch`, `pan.resample`,
 `pan.composite`, `pan.window`) to `times_ms`, which report() divides by
-the frames ended through `end()` only.
+the frames ended through `end()` only; its bake adds `bake.textures` (the
+sampling plan and the texture uploads) and sets the `texture_bytes`
+counter.
 
 The stages are the port's one tracer.  Each keeps a host-clock total in
 `times_ms`; while a torch profiler records (`trace_frame`, or any
